@@ -1,0 +1,77 @@
+"""Carry state from the JAX package to the port.
+
+Takes the numpy arrays a ``sxmc_tpu`` run produced and builds the
+port's objects from them, so that both packages can compute on
+identical inputs: a chain state, the NLL constants, a dataset, and
+presampled noise streams.  Nothing here imports jax: the caller
+converts with ``np.asarray`` on its side.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from sxmc_tpu_torch.mcmc.metropolis import Presampler
+from sxmc_tpu_torch.ops.nll import NLLStatic
+from sxmc_tpu_torch.utils import as_f32
+
+
+def chain_state(params, nll_pair, width, device="cpu"
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor],
+                           torch.Tensor]:
+    """``(params, (hi, lo), width)`` float32 tensors on ``device``."""
+    hi, lo = (as_f32(np.asarray(x).reshape(()), device) for x in nll_pair)
+    return as_f32(params, device), (hi, lo), as_f32(width, device)
+
+
+def nll_static(static) -> NLLStatic:
+    """An ``NLLStatic`` from the JAX one's fields (numpy copies)."""
+    return NLLStatic(
+        nexpected=np.asarray(static.nexpected, np.float32),
+        n_mc=np.asarray(static.n_mc, np.float32),
+        source_id=np.asarray(static.source_id, np.int32),
+        means=np.asarray(static.means, np.float32),
+        sigmas=np.asarray(static.sigmas, np.float32),
+        nsources=int(static.nsources))
+
+
+def dataset(data) -> np.ndarray:
+    """A ``(nevents, nobs + 1)`` float32 dataset (tag last)."""
+    data = np.asarray(data, np.float32)
+    if data.ndim != 2:
+        raise ValueError(f"dataset must be 2-D, got {data.shape}")
+    return data
+
+
+def stream(noise, u, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
+    """A phase's ``(noise (n, npar), log_u (n,))`` from the JAX
+    ``_presample(keys, npar, 0)`` output ``(noise (n, 1, npar), u (n,
+    1))``; ``log_u`` is the float32 ``log(u)`` the fused path takes."""
+    noise = np.asarray(noise, np.float32)
+    u = np.asarray(u, np.float32)
+    if noise.ndim == 3:
+        noise = noise[:, 0, :]
+    if u.ndim == 2:
+        u = u[:, 0]
+    with np.errstate(divide="ignore"):
+        log_u = np.log(u)
+    return as_f32(noise, device), as_f32(log_u, device)
+
+
+def presampler(phases: Sequence[Tuple[np.ndarray, np.ndarray]],
+               device="cpu") -> Presampler:
+    """A presampler that hands out the given ``(noise, u)`` streams,
+    one per phase (burn-in 1, burn-in 2, main)."""
+    streams = [stream(n, u, device) for n, u in phases]
+
+    def draw(phase: int, n: int):
+        noise, log_u = streams[phase]
+        if noise.shape[0] != n:
+            raise ValueError(f"phase {phase} stream has {noise.shape[0]} "
+                             f"steps, the chain asks for {n}")
+        return noise, log_u
+
+    return draw

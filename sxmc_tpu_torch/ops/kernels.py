@@ -1,0 +1,557 @@
+"""The hand-written Hopper kernels: build, bind, wrap, count.
+
+Three kernels carry the default Metropolis fit (sources and notes in
+``sxmc_tpu_torch/csrc/``):
+
+  B1 :func:`segmented_histogram`  <- sxmc_tpu/ops/pallas_hist.py::
+     pallas_histogram_segmented (fake-data generation, EvalHist)
+  B3 :func:`fused_nll`            <- sxmc_tpu/ops/pallas_step.py::
+     pallas_fused_step (the chain's initial NLL)
+  B4 :func:`fused_segment`        <- sxmc_tpu/ops/pallas_step.py::
+     pallas_fused_segment (one whole fixed-width Metropolis phase)
+
+Each wrapper checks its inputs, and then takes one of two routes
+decided only by where the tensors lie: on the CPU it runs the plain
+PyTorch version beside it (``*_plain``), on a CUDA device it launches
+the kernel or raises.  There is no fallback from the card to the plain
+version.  Every launch adds one to the wrapper's ``launches`` count.
+
+The library is compiled with nvcc at first use, into
+``build/sxmc_kernels/<hash of the sources>/`` beside the package, and
+loaded with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from sxmc_tpu_torch.ops import histogram as hist_ops
+from sxmc_tpu_torch.ops import transforms
+from sxmc_tpu_torch.ops.nll import NLLStatic, df_diff, nll_pair
+
+# Limits of the C struct SxSpec (csrc/sxmc_phases.cuh).
+MAXOBS, MAXFIELDS, MAXSEG, MAXSIG = 4, 8, 32, 32
+MAXSYST, MAXPOW, MAXPAR = 8, 4, 64
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
+               "-Xcompiler", "-fPIC")
+
+
+# ---------------------------------------------------------------- specs
+
+
+@dataclasses.dataclass(frozen=True)
+class HistSpec:
+    """Sample layout, binning and masked systematics of a histogram.
+
+    ``samples`` tensors are field-major ``(nfields, n)`` float32, the
+    dynamic segments back to back: segment d is columns
+    ``seg_off[d]:seg_off[d + 1]``.  ``systematics`` holds ``(desc,
+    mask)`` pairs, ``mask[d]`` true where the systematic acts on
+    segment d; ``desc.par_indices`` index the systematic-parameter
+    vector theta.
+    """
+
+    nfields: int
+    lower: Tuple[float, ...]
+    upper: Tuple[float, ...]
+    nbins: Tuple[int, ...]
+    systematics: Tuple[Tuple[transforms.SystematicDesc, Tuple[bool, ...]],
+                       ...]
+    seg_off: Tuple[int, ...]
+
+    @classmethod
+    def build(cls, nfields, lower, upper, nbins, systematics, seg_off):
+        spec = cls(int(nfields), tuple(float(x) for x in lower),
+                   tuple(float(x) for x in upper),
+                   tuple(int(b) for b in nbins),
+                   tuple((d, tuple(bool(b) for b in m))
+                         for d, m in systematics),
+                   tuple(int(x) for x in seg_off))
+        spec.validate()
+        return spec
+
+    @property
+    def nobs(self) -> int:
+        return len(self.nbins)
+
+    @property
+    def ndyn(self) -> int:
+        return len(self.seg_off) - 1
+
+    @property
+    def total(self) -> int:
+        return hist_ops.total_bins(self.nbins)
+
+    @property
+    def n(self) -> int:
+        return self.seg_off[-1]
+
+    def validate(self) -> None:
+        if not 1 <= self.nobs <= MAXOBS:
+            raise ValueError(f"{self.nobs} observables (kernels take "
+                             f"1..{MAXOBS})")
+        if not self.nobs <= self.nfields <= MAXFIELDS:
+            raise ValueError(f"{self.nfields} sample fields (kernels take "
+                             f"up to {MAXFIELDS})")
+        if not 1 <= self.ndyn <= MAXSEG:
+            raise ValueError(f"{self.ndyn} dynamic segments (kernels take "
+                             f"1..{MAXSEG})")
+        if len(self.systematics) > MAXSYST:
+            raise ValueError(f"{len(self.systematics)} systematics "
+                             f"(kernels take up to {MAXSYST})")
+        for desc, mask in self.systematics:
+            if not 1 <= desc.npars <= MAXPOW or len(mask) != self.ndyn:
+                raise ValueError(f"bad systematic {desc} / mask {mask}")
+        if list(self.seg_off) != sorted(self.seg_off) or \
+                self.seg_off[0] != 0 or self.n >= 2 ** 31:
+            raise ValueError(f"bad segment offsets {self.seg_off}")
+
+
+@dataclasses.dataclass(frozen=True)
+class NLLSpec:
+    """What the fused kernels need beyond the histogram: the NLL
+    constants, which dynamic segment (or -1: static row) each signal
+    is, the static signals' in-domain counts and the bin volume."""
+
+    st: NLLStatic
+    sig_slot: Tuple[int, ...]
+    norm_init: Tuple[float, ...]
+    bin_volume: float
+
+    @property
+    def nsig(self) -> int:
+        return len(self.sig_slot)
+
+    @property
+    def npar(self) -> int:
+        return len(self.st.means)
+
+    def validate(self) -> None:
+        if not 1 <= self.nsig <= MAXSIG or not 1 <= self.npar <= MAXPAR:
+            raise ValueError(f"{self.nsig} signals / {self.npar} parameters "
+                             f"(kernels take up to {MAXSIG} / {MAXPAR})")
+
+
+class _CSpec(ctypes.Structure):
+    """Field-by-field mirror of ``SxSpec`` (csrc/sxmc_phases.cuh)."""
+
+    _fields_ = [
+        ("nfields", ctypes.c_int), ("nobs", ctypes.c_int),
+        ("total", ctypes.c_int), ("ndyn", ctypes.c_int),
+        ("nsyst", ctypes.c_int),
+        ("nbins", ctypes.c_int * MAXOBS), ("strides", ctypes.c_int * MAXOBS),
+        ("seg_off", ctypes.c_int * (MAXSEG + 1)),
+        ("syst_type", ctypes.c_int * MAXSYST),
+        ("syst_obs", ctypes.c_int * MAXSYST),
+        ("syst_extra", ctypes.c_int * MAXSYST),
+        ("syst_npow", ctypes.c_int * MAXSYST),
+        ("syst_par", ctypes.c_int * (MAXSYST * MAXPOW)),
+        ("syst_mask", ctypes.c_uint * MAXSYST),
+        ("lower", ctypes.c_float * MAXOBS), ("upper", ctypes.c_float * MAXOBS),
+        ("scale", ctypes.c_float * MAXOBS),
+        ("nsig", ctypes.c_int), ("npar", ctypes.c_int),
+        ("nsources", ctypes.c_int),
+        ("sig_slot", ctypes.c_int * MAXSIG),
+        ("source_id", ctypes.c_int * MAXSIG),
+        ("bin_volume", ctypes.c_float),
+        ("nexpected", ctypes.c_float * MAXSIG),
+        ("n_mc", ctypes.c_float * MAXSIG),
+        ("norm_init", ctypes.c_float * MAXSIG),
+        ("means", ctypes.c_float * MAXPAR),
+        ("sigmas", ctypes.c_float * MAXPAR),
+    ]
+
+
+def _c_spec(hs: HistSpec, ns: Optional[NLLSpec], par_off: int) -> _CSpec:
+    c = _CSpec()
+    c.nfields, c.nobs, c.total = hs.nfields, hs.nobs, hs.total
+    c.ndyn, c.nsyst = hs.ndyn, len(hs.systematics)
+    scales = hist_ops.bin_scales(hs.lower, hs.upper, hs.nbins)
+    for a, (nb, st) in enumerate(zip(hs.nbins,
+                                     hist_ops.bin_strides(hs.nbins))):
+        c.nbins[a], c.strides[a] = nb, st
+        c.lower[a] = np.float32(hs.lower[a])
+        c.upper[a] = np.float32(hs.upper[a])
+        c.scale[a] = scales[a]
+    for d, off in enumerate(hs.seg_off):
+        c.seg_off[d] = off
+    for k, (desc, mask) in enumerate(hs.systematics):
+        c.syst_type[k], c.syst_obs[k] = desc.type, desc.obs
+        c.syst_extra[k], c.syst_npow[k] = desc.extra_field, desc.npars
+        for q, pidx in enumerate(desc.par_indices):
+            c.syst_par[k * MAXPOW + q] = par_off + pidx
+        c.syst_mask[k] = sum(1 << d for d, on in enumerate(mask) if on)
+    if ns is not None:
+        st = ns.st
+        c.nsig, c.npar, c.nsources = ns.nsig, ns.npar, int(st.nsources)
+        c.bin_volume = np.float32(ns.bin_volume)
+        for j in range(ns.nsig):
+            c.sig_slot[j] = ns.sig_slot[j]
+            c.source_id[j] = int(st.source_id[j])
+            c.nexpected[j] = np.float32(st.nexpected[j])
+            c.n_mc[j] = np.float32(st.n_mc[j])
+            c.norm_init[j] = np.float32(ns.norm_init[j])
+        for k in range(ns.npar):
+            c.means[k] = np.float32(st.means[k])
+            c.sigmas[k] = np.float32(st.sigmas[k])
+    return c
+
+
+# ---------------------------------------------------------------- build
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"  # the toolkit's default prefix
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def _build_dir() -> Path:
+    return _CSRC.parent.parent / "build" / "sxmc_kernels"
+
+
+def _sources_hash() -> str:
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for src in sorted(_CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> dict:
+    """Compile the kernel library if needed; returns where it is, how
+    long the build took (0 when it was already built) and nvcc's log."""
+    out_dir = _build_dir() / _sources_hash()
+    lib = out_dir / "libsxmc_kernels.so"
+    log = out_dir / "build.log"
+    if lib.exists():
+        return {"path": str(lib), "seconds": 0.0,
+                "log": log.read_text() if log.exists() else ""}
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"libsxmc_kernels.{os.getpid()}.tmp.so"
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
+           str(_CSRC / "sxmc_kernels.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    text = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    log.write_text(text)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text}")
+    os.replace(tmp, lib)
+    return {"path": str(lib), "seconds": seconds, "log": text}
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    if torch.cuda.get_device_capability() != (9, 0):
+        raise RuntimeError(
+            "the sxmc_tpu_torch kernels are built for sm_90a (Hopper); "
+            f"this card is {torch.cuda.get_device_name()} "
+            f"(sm_{''.join(map(str, torch.cuda.get_device_capability()))})")
+    lib = ctypes.CDLL(build()["path"])
+    lib.sx_spec_size.argtypes, lib.sx_spec_size.restype = [], _I
+    lib.sx_error_string.argtypes = [_I]
+    lib.sx_error_string.restype = ctypes.c_char_p
+    lib.sx_histogram.argtypes = [_P] * 6
+    lib.sx_histogram.restype = _I
+    lib.sx_fused_grid.argtypes = [_P, _P]
+    lib.sx_fused_grid.restype = _I
+    lib.sx_fused.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+                             _P, _P, _I, _P, _P, _P, _P]
+    lib.sx_fused.restype = _I
+    if lib.sx_spec_size() != ctypes.sizeof(_CSpec):
+        raise RuntimeError(
+            f"SxSpec is {lib.sx_spec_size()} bytes in C but "
+            f"{ctypes.sizeof(_CSpec)} in ops/kernels.py")
+    return lib
+
+
+def _check_cuda(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what}: CUDA error {err} "
+            f"({lib.sx_error_string(err).decode()})")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# ------------------------------------------------------------- checks
+
+
+def _expect(t: torch.Tensor, name: str, shape, dtype, device) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_samples(hs: HistSpec, samples: torch.Tensor) -> None:
+    _expect(samples, "samples", (hs.nfields, hs.n), torch.float32,
+            samples.device)
+
+
+# ------------------------------------------------------ plain versions
+
+
+def _dyn_counts_plain(hs: HistSpec, samples: torch.Tensor,
+                      par: torch.Tensor, par_off: int) -> torch.Tensor:
+    """``(ndyn, total)`` int64 counts: the plain version of the
+    rebuild every kernel here does."""
+    dev = samples.device
+    cols = [samples[f] for f in range(hs.nfields)]
+    sizes = torch.as_tensor(np.diff(hs.seg_off), device=dev)
+    seg = torch.repeat_interleave(torch.arange(hs.ndyn, device=dev), sizes)
+    theta = par[par_off:]
+    for desc, mask in hs.systematics:
+        if not any(mask):
+            continue
+        new = transforms.transform_field(desc, cols, theta)
+        if all(mask):
+            cols[desc.obs] = new
+        else:
+            on = torch.as_tensor(mask, device=dev)[seg]
+            cols[desc.obs] = torch.where(on, new, cols[desc.obs])
+    ids, valid = hist_ops.compute_bin_ids(
+        torch.stack(cols[:hs.nobs], dim=1), hs.lower, hs.upper, hs.nbins)
+    return hist_ops.segmented_histogram(ids, valid, seg, hs.ndyn, hs.total)
+
+
+def segmented_histogram_plain(hs: HistSpec, samples: torch.Tensor,
+                              theta: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of B1: ``(ndyn, total)`` float32 counts and the
+    ``(ndyn,)`` float32 in-domain counts (integer sums, then cast)."""
+    counts = _dyn_counts_plain(hs, samples, theta, 0)
+    return counts.to(torch.float32), counts.sum(dim=1).to(torch.float32)
+
+
+def assemble(ns: NLLSpec, hist_init: torch.Tensor,
+             counts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full ``(nsig, total)`` float32 table + ``(nsig,)`` norms from the
+    static rows and the dynamic segments' integer counts."""
+    dev = hist_init.device
+    dyn = [j for j, s in enumerate(ns.sig_slot) if s >= 0]
+    slots = torch.as_tensor([ns.sig_slot[j] for j in dyn], device=dev)
+    idx = torch.as_tensor(dyn, device=dev)
+    hists = hist_init.clone()
+    hists[idx] = counts[slots].to(torch.float32)
+    norms = torch.as_tensor(np.asarray(ns.norm_init, np.float32), device=dev)
+    norms[idx] = counts[slots].sum(dim=1).to(torch.float32)
+    return hists, norms
+
+
+def fused_nll_plain(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
+                    hist_init: torch.Tensor, rb: torch.Tensor,
+                    params: torch.Tensor):
+    """Plain version of B3: rebuild, LUT, ``nll_pair``."""
+    from sxmc_tpu_torch.pdf.evalhist import eval_from_bins
+
+    counts = _dyn_counts_plain(hs, samples, params, int(ns.st.nsources))
+    hists, norms = assemble(ns, hist_init, counts)
+    lut = eval_from_bins(hists, norms, ns.bin_volume, rb)
+    return nll_pair(params, lut, norms, ns.st)
+
+
+def fused_segment_plain(hs, ns, samples, hist_init, rb, params0, nll0,
+                        width, noise, log_u, debug_mode: bool = False):
+    """Plain version of B4: the step loop, one :func:`fused_nll_plain`
+    per proposal, the log-space accept.  Stays on the device (no
+    host synchronisation per step)."""
+    cur = params0.clone()
+    cur_hi, cur_lo = nll0[0].clone(), nll0[1].clone()
+    zero = torch.zeros((), dtype=torch.float32, device=params0.device)
+    wpos = torch.clamp_min(width, 0.0)
+    out_s, out_n, out_a = [], [], []
+    for s in range(noise.shape[0]):
+        prop = torch.where(width > 0, cur + noise[s] * wpos, cur)
+        hi, lo = fused_nll_plain(hs, ns, samples, hist_init, rb, prop)
+        delta = df_diff(cur_hi, cur_lo, hi, lo)
+        acc = (delta > zero) | (log_u[s] <= delta)
+        if debug_mode:
+            acc = torch.ones_like(acc)
+        cur = torch.where(acc, prop, cur)
+        cur_hi = torch.where(acc, hi, cur_hi)
+        cur_lo = torch.where(acc, lo, cur_lo)
+        out_s.append(cur)
+        out_n.append(torch.stack([cur_hi, cur_lo]))
+        out_a.append(acc.to(torch.float32))
+    return torch.stack(out_s), torch.stack(out_n), torch.stack(out_a)
+
+
+# ------------------------------------------------------------ wrappers
+
+
+def segmented_histogram(hs: HistSpec, samples: torch.Tensor,
+                        theta: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1: ``(ndyn, total)`` float32 counts of the dynamic segments at
+    systematic parameters ``theta`` and their ``(ndyn,)`` in-domain
+    counts (the norms), both exact integer counts."""
+    dev = samples.device
+    _check_samples(hs, samples)
+    npar = max((max(d.par_indices) + 1 for d, _ in hs.systematics),
+               default=0)
+    if theta.dim() != 1 or theta.shape[0] < npar:
+        raise ValueError(f"theta has shape {tuple(theta.shape)}, needs "
+                         f"({npar},) or longer")
+    _expect(theta, "theta", theta.shape, torch.float32, dev)
+    if dev.type == "cpu":
+        return segmented_histogram_plain(hs, samples, theta)
+    lib = _library()
+    nh = hs.ndyn * hs.total
+    out = torch.empty(nh + hs.ndyn, dtype=torch.float32, device=dev)
+    scratch = torch.empty(nh + hs.ndyn, dtype=torch.int32, device=dev)
+    cs = _c_spec(hs, None, 0)
+    if theta.shape[0] == 0:
+        theta = torch.zeros(1, dtype=torch.float32, device=dev)
+    err = lib.sx_histogram(ctypes.byref(cs), _ptr(samples), _ptr(theta),
+                           _ptr(scratch), _ptr(out), _stream(dev))
+    _check_cuda(lib, err, "segmented_histogram")
+    segmented_histogram.launches += 1
+    return out[:nh].view(hs.ndyn, hs.total), out[nh:]
+
+
+segmented_histogram.launches = 0
+
+
+def _check_fused(hs, ns, samples, hist_init, rb, params):
+    dev = samples.device
+    ns.validate()
+    _check_samples(hs, samples)
+    _expect(hist_init, "hist_init", (ns.nsig, hs.total), torch.float32, dev)
+    if rb.dim() != 2:
+        raise ValueError("read_bins must be (nsignals, nevents)")
+    _expect(rb, "read_bins", (ns.nsig, rb.shape[1]), torch.int32, dev)
+    _expect(params, "params", (ns.npar,), torch.float32, dev)
+    if sorted(s for s in ns.sig_slot if s >= 0) != list(range(hs.ndyn)):
+        raise ValueError(f"sig_slot {ns.sig_slot} does not cover the "
+                         f"{hs.ndyn} dynamic segments")
+
+
+def _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
+                  noise, log_u, nsteps, debug, samples_out, nlls_out,
+                  acc_out, what):
+    dev = samples.device
+    lib = _library()
+    cs = _c_spec(hs, ns, int(ns.st.nsources))
+    nblocks = ctypes.c_int(0)
+    _check_cuda(lib, lib.sx_fused_grid(ctypes.byref(cs),
+                                       ctypes.byref(nblocks)), what)
+    partials = torch.empty(nblocks.value, dtype=torch.float64, device=dev)
+    scratch = torch.empty(2 * (hs.ndyn * hs.total + hs.ndyn),
+                          dtype=torch.int32, device=dev)
+    err = lib.sx_fused(
+        ctypes.byref(cs), _ptr(samples), _ptr(hist_init), _ptr(rb),
+        rb.shape[1], _ptr(params0), _ptr(nll0), _ptr(width), _ptr(noise),
+        _ptr(log_u), nsteps, int(debug), _ptr(scratch), _ptr(partials),
+        nblocks.value, _ptr(samples_out), _ptr(nlls_out), _ptr(acc_out),
+        _stream(dev))
+    _check_cuda(lib, err, what)
+
+
+def fused_nll(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
+              hist_init: torch.Tensor, rb: torch.Tensor,
+              params: torch.Tensor):
+    """B3: the compensated NLL ``(hi, lo)`` at ``params`` in one
+    launch: rebuild the dynamic histograms on top of the static rows,
+    norms, LUT gather, mix, log-sum, finish."""
+    _check_fused(hs, ns, samples, hist_init, rb, params)
+    if samples.device.type == "cpu":
+        return fused_nll_plain(hs, ns, samples, hist_init, rb, params)
+    out = torch.empty(2, dtype=torch.float32, device=samples.device)
+    _launch_fused(hs, ns, samples, hist_init, rb, params, None, None, None,
+                  None, 0, False, None, out, None, "fused_nll")
+    fused_nll.launches += 1
+    return out[0], out[1]
+
+
+fused_nll.launches = 0
+
+
+def fused_segment(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
+                  hist_init: torch.Tensor, rb: torch.Tensor,
+                  params0: torch.Tensor, nll0: torch.Tensor,
+                  width: torch.Tensor, noise: torch.Tensor,
+                  log_u: torch.Tensor, debug_mode: bool = False):
+    """B4: a whole fixed-width Metropolis segment in one launch.
+
+    Per step: propose ``cur + noise * max(width, 0)`` (pinned where
+    width <= 0), B3's NLL, accept where ``delta > 0`` or ``log_u <=
+    delta``.  Returns the scan-shaped history ``(samples (n, npar),
+    nlls (n, 2), accepts (n,))``.
+    """
+    dev = samples.device
+    _check_fused(hs, ns, samples, hist_init, rb, params0)
+    n = noise.shape[0] if noise.dim() == 2 else -1
+    _expect(nll0, "nll0", (2,), torch.float32, dev)
+    _expect(width, "width", (ns.npar,), torch.float32, dev)
+    _expect(noise, "noise", (n, ns.npar), torch.float32, dev)
+    _expect(log_u, "log_u", (n,), torch.float32, dev)
+    if n < 1:
+        raise ValueError("a segment needs at least one step")
+    if dev.type == "cpu":
+        return fused_segment_plain(hs, ns, samples, hist_init, rb, params0,
+                                   nll0, width, noise, log_u, debug_mode)
+    samples_out = torch.empty((n, ns.npar), dtype=torch.float32, device=dev)
+    nlls_out = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    acc_out = torch.empty(n, dtype=torch.float32, device=dev)
+    _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
+                  noise, log_u, n, debug_mode, samples_out, nlls_out,
+                  acc_out, "fused_segment")
+    fused_segment.launches += 1
+    return samples_out, nlls_out, acc_out
+
+
+fused_segment.launches = 0
+
+KERNELS = (segmented_histogram, fused_nll, fused_segment)
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel since the last reset."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0

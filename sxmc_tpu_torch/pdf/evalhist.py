@@ -1,0 +1,203 @@
+"""Binned PDF evaluator (PyTorch port of ``sxmc_tpu/pdf/evalhist.py``).
+
+Semantics (reference src/pdfz.{h,cpp}):
+  * systematics transform the samples at every evaluation
+    (pdfz.cpp:372-385);
+  * events outside ``[lower, upper)`` in any observable are dropped from
+    both histogram and normalization (pdfz.cpp:388-404);
+  * eval points never move, so their bin ids are precomputed once per
+    dataset: id >= 0 in-domain, -1 out-of-domain -> NaN, -2 dataset
+    mismatch -> 0.0, out-of-domain winning over a mismatch
+    (pdfz.cpp:245-302, 411-436; evalhist.py:140-155);
+  * PDF value = bins[id] / (norm * bin_volume).
+
+The histogram is built by the segmented-histogram kernel wrapper
+(``ops.kernels.segmented_histogram``) with one segment: on a CUDA
+device that is the hand-written kernel, on the CPU its plain version.
+Weighted samples, density export and ``random_sample`` are not ported
+yet (ROADMAP queue A, item 3).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from sxmc_tpu_torch.ops import histogram as hist_ops
+from sxmc_tpu_torch.ops import transforms
+
+
+class PdfError(ValueError):
+    """Generic PDF-related error (reference: pdfz.h:93-102)."""
+
+
+class EvalHist:
+    """N-dimensional histogram PDF with on-the-fly systematics.
+
+    The samples stay on the host until the first evaluation, which
+    copies them to ``device`` once.
+    """
+
+    def __init__(
+        self,
+        samples,
+        nfields: int,
+        nobservables: int,
+        lower: Sequence[float],
+        upper: Sequence[float],
+        nbins: Sequence[int],
+        dataset: int = 0,
+        weights=None,
+        device="cpu",
+    ):
+        if weights is not None:
+            raise NotImplementedError(
+                "weighted MC samples are not ported to sxmc_tpu_torch yet "
+                "(ROADMAP queue A, item 3 and kernel B4's weighted form)")
+        samples = np.asarray(samples, dtype=np.float32)
+        if samples.ndim == 1:
+            if nfields <= 0 or samples.size % nfields != 0:
+                raise PdfError(
+                    "Length of samples array is not divisible by number of "
+                    "fields.")
+            samples = samples.reshape(-1, nfields)
+        if samples.shape[1] != nfields:
+            raise PdfError("Sample array width does not match nfields.")
+        if nobservables == 0:
+            raise PdfError("Number of observables in PDF is zero.")
+        if nobservables > nfields:
+            raise PdfError(
+                "Number of observables cannot be greater than number of "
+                "fields.")
+        if len(upper) != nobservables:
+            raise PdfError(
+                "Number of upper bounds must be same as number of "
+                "observables.")
+        if len(lower) != nobservables:
+            raise PdfError(
+                "Number of lower bounds must be same as number of "
+                "observables.")
+        if len(nbins) != nobservables:
+            raise PdfError(
+                "Size of nbins array must be same as number of observables.")
+        if hist_ops.total_bins(nbins) == 0:
+            raise PdfError("Cannot make histogram with zero bins.")
+
+        self.samples_host = samples
+        self.weights = None
+        self.nfields = nfields
+        self.nobservables = nobservables
+        self.lower_host = tuple(float(x) for x in lower)
+        self.upper_host = tuple(float(x) for x in upper)
+        self.nbins = tuple(int(b) for b in nbins)
+        self.dataset = int(dataset)
+        self.total_nbins = hist_ops.total_bins(self.nbins)
+        self.bin_volume = hist_ops.bin_volume(lower, upper, self.nbins)
+        self.systematics: Tuple[transforms.SystematicDesc, ...] = ()
+        self.device = torch.device(device)
+        self._samples_t = None  # field-major device copy, made lazily
+
+    @property
+    def n_mc(self) -> int:
+        return self.samples_host.shape[0]
+
+    def add_systematic(self, desc: transforms.SystematicDesc) -> None:
+        """Attach a systematic (reference: Eval::AddSystematic)."""
+        self.systematics = self.systematics + (desc,)
+
+    def compute_read_bins(self, points) -> torch.Tensor:
+        """Eval-point bin ids with the -1/-2 sentinels.
+
+        ``points`` is ``(npoints, nobservables + 1)``; the final column
+        is the dataset tag.
+        """
+        points = np.asarray(points, dtype=np.float32)
+        if points.ndim == 1:
+            width = self.nobservables + 1
+            if points.size % width != 0:
+                raise PdfError(
+                    "Number of entries in evaluation points array not "
+                    "divisible by number of observables.")
+            points = points.reshape(-1, width)
+        pts = torch.as_tensor(points, device=self.device)
+        return read_bins_for(pts, self.nobservables, self.lower_host,
+                             self.upper_host, self.nbins, [self.dataset])[0]
+
+    def histogram(self, params=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Build ``(bins, norm)`` at the given systematic parameters."""
+        from sxmc_tpu_torch.ops import kernels
+
+        npar = max((max(d.par_indices) + 1 for d in self.systematics),
+                   default=0)
+        theta = (np.zeros(npar, np.float32) if params is None
+                 else np.atleast_1d(np.asarray(params, np.float32)))
+        if self._samples_t is None:
+            self._samples_t = torch.as_tensor(
+                np.ascontiguousarray(self.samples_host.T),
+                device=self.device)
+        spec = kernels.HistSpec.build(
+            nfields=self.nfields, lower=self.lower_host,
+            upper=self.upper_host, nbins=self.nbins,
+            systematics=[(d, (True,)) for d in self.systematics],
+            seg_off=(0, self.n_mc))
+        bins, norms = kernels.segmented_histogram(
+            spec, self._samples_t, torch.as_tensor(theta, device=self.device))
+        return bins[0], norms[0]
+
+    def eval(self, read_bins: torch.Tensor, params=None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Histogram + evaluate at precomputed read_bins.
+
+        Returns ``(pdf_values, norm)``: ``(npoints,)`` float32 densities
+        (NaN/0 sentinels applied) and the scalar in-domain norm.
+        """
+        bins, norm = self.histogram(params)
+        return eval_from_bins(bins, norm, self.bin_volume, read_bins), norm
+
+    def eval_points(self, points, params=None):
+        """Convenience: compute read_bins then evaluate."""
+        return self.eval(self.compute_read_bins(points), params)
+
+    def get_samples(self) -> np.ndarray:
+        """Observable columns + dataset tag (reference: pdfz.h:542-556)."""
+        obs = self.samples_host[:, :self.nobservables]
+        tag = np.full((obs.shape[0], 1), float(self.dataset), np.float32)
+        return np.concatenate([obs, tag], axis=1)
+
+
+def read_bins_for(points: torch.Tensor, nobs: int, lower, upper, nbins,
+                  datasets: Sequence[int]) -> torch.Tensor:
+    """``(len(datasets), npoints)`` int32 read bins of float32 points.
+
+    Row j holds the bin id where the point's tag equals ``datasets[j]``,
+    -2 where it does not, and -1 where the point is out of domain
+    (out-of-domain wins, pdfz.cpp:295-301).
+    """
+    ids, valid = hist_ops.compute_bin_ids(points[:, :nobs], lower, upper,
+                                          nbins)
+    ids = ids.to(torch.int32)
+    tags = points[:, nobs]
+    minus1 = torch.full_like(ids, -1)
+    minus2 = torch.full_like(ids, -2)
+    rows = [torch.where(valid, torch.where(tags == float(ds), ids, minus2),
+                        minus1) for ds in datasets]
+    return torch.stack(rows)
+
+
+def eval_from_bins(bins: torch.Tensor, norm: torch.Tensor,
+                   bin_volume: float, read_bins: torch.Tensor
+                   ) -> torch.Tensor:
+    """LUT gather with sentinel semantics (reference: pdfz.cpp:411-436).
+
+    ``bins`` is ``(..., total_nbins)`` and ``read_bins`` ``(...,
+    npoints)`` with matching leading axes; ``norm`` broadcasts over
+    the leading axes.
+    """
+    safe = read_bins.to(torch.int64).clamp(0, bins.shape[-1] - 1)
+    denom = (norm * float(np.float32(bin_volume))).unsqueeze(-1)
+    vals = torch.gather(bins, -1, safe) / denom
+    vals = torch.where(read_bins == -2, torch.zeros_like(vals), vals)
+    return torch.where(read_bins == -1, torch.full_like(vals, float("nan")),
+                       vals)

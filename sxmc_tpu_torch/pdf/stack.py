@@ -1,0 +1,203 @@
+"""PdfStack: all of a fit's PDFs as one batched evaluation (PyTorch).
+
+Port of ``sxmc_tpu/pdf/stack.py`` for histogram signals.  Every
+signal's MC samples are concatenated; systematics carry per-signal
+application masks.
+
+Static/dynamic split (stack.py:216-252): a signal no systematic acts on
+has a theta-invariant histogram, built once on the host here and never
+again; only the *dynamic* signals' samples go to the device, field-major
+``(nfields, n)`` and back to back, each signal a segment addressed by
+its offset (the TPU padded every segment to a chunk multiple instead).
+
+Entry points used by the default fit: :meth:`histograms` (kernel B1),
+:meth:`fused_nll_pair` (B3) and :meth:`fused_segment` (B4).  KDE and
+weighted signals are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from sxmc_tpu_torch.ops import histogram as hist_ops
+from sxmc_tpu_torch.ops import kernels
+from sxmc_tpu_torch.ops.nll import NLLStatic
+from sxmc_tpu_torch.ops.transforms import SystematicDesc
+from sxmc_tpu_torch.pdf.evalhist import EvalHist, read_bins_for
+from sxmc_tpu_torch.signal import Observable, Signal, Systematic
+from sxmc_tpu_torch.utils import as_f32
+
+
+def _host_histogram(samples, lower, upper, nbins) -> np.ndarray:
+    """Host (numpy) counts with the device bin-id math (the f32 scale
+    of ``compute_bin_ids``, stack.py:62-101 with pallas_scale=False)."""
+    samples = np.asarray(samples, np.float32)
+    strides = hist_ops.bin_strides(nbins)
+    scales = hist_ops.bin_scales(lower, upper, nbins)
+    n = samples.shape[0]
+    valid = np.ones(n, bool)
+    ids = np.zeros(n, np.int64)
+    for i in range(len(nbins)):
+        lo = np.float32(lower[i])
+        up = np.float32(upper[i])
+        col = samples[:, i]
+        valid &= (col >= lo) & (col < up)
+        axis = np.floor((col - lo) * scales[i]).astype(np.int32)
+        np.clip(axis, 0, nbins[i] - 1, out=axis)
+        ids += axis.astype(np.int64) * strides[i]
+    h = np.bincount(ids[valid], minlength=hist_ops.total_bins(nbins))
+    return h.astype(np.float32)
+
+
+class PdfStack:
+    """Batched evaluator for all PDFs in a fit, on one device."""
+
+    def __init__(self, signals: Sequence[Signal],
+                 observables: Sequence[Observable],
+                 systematics: Sequence[Systematic], device="cpu"):
+        self.device = torch.device(device)
+        self.nsignals = len(signals)
+        self.nobservables = len(observables)
+        for s in signals:
+            if not isinstance(s.histogram, EvalHist):
+                raise NotImplementedError(
+                    f"signal {s.name}: only histogram PDFs are ported to "
+                    "sxmc_tpu_torch (KDE: ROADMAP queue A, item 12)")
+            if s.histogram.weights is not None:
+                raise NotImplementedError(
+                    f"signal {s.name}: weighted MC is not ported yet")
+
+        nobs = self.nobservables
+        lower, upper, nbins = [0.0] * nobs, [1.0] * nobs, [1] * nobs
+        for obs in observables:
+            lower[obs.field_index] = obs.lower
+            upper[obs.field_index] = obs.upper
+            nbins[obs.field_index] = obs.bins
+        self.lower_host = tuple(float(x) for x in lower)
+        self.upper_host = tuple(float(x) for x in upper)
+        self.nbins = tuple(int(b) for b in nbins)
+        self.total_nbins = hist_ops.total_bins(self.nbins)
+        self.bin_volume = hist_ops.bin_volume(lower, upper, self.nbins)
+        self.n_mc = np.asarray([s.n_mc for s in signals], np.float32)
+        self.datasets = [s.dataset for s in signals]
+
+        arrays = [s.histogram.samples_host for s in signals]
+        self.nfields = max(a.shape[1] for a in arrays)
+        descs = [(_desc(s),
+                  tuple(s.name in sig.systematic_names for sig in signals))
+                 for s in systematics]
+
+        touched = np.zeros(self.nsignals, bool)
+        for _, mask in descs:
+            touched |= np.asarray(mask, bool)
+        self._dyn_idx = tuple(int(i) for i in np.flatnonzero(touched))
+        self._static_idx = tuple(int(i) for i in np.flatnonzero(~touched))
+        self._ndyn = len(self._dyn_idx)
+
+        # Static rows: built once on the host.
+        hist_init = np.zeros((self.nsignals, self.total_nbins), np.float32)
+        norm_init = np.zeros(self.nsignals, np.float32)
+        for i in self._static_idx:
+            h = _host_histogram(arrays[i][:, :nobs], lower, upper,
+                                self.nbins)
+            hist_init[i] = h
+            norm_init[i] = h.sum(dtype=np.float64)
+        self.hist_init = torch.as_tensor(hist_init, device=self.device)
+        self.norm_init = tuple(float(x) for x in norm_init)
+        self.sig_slot = tuple(
+            self._dyn_idx.index(i) if touched[i] else -1
+            for i in range(self.nsignals))
+
+        # Dynamic rows: field-major samples + segment offsets.
+        self.hist_spec = None
+        self.samples = None
+        if self._ndyn:
+            dyn = [arrays[i] for i in self._dyn_idx]
+            seg_off = np.concatenate([[0], np.cumsum([a.shape[0]
+                                                      for a in dyn])])
+            dyn_systs = []
+            for desc, mask in descs:
+                m = tuple(mask[i] for i in self._dyn_idx)
+                if any(m):
+                    dyn_systs.append((desc, m))
+            self.hist_spec = kernels.HistSpec.build(
+                self.nfields, lower, upper, self.nbins, dyn_systs, seg_off)
+            self.samples = torch.as_tensor(
+                np.ascontiguousarray(np.concatenate(dyn, axis=0).T),
+                device=self.device)
+        self._read_bins = None
+
+    # ------------------------------------------------------------------
+
+    def nll_spec(self, st: NLLStatic) -> kernels.NLLSpec:
+        return kernels.NLLSpec(st=st, sig_slot=self.sig_slot,
+                               norm_init=self.norm_init,
+                               bin_volume=self.bin_volume)
+
+    def set_data(self, data) -> None:
+        """Precompute per-signal read bins for a dataset
+        ``(nevents, nobservables + 1)`` (tag last): data points never
+        move under systematics (pdfz.cpp:245-302)."""
+        self._read_bins = self.compute_read_bins(data)
+
+    @property
+    def read_bins(self) -> torch.Tensor:
+        if self._read_bins is None:
+            raise RuntimeError("set_data() must be called first")
+        return self._read_bins
+
+    def compute_read_bins(self, data) -> torch.Tensor:
+        """``(nsignals, nevents)`` int32 read bins with the -1/-2
+        sentinels; an unknown dataset tag gets -2 in every row."""
+        pts = as_f32(data, self.device)
+        return read_bins_for(pts, self.nobservables, self.lower_host,
+                             self.upper_host, self.nbins, self.datasets)
+
+    def histograms(self, theta_syst) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(nsignals, total_nbins)`` counts + ``(nsignals,)`` norms at
+        theta (the dynamic rows through kernel B1)."""
+        hists = self.hist_init.clone()
+        norms = torch.as_tensor(np.asarray(self.norm_init, np.float32),
+                                device=self.device)
+        if self._ndyn:
+            theta = as_f32(theta_syst, self.device).reshape(-1)
+            dyn, dyn_norms = kernels.segmented_histogram(
+                self.hist_spec, self.samples, theta)
+            idx = torch.as_tensor(self._dyn_idx, device=self.device)
+            hists[idx] = dyn
+            norms[idx] = dyn_norms
+        return hists, norms
+
+    def _require_dynamic(self) -> None:
+        if not self._ndyn:
+            raise NotImplementedError(
+                "a fit with no floating systematic takes the split "
+                "pallas_eval_lut path, which is not ported yet (ROADMAP "
+                "queue B, kernel B2)")
+
+    def fused_nll_pair(self, params: torch.Tensor, read_bins: torch.Tensor,
+                       st: NLLStatic):
+        """Compensated NLL ``(hi, lo)`` at ``params`` (kernel B3)."""
+        self._require_dynamic()
+        return kernels.fused_nll(self.hist_spec, self.nll_spec(st),
+                                 self.samples, self.hist_init, read_bins,
+                                 params)
+
+    def fused_segment(self, params0, nll0, width, read_bins, noise, log_u,
+                      st: NLLStatic, debug_mode: bool = False):
+        """A whole fixed-width Metropolis segment (kernel B4); returns
+        ``(samples (n, npar), nlls (n, 2), accepts (n,))``."""
+        self._require_dynamic()
+        return kernels.fused_segment(
+            self.hist_spec, self.nll_spec(st), self.samples, self.hist_init,
+            read_bins, params0, nll0, width, noise, log_u, debug_mode)
+
+
+def _desc(s: Systematic) -> SystematicDesc:
+    """The SystematicDesc of a fit-level systematic (signal.cpp:144-165)."""
+    return SystematicDesc(type=s.type, obs=s.observable_field_index,
+                          par_indices=tuple(s.pidx),
+                          extra_field=max(s.truth_field_index, 0))

@@ -1,0 +1,226 @@
+"""Kernels B1/B3/B4: plain versions against the JAX Pallas kernels, and
+(on a card) the CUDA kernels against their plain versions.
+
+The JAX side runs as its own CPU tests run it: a PdfStack built under
+``force_pallas_interpret`` takes the per-segment Pallas path, kernels
+in interpret mode, at a tiny size.  Tolerances:
+  * histograms exact (integer counts, the same float32 bin math);
+  * NLL |d| <= 1e-3 absolute (XLA's CPU log vs torch's, compensated
+    float32 pairs vs float64 sums; far below the 0.5 dNLL intervals
+    resolve);
+  * segment trajectories: identical accept decisions, parameters within
+    1e-6 relative (XLA may contract a proposal into an FMA, an ulp that
+    the chain carries along), NLL history within the same 1e-3.
+
+The ``cuda`` cases need an NVIDIA Hopper card and skip elsewhere; run
+them there with ``python -m pytest tests/test_torch_kernels.py -m
+cuda``.  This module imports jax only inside the JAX-side fixture, so
+it also collects where jax is not installed.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sxmc_tpu_torch.mcmc.metropolis import MCMC, initial_state
+from sxmc_tpu_torch.ops import kernels
+
+from test_torch_pdf import make_data, make_stack_inputs
+
+# Small shapes: one intra-op thread is as fast, and pytest workers that
+# share the cores do not oversubscribe them (with one thread per core
+# in every worker these tests ran ten times slower under xdist).
+torch.set_num_threads(1)
+
+NLL_TOL = 1e-3  # absolute; see the module docstring
+NSTEPS = 12
+
+
+def _port_mcmc(device, n_mc=3000):
+    srcs, sigs, systs, obs = make_stack_inputs("sxmc_tpu_torch", n_mc=n_mc)
+    mcmc = MCMC(srcs, sigs, systs, obs, device=device)
+    mcmc.stack.set_data(make_data())
+    return mcmc
+
+
+def _streams(npar, n=NSTEPS, seed=17):
+    rng = np.random.default_rng(seed)
+    noise = rng.normal(0, 1, (n, npar)).astype(np.float32)
+    log_u = np.log(rng.uniform(0, 1, n)).astype(np.float32)
+    return noise, log_u
+
+
+THETAS = [[0.0, 0.0], [0.011, -0.006]]
+PARAMS = [[1.0, 1.0, 1.0, 0.0, 0.0], [1.2, 0.85, 1.05, 0.011, -0.006],
+          [-0.1, 1.0, 1.0, 0.0, 0.0]]
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    pytest.importorskip("jax")
+    from sxmc_tpu.mcmc.metropolis import MCMC as JaxMCMC
+    from sxmc_tpu.pdf.stack import force_pallas_interpret
+
+    srcs, sigs, systs, obs = make_stack_inputs("sxmc_tpu")
+    with force_pallas_interpret():
+        mcmc = JaxMCMC(srcs, sigs, systs, obs)
+    assert mcmc.stack.supports_fused
+    mcmc.stack.set_data(make_data())
+    return mcmc
+
+
+@pytest.fixture(scope="module")
+def port():
+    return _port_mcmc("cpu")
+
+
+@pytest.mark.parametrize("theta", THETAS)
+def test_plain_histogram_matches_pallas(jax_side, port, theta):
+    theta = np.asarray(theta, np.float32)
+    jh, jn = jax_side.stack.histograms(theta)
+    th, tn = port.stack.histograms(theta)
+    np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+
+
+@pytest.mark.parametrize("params", PARAMS)
+def test_plain_fused_nll_matches_pallas(jax_side, port, params):
+    import jax.numpy as jnp
+
+    p = np.asarray(params, np.float32)
+    js = jax_side.stack
+    jhi, jlo = js.fused_nll_pair(jnp.asarray(p), js._read_bins,
+                                 js.device_data, jax_side.static)
+    thi, tlo = port.stack.fused_nll_pair(torch.as_tensor(p),
+                                         port.stack.read_bins, port.static)
+    want = float(np.float64(jhi) + np.float64(jlo))
+    got = float(thi.double() + tlo.double())
+    if params[0] < 0:
+        assert float(thi) == float(jhi) == float(np.float32(1e18))
+    assert abs(got - want) <= NLL_TOL, (got, want)
+
+
+def test_plain_segment_matches_pallas(jax_side, port):
+    import jax.numpy as jnp
+    from sxmc_tpu.mcmc import metropolis as jm
+
+    js = jax_side.stack
+    p0, nll0, w0 = jm.initial_state(jax_side, js._read_bins,
+                                    js.device_data, allow_fused=True)
+    noise, log_u = _streams(port.nparameters)
+    js_s, js_n, js_a = js.fused_segment(
+        p0, nll0, w0, js._read_bins, js.device_data, jnp.asarray(noise),
+        jnp.asarray(log_u), jax_side.static)
+    nll0_t = torch.as_tensor(np.asarray([float(nll0[0]), float(nll0[1])],
+                                        np.float32))
+    t_s, t_n, t_a = port.stack.fused_segment(
+        torch.tensor(np.asarray(p0)), nll0_t,
+        torch.tensor(np.asarray(w0)), port.stack.read_bins,
+        torch.as_tensor(noise), torch.as_tensor(log_u), port.static)
+    np.testing.assert_array_equal(t_a.numpy(), np.asarray(js_a)[:, 0])
+    # XLA may contract a proposal's cur + noise * w into an FMA (about
+    # an ulp, carried along the chain; tests/test_fused_segment.py
+    # allows its own kernel 3e-7); the port never contracts.
+    np.testing.assert_allclose(t_s.numpy(), np.asarray(js_s), rtol=1e-6,
+                               atol=1e-7)
+    got = t_n.double().sum(1).numpy()
+    want = np.asarray(js_n, np.float64).sum(1)
+    np.testing.assert_allclose(got, want, rtol=0, atol=NLL_TOL)
+    assert 0 < t_a.sum() < NSTEPS  # the walk both moved and stayed
+
+
+def test_plain_debug_segment_accepts_all(port):
+    st = port.stack
+    params, nll0, width = initial_state(port, st.read_bins)
+    noise, log_u = (torch.as_tensor(x) for x in _streams(port.nparameters))
+    s, n, a = st.fused_segment(params, torch.stack(nll0), width,
+                               st.read_bins, noise, log_u, port.static,
+                               debug_mode=True)
+    assert bool((a == 1).all())
+    # Every proposal is taken: the walk is cur + noise * width, step by step.
+    want = params + torch.cumsum(noise * torch.clamp_min(width, 0.0), 0)
+    torch.testing.assert_close(s, want, rtol=1e-5, atol=1e-6)
+
+
+def test_wrapper_checks_inputs(port):
+    st = port.stack
+    with pytest.raises(TypeError):
+        kernels.fused_nll(st.hist_spec, st.nll_spec(port.static),
+                          st.samples, st.hist_init, st.read_bins,
+                          torch.zeros(port.nparameters, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        kernels.segmented_histogram(st.hist_spec, st.samples[:, :10],
+                                    torch.zeros(2))
+
+
+# ------------------------------------------------------------ on the card
+
+
+@pytest.fixture(scope="module")
+def cuda_pair():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return _port_mcmc("cuda"), torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("theta", THETAS)
+def test_cuda_histogram_equals_plain(cuda_pair, theta):
+    mcmc, dev = cuda_pair
+    st = mcmc.stack
+    th = torch.as_tensor(np.asarray(theta, np.float32), device=dev)
+    got, got_norms = kernels.segmented_histogram(st.hist_spec, st.samples,
+                                                 th)
+    want, want_norms = kernels.segmented_histogram_plain(st.hist_spec,
+                                                         st.samples, th)
+    assert torch.equal(got, want) and torch.equal(got_norms, want_norms)
+    assert torch.equal(got_norms, want.sum(dim=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("params", PARAMS)
+def test_cuda_fused_nll_matches_plain(cuda_pair, params):
+    mcmc, dev = cuda_pair
+    st = mcmc.stack
+    p = torch.as_tensor(np.asarray(params, np.float32), device=dev)
+    hi, lo = kernels.fused_nll(st.hist_spec, st.nll_spec(mcmc.static),
+                               st.samples, st.hist_init, st.read_bins, p)
+    phi, plo = kernels.fused_nll_plain(st.hist_spec,
+                                       st.nll_spec(mcmc.static),
+                                       st.samples, st.hist_init,
+                                       st.read_bins, p)
+    assert abs(float(hi.double() + lo.double())
+               - float(phi.double() + plo.double())) <= NLL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_segment_matches_plain(cuda_pair):
+    mcmc, dev = cuda_pair
+    st = mcmc.stack
+    params, nll0, width = initial_state(mcmc, st.read_bins)
+    noise, log_u = (torch.as_tensor(x, device=dev)
+                    for x in _streams(mcmc.nparameters, n=200))
+    nll0 = torch.stack(nll0)
+    args = (st.hist_spec, st.nll_spec(mcmc.static), st.samples,
+            st.hist_init, st.read_bins, params, nll0, width, noise, log_u)
+    s, n, a = kernels.fused_segment(*args)
+    ps, pn, pa = kernels.fused_segment_plain(*args)
+    assert torch.equal(a, pa) and torch.equal(s, ps)
+    assert (n.double().sum(1) - pn.double().sum(1)).abs().max() <= NLL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_segment_debug_mode_accepts_all(cuda_pair):
+    mcmc, dev = cuda_pair
+    st = mcmc.stack
+    params, nll0, width = initial_state(mcmc, st.read_bins)
+    noise, log_u = (torch.as_tensor(x, device=dev)
+                    for x in _streams(mcmc.nparameters, n=50))
+    args = (st.hist_spec, st.nll_spec(mcmc.static), st.samples,
+            st.hist_init, st.read_bins, params, torch.stack(nll0), width,
+            noise, log_u)
+    s, n, a = kernels.fused_segment(*args, debug_mode=True)
+    ps, pn, pa = kernels.fused_segment_plain(*args, debug_mode=True)
+    assert bool((a == 1).all()) and torch.equal(a, pa)
+    assert torch.equal(s, ps)
+    assert (n.double().sum(1) - pn.double().sum(1)).abs().max() <= NLL_TOL

@@ -1,0 +1,77 @@
+"""The port stands alone: it imports no jax and never runs silently on
+the CPU when the card was asked for."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PKG = REPO / "sxmc_tpu_torch"
+
+# Imports every module of the package with jax and sxmc_tpu blocked,
+# then asks the CLI for the card.
+_PROBE = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "sxmc_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import sxmc_tpu_torch
+for m in pkgutil.walk_packages(sxmc_tpu_torch.__path__, "sxmc_tpu_torch."):
+    importlib.import_module(m.name)
+assert not any(k.split(".")[0] in ("jax", "sxmc_tpu") for k in sys.modules)
+print("imported", len(sys.modules))
+
+import torch
+from sxmc_tpu_torch.cli import main
+if torch.cuda.is_available():
+    print("cuda present")
+else:
+    try:
+        main([sys.argv[1], sys.argv[2], "--device", "cuda"])
+    except RuntimeError as e:
+        print("raised:", e)
+    else:
+        raise SystemExit("--device cuda without CUDA did not raise")
+"""
+
+
+def test_no_jax_import_statement_in_package():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|sxmc_tpu)\b(?!_torch)",
+                     re.M)
+    hits = [str(p) for p in PKG.rglob("*.py") if pat.search(p.read_text())]
+    assert not hits, hits
+
+
+def test_imports_with_jax_blocked_and_cuda_is_explicit(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    cfg = REPO / "tests" / "data" / "golden" / "config.json"
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE, str(cfg), str(tmp_path / "out")],
+        capture_output=True, text=True, env=env, cwd=str(tmp_path),
+        timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "imported" in proc.stdout
+    if "cuda present" not in proc.stdout:
+        assert "raised:" in proc.stdout and "--device cpu" in proc.stdout
+        assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("flag", [["--sharded"], ["--hypotest", "10"],
+                                  ["--gof"], ["--bias-study", "5"],
+                                  ["--checkpoint-steps", "100"],
+                                  ["--rate-substeps", "2"], ["--binned"],
+                                  ["--sampler", "hmc"]])
+def test_out_of_slice_cli_flags_raise(tmp_path, flag):
+    from sxmc_tpu_torch.cli import main
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(["config.json", str(tmp_path), "--device", "cpu"] + flag)

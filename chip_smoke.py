@@ -5,24 +5,36 @@
 from the root of a checkout, on a machine with one Hopper card.  It
 
   1. prints the card (nvidia-smi name and power limit) and toolchain;
-  2. builds the hand-written kernels from sxmc_tpu_torch/csrc with nvcc;
-  3. holds each kernel against its plain PyTorch version on the card,
-     on the same inputs, and times both (CUDA events):
+  2. builds the hand-written kernels from sxmc_tpu_torch/csrc with nvcc
+     and prints what ptxas says of each (registers, spills);
+  3. holds each kernel and form against its plain PyTorch version on
+     the card, on the same inputs, and times both (CUDA events, in
+     turns: plain, kernel, kernel, plain):
        B1 segmented_histogram: the slice's 2-signal layout (2 x 500k MC
           rows, 10 bins, scale + resolution systematics) and the 10M-
           sample / 1000-bin / 1-shift shape; counts must be equal;
-       B3 fused_nll: the NLL at the nominal and a perturbed parameter
-          point, |dNLL| <= NLL_TOL;
-       B4 fused_segment: a 500-step segment fed identical noise; accept
-          decisions and parameters identical, NLL history within NLL_TOL;
-  4. runs the default fit through the port's CLI (--device cuda) on the
-     reference example (examples/reference_example.json: 2 signals x
-     500k rows, 10 energy bins, a radius cut, floating scale and
-     resolution, 100k steps), with every launch counter reset just
-     before and read just after, and checks that each kernel ran, that
-     no experiment failed, and that the fit is sane;
-  5. prints the kernels' JSON line, the card line, and as its last line
-     {"ok": true, "device": {...}}.
+       B1 segmented_histogram_batched: 8 chains on the slice's layout;
+       B2 lut_eval: the reference example's LUT (2 signals x its
+          events, 10 bins) and 2 signals x 1M events x 1000 bins; values
+          equal; EvalHist.eval (B1 + B2) on signal1's 500k rows;
+       B3 fused_nll / fused_nll_batched: the NLL at the nominal and a
+          perturbed point, and at 8 chains, |dNLL| <= NLL_TOL;
+       B4 fused_segment / fused_segment_batched: a 500-step segment,
+          and one of 8 lock-step chains, fed identical noise; accept
+          decisions and parameters identical, NLL history within
+          NLL_TOL;
+  4. runs the port's CLI (--device cuda) on the reference example
+     (examples/reference_example.json: 2 signals x 500k rows, 10 energy
+     bins, a radius cut, scale and resolution systematics) four times:
+     the default fit; "nchains": 8; both systematics fixed; --binned with
+     "nchains": 8.  Every launch counter is reset just before each run
+     and read just after; each run must launch exactly its path's
+     kernels, end with a finite limit and no failed experiment, and fit
+     sanely.  The two runs on the stepper loop (fixed, binned) take
+     fewer steps, printed as a cut;
+  5. prints the kernels' JSON line (every kernel and form: launches on
+     the four paths, error, times, bound, library time), the card line,
+     and as its last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when CUDA is unavailable, when
 the package is missing (run from the checkout's root), or when any
@@ -44,6 +56,24 @@ import numpy as np
 # both; 1e-3 is far below the 0.5 dNLL the intervals resolve.
 NLL_TOL = 1e-3
 SEGMENT_STEPS = 500
+NCHAINS = 8
+FULL_STEPS = 100_000   # the example's nsteps
+LOOP_STEPS = 20_000    # the stepper-loop paths' cut
+
+# The H100 SXM's published peaks: HBM bytes/s
+# and float32 operations/s outside the tensor cores, at 700 W.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+SRC = "sxmc_tpu_torch/csrc/sxmc_kernels.cu"
+REPLACES = {
+    "segmented_histogram": "sxmc_tpu/ops/pallas_hist.py:416",
+    "segmented_histogram_batched": "sxmc_tpu/ops/pallas_hist.py:416",
+    "lut_eval": "sxmc_tpu/ops/pallas_hist.py:656",
+    "fused_nll": "sxmc_tpu/ops/pallas_step.py:451",
+    "fused_nll_batched": "sxmc_tpu/ops/pallas_step.py:451",
+    "fused_segment": "sxmc_tpu/ops/pallas_step.py:808",
+    "fused_segment_batched": "sxmc_tpu/ops/pallas_step.py:808",
+}
 
 
 def fail(msg: str) -> None:
@@ -87,6 +117,67 @@ def in_turns(torch, plain, kernel, reps_plain: int, reps_kernel: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def device_ms(torch, fn, reps: int, names) -> float:
+    """Milliseconds per call that the kernels whose names contain one of
+    ``names`` spent on the card (torch.profiler), without the host's
+    launch gaps that the CUDA-event times include; None when the
+    profiler records no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = 0.0
+    for ev in prof.key_averages():
+        if any(n in ev.key for n in names):
+            total_us += (getattr(ev, "device_time_total", None)
+                         or getattr(ev, "cuda_time_total", 0.0))
+    return total_us / 1e3 / reps if total_us else None
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the float32 operations over the float32 peak."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
+def binning_ops(hs, nchains: int = 1) -> float:
+    """Float operations to bin every sample of ``hs`` once per chain, as
+    the kernel's arithmetic has them: 2 per power-series term and 2 for
+    the transform of each systematic acting on the sample's segment, 5
+    per observable (2 compares, subtract, multiply, floor), 1 increment."""
+    ops = 0.0
+    for d in range(hs.ndyn):
+        n = hs.seg_off[d + 1] - hs.seg_off[d]
+        per = 5 * hs.nobs + 1 + sum(2 * desc.npars + 2
+                                    for desc, mask in hs.systematics
+                                    if mask[d])
+        ops += n * per
+    return ops * nchains
+
+
+def event_ops(nsig: int, nev: int) -> float:
+    """Per event: a multiply, a divide and an add per signal, one log."""
+    return nev * (3 * nsig + 1)
+
+
+def lut_equal(torch, got, want) -> float:
+    """Max |got - want| where both are finite; fails unless the NaNs sit
+    in the same places and every value is equal."""
+    check(torch.equal(torch.isnan(got), torch.isnan(want)),
+          "LUT NaN sentinels differ")
+    a, b = torch.nan_to_num(got), torch.nan_to_num(want)
+    err = float((a - b).abs().max()) if a.numel() else 0.0
+    check(torch.equal(a, b), f"LUT values differ (max {err})")
+    return err
+
+
 def write_example(workdir: str, nevents: int = 500_000) -> str:
     """The examples/make_example.py tables and the reference example's
     configuration (npz output, no plots), written with numpy."""
@@ -107,7 +198,7 @@ def write_example(workdir: str, nevents: int = 500_000) -> str:
                                   table, fields)
     systs = ["energy_scale", "energy_resolution"]
     config = {
-        "fit": {"nexperiments": 1, "nsteps": 100000,
+        "fit": {"nexperiments": 1, "nsteps": FULL_STEPS,
                 "burnin_fraction": 0.2, "signal_name": "signal1",
                 "output_file": "example", "signals": ["signal1", "signal2"],
                 "observables": ["energy"], "cuts": ["radius"], "seed": 42,
@@ -145,15 +236,17 @@ def write_example(workdir: str, nevents: int = 500_000) -> str:
 
 
 def check_kernels(torch, kernels, config_path: str, workdir: str):
-    """Phase 3: each kernel against its plain version on the card."""
+    """Phase 3: each kernel and form against its plain version."""
     from sxmc_tpu_torch.fitconfig import FitConfig
     from sxmc_tpu_torch.generator import make_fake_dataset
     from sxmc_tpu_torch.mcmc.metropolis import MCMC, initial_state
     from sxmc_tpu_torch.ops.transforms import SHIFT, SystematicDesc
+    from sxmc_tpu_torch.pdf.evalhist import EvalHist
     from sxmc_tpu_torch.signal import nominal_params
 
     dev = torch.device("cuda")
     out = {}
+    f4 = 4.0  # bytes per float32 / int32
 
     # B1 at the slice's layout: the example's two dynamic segments.
     fc = FitConfig.from_json_file(config_path, data_root=workdir)
@@ -173,10 +266,17 @@ def check_kernels(torch, kernels, config_path: str, workdir: str):
         torch, lambda: kernels.segmented_histogram_plain(hs, st.samples,
                                                          theta),
         lambda: kernels.segmented_histogram(hs, st.samples, theta), 5, 50)
+    sample_bytes = f4 * hs.nfields * hs.n
+    hist_names = ("sx_hist_kernel", "sx_to_float")
+    dms = device_ms(torch, lambda: kernels.segmented_histogram(
+        hs, st.samples, theta), 50, hist_names)
     print(f"B1 segmented_histogram, {hs.ndyn} x {hs.n // hs.ndyn} samples, "
-          f"{hs.total} bins: counts and norms equal; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
-    b1 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          f"{hs.total} bins: counts and norms equal; kernel {ms:.4f} ms "
+          f"(on the card {dms} ms), plain {plain_ms:.4f} ms")
+    b1 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+          "device_ms": dms,
+          **bound(sample_bytes + f4 * hs.ndyn * (hs.total + 1),
+                  binning_ops(hs))}
 
     # B1 at 10M samples, 1000 bins, one shift systematic.
     n = 10_000_000
@@ -195,20 +295,133 @@ def check_kernels(torch, kernels, config_path: str, workdir: str):
     ms10, plain10 = in_turns(
         torch, lambda: kernels.segmented_histogram_plain(hs10, x, th10),
         lambda: kernels.segmented_histogram(hs10, x, th10), 3, 20)
+    b10 = bound(f4 * n + f4 * 1001, binning_ops(hs10))
+    dms10 = device_ms(torch, lambda: kernels.segmented_histogram(
+        hs10, x, th10), 20, hist_names)
     print(f"B1 segmented_histogram, 1 x {n} samples, 1000 bins, shift: "
           f"counts and norms equal; kernel {ms10:.4f} ms ({n / ms10 * 1e3:.4g} "
-          f"samples/s), plain {plain10:.4f} ms")
+          f"samples/s; on the card {dms10} ms), plain {plain10:.4f} ms, "
+          f"bound {b10['bound_ms']:.4f} ms ({b10['bound_by']})")
     b1.update(headline_ms=ms10, headline_plain_ms=plain10,
+              headline_device_ms=dms10,
+              headline_bound_ms=b10["bound_ms"],
               headline_samples_per_s=n / ms10 * 1e3)
     out["segmented_histogram"] = b1
     del x
 
-    # B3 at the nominal and at a perturbed point, on a fake dataset.
+    # B1-batched: 8 chains on the slice's layout, theta around nominal.
+    gen = torch.Generator(dev).manual_seed(5)
+    thetas = (theta + 0.01 * torch.randn((NCHAINS, theta.shape[0]),
+                                         generator=gen, device=dev))
+    got = kernels.segmented_histogram_batched(hs, st.samples, thetas)
+    want = kernels.segmented_histogram_plain(hs, st.samples, thetas)
+    torch.cuda.synchronize()
+    err = float((got[0] - want[0]).abs().max())
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"B1-batched counts or norms differ (max {err})")
+    ms, plain_ms = in_turns(
+        torch, lambda: kernels.segmented_histogram_plain(hs, st.samples,
+                                                         thetas),
+        lambda: kernels.segmented_histogram_batched(hs, st.samples, thetas),
+        3, 50)
+    dms = device_ms(torch, lambda: kernels.segmented_histogram_batched(
+        hs, st.samples, thetas), 50, hist_names)
+    out["segmented_histogram_batched"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "device_ms": dms,
+        **bound(sample_bytes + f4 * NCHAINS * hs.ndyn * (hs.total + 1),
+                binning_ops(hs, NCHAINS))}
+    print(f"B1 segmented_histogram_batched, {NCHAINS} chains: counts and "
+          f"norms equal; kernel {ms:.4f} ms (on the card {dms} ms), plain "
+          f"{plain_ms:.4f} ms")
+
+    # A fake dataset: the example's read bins.
     data = make_fake_dataset(torch.Generator().manual_seed(3), fc.signals,
                              fc.systematics, fc.observables, stack=st)
     st.set_data(data)
     rb = st.read_bins
-    ns = st.nll_spec(mcmc.static)
+    nsig, nev = rb.shape
+
+    # B2 at the example shape (the fixed-systematics path's LUT).
+    hists, norms = st.histograms(theta)
+    got = kernels.lut_eval(hists, norms, rb, st.bin_volume)
+    want = kernels.lut_eval_plain(hists, norms, rb, st.bin_volume)
+    torch.cuda.synchronize()
+    err = lut_equal(torch, got, want)
+    ms, plain_ms = in_turns(
+        torch, lambda: kernels.lut_eval_plain(hists, norms, rb,
+                                              st.bin_volume),
+        lambda: kernels.lut_eval(hists, norms, rb, st.bin_volume), 20, 200)
+    flat = hists.reshape(-1)
+    idx = (torch.arange(nsig, device=dev)[:, None] * hs.total
+           + rb.clamp(0, hs.total - 1).to(torch.int64)).reshape(-1)
+    lib_ms = cuda_ms(torch, lambda: torch.gather(flat, 0, idx), 200)
+    lut_names = ("sx_eval_lut_kernel",)
+    dms = device_ms(torch, lambda: kernels.lut_eval(
+        hists, norms, rb, st.bin_volume), 50, lut_names)
+    b2 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+          "library_ms": lib_ms, "device_ms": dms,
+          **bound(f4 * (nsig * hs.total + nsig + 2 * nsig * nev),
+                  2.0 * nsig * nev)}
+    print(f"B2 lut_eval, {nsig} x {nev} events, {hs.total} bins: values "
+          f"equal; kernel {ms:.4f} ms (on the card {dms} ms), plain "
+          f"{plain_ms:.4f} ms, torch.gather {lib_ms:.4f} ms")
+
+    # B2 at 2 signals x 1M events x 1000 bins.
+    big_n, big_total = 1_000_000, 1000
+    gen = torch.Generator(dev).manual_seed(9)
+    cnt = torch.randint(0, 5000, (2, big_total), generator=gen,
+                        device=dev).to(torch.float32)
+    nrm = cnt.sum(dim=1)
+    rbb = torch.randint(-2, big_total, (2, big_n), generator=gen,
+                        device=dev, dtype=torch.int32)
+    got = kernels.lut_eval(cnt, nrm, rbb, 0.01)
+    want = kernels.lut_eval_plain(cnt, nrm, rbb, 0.01)
+    torch.cuda.synchronize()
+    lut_equal(torch, got, want)
+    msb, plainb = in_turns(
+        torch, lambda: kernels.lut_eval_plain(cnt, nrm, rbb, 0.01),
+        lambda: kernels.lut_eval(cnt, nrm, rbb, 0.01), 5, 50)
+    flatb = cnt.reshape(-1)
+    idxb = (torch.arange(2, device=dev)[:, None] * big_total
+            + rbb.clamp(0, big_total - 1).to(torch.int64)).reshape(-1)
+    libb = cuda_ms(torch, lambda: torch.gather(flatb, 0, idxb), 50)
+    bb = bound(f4 * (2 * big_total + 2 + 4 * big_n), 4.0 * big_n)
+    dmsb = device_ms(torch, lambda: kernels.lut_eval(cnt, nrm, rbb, 0.01),
+                     20, lut_names)
+    dlibb = device_ms(torch, lambda: torch.gather(flatb, 0, idxb), 20,
+                      ("gather",))
+    b2.update(headline_ms=msb, headline_plain_ms=plainb,
+              headline_library_ms=libb, headline_bound_ms=bb["bound_ms"],
+              headline_device_ms=dmsb, headline_library_device_ms=dlibb)
+    print(f"B2 lut_eval, 2 x {big_n} events, {big_total} bins: values "
+          f"equal; kernel {msb:.4f} ms (on the card {dmsb} ms), plain "
+          f"{plainb:.4f} ms, torch.gather {libb:.4f} ms (on the card "
+          f"{dlibb} ms), bound {bb['bound_ms']:.4f} ms ({bb['bound_by']})")
+    del cnt, rbb, idxb
+
+    # EvalHist.eval (B1 with one segment, then B2) on signal1's rows.
+    sig = fc.signals[0].histogram
+    ev = EvalHist(sig.samples_host, sig.nfields, sig.nobservables,
+                  sig.lower_host, sig.upper_host, sig.nbins,
+                  dataset=sig.dataset, device=dev)
+    for d in sig.systematics:
+        ev.add_systematic(d)
+    ev_rb = ev.compute_read_bins(data)
+    ev_theta = [0.004, -0.0007]
+    ev_th = torch.as_tensor(ev_theta, device=dev)
+    got, got_norm = ev.eval(ev_rb, ev_theta)
+    pb, pn = kernels.segmented_histogram_plain(ev.hist_spec(),
+                                               ev.device_samples(), ev_th)
+    want = kernels.lut_eval_plain(pb, pn, ev_rb[None], ev.bin_volume)[0]
+    torch.cuda.synchronize()
+    check(float(got_norm) == float(pn[0]), "EvalHist.eval norms differ")
+    lut_equal(torch, got, want)
+    print(f"EvalHist.eval, {ev.n_mc} rows, {ev_rb.shape[0]} points: values "
+          f"and norm equal (B1 + B2)")
+
+    # B3 at the nominal and at a perturbed point.
+    ns = mcmc.nll_spec
     p0 = torch.as_tensor(mcmc.parameter_means, device=dev)
     p1 = p0 + torch.as_tensor([0.03, -0.05, 0.004, 0.0007], device=dev)
     errs = []
@@ -225,79 +438,181 @@ def check_kernels(torch, kernels, config_path: str, workdir: str):
                                                st.hist_init, rb, p1),
         lambda: kernels.fused_nll(hs, ns, st.samples, st.hist_init, rb, p1),
         5, 50)
-    print(f"B3 fused_nll, {rb.shape[1]} events: |dNLL| {err:.3g} <= "
-          f"{NLL_TOL}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    out["fused_nll"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-
-    # B4: a 500-step segment fed identical noise.
-    params, nll0, width = initial_state(mcmc, rb)
-    nll0 = torch.stack(nll0)
-    gen = torch.Generator(dev).manual_seed(11)
-    noise = torch.randn((SEGMENT_STEPS, mcmc.nparameters), generator=gen,
-                        device=dev)
-    log_u = torch.log(torch.rand(SEGMENT_STEPS, generator=gen, device=dev))
-    args = (hs, ns, st.samples, st.hist_init, rb, params, nll0, width,
-            noise, log_u)
-    s, nl, a = kernels.fused_segment(*args)
-    ps, pnl, pa = kernels.fused_segment_plain(*args)
-    torch.cuda.synchronize()
-    check(torch.equal(a, pa), "B4 accept decisions differ")
-    check(torch.equal(s, ps), "B4 parameter trajectories differ")
-    err = float((nl.double().sum(1) - pnl.double().sum(1)).abs().max())
-    check(err <= NLL_TOL, f"B4 NLL history differs by {err}")
-    ms, plain_ms = in_turns(
-        torch, lambda: kernels.fused_segment_plain(*args),
-        lambda: kernels.fused_segment(*args), 1, 10)
-    print(f"B4 fused_segment, {SEGMENT_STEPS} steps: trajectory identical "
-          f"(accept rate {float(a.mean()):.3f}), |dNLL| {err:.3g}; kernel "
-          f"{ms:.4f} ms ({ms / SEGMENT_STEPS * 1e3:.2f} us/step), plain "
+    b3_bytes = sample_bytes + f4 * (nsig * hs.total + nsig * nev)
+    fused_names = ("sx_fused_kernel",)
+    dms = device_ms(torch, lambda: kernels.fused_nll(
+        hs, ns, st.samples, st.hist_init, rb, p1), 50, fused_names)
+    print(f"B3 fused_nll, {nev} events: |dNLL| {err:.3g} <= "
+          f"{NLL_TOL}; kernel {ms:.4f} ms (on the card {dms} ms), plain "
           f"{plain_ms:.4f} ms")
-    out["fused_segment"] = {"max_abs_err": err, "ms": ms,
-                            "plain_ms": plain_ms}
+    out["fused_nll"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "device_ms": dms,
+                        **bound(b3_bytes, binning_ops(hs)
+                                + event_ops(nsig, nev))}
+
+    # B3-batched: 8 chains around the nominal point.
+    pc = p0 + 0.02 * torch.randn((NCHAINS, p0.shape[0]), generator=gen,
+                                 device=dev) * torch.as_tensor(
+        [1.0, 1.0, 0.1, 0.01], device=dev)
+    hi, lo = kernels.fused_nll_batched(hs, ns, st.samples, st.hist_init,
+                                       rb, pc)
+    phi, plo = kernels.fused_nll_plain(hs, ns, st.samples, st.hist_init,
+                                       rb, pc)
+    err = float((hi.double() + lo.double() - phi.double()
+                 - plo.double()).abs().max())
+    check(err <= NLL_TOL, f"B3-batched NLL differs by {err}")
+    ms, plain_ms = in_turns(
+        torch, lambda: kernels.fused_nll_plain(hs, ns, st.samples,
+                                               st.hist_init, rb, pc),
+        lambda: kernels.fused_nll_batched(hs, ns, st.samples, st.hist_init,
+                                          rb, pc), 3, 50)
+    dms = device_ms(torch, lambda: kernels.fused_nll_batched(
+        hs, ns, st.samples, st.hist_init, rb, pc), 50, fused_names)
+    print(f"B3 fused_nll_batched, {NCHAINS} chains: |dNLL| {err:.3g}; "
+          f"kernel {ms:.4f} ms (on the card {dms} ms), plain "
+          f"{plain_ms:.4f} ms")
+    out["fused_nll_batched"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "device_ms": dms,
+        **bound(b3_bytes, NCHAINS * (binning_ops(hs)
+                                     + event_ops(nsig, nev)))}
+
+    # B4: a 500-step segment fed identical noise, then 8 chains.
+    for name, nch in (("fused_segment", 1), ("fused_segment_batched",
+                                             NCHAINS)):
+        params, nll0, width = initial_state(mcmc, rb, nch)
+        nll0 = torch.stack(nll0, dim=-1)
+        gen = torch.Generator(dev).manual_seed(11)
+        lead = (SEGMENT_STEPS,) if nch == 1 else (SEGMENT_STEPS, nch)
+        noise = torch.randn(lead + (mcmc.nparameters,), generator=gen,
+                            device=dev)
+        log_u = torch.log(torch.rand(lead, generator=gen, device=dev))
+        args = (hs, ns, st.samples, st.hist_init, rb, params, nll0, width,
+                noise, log_u)
+        kern = getattr(kernels, name)
+        s, nl, a = kern(*args)
+        ps, pnl, pa = kernels.fused_segment_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(a, pa), f"{name}: accept decisions differ")
+        check(torch.equal(s, ps), f"{name}: parameter trajectories differ")
+        err = float((nl.double().sum(-1) - pnl.double().sum(-1)).abs().max())
+        check(err <= NLL_TOL, f"{name}: NLL history differs by {err}")
+        ms, plain_ms = in_turns(
+            torch, lambda: kernels.fused_segment_plain(*args),
+            lambda: kern(*args), 1, 10)
+        seg_bytes = (sample_bytes + f4 * (nsig * hs.total + nsig * nev)
+                     + f4 * SEGMENT_STEPS * nch * (2 * mcmc.nparameters + 4))
+        print(f"B4 {name}, {nch} chain(s) x {SEGMENT_STEPS} steps: "
+              f"trajectories identical (accept rate {float(a.mean()):.3f}), "
+              f"|dNLL| {err:.3g}; kernel {ms:.4f} ms "
+              f"({ms / SEGMENT_STEPS * 1e3:.2f} us/step), plain "
+              f"{plain_ms:.4f} ms")
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     **bound(seg_bytes, SEGMENT_STEPS * nch * (
+                         binning_ops(hs) + event_ops(nsig, nev)))}
+    out["lut_eval"] = b2
+    for v in out.values():
+        v.setdefault("library_ms", None)
     return out
 
 
-def main_path(torch, kernels, config_path: str, workdir: str):
-    """Phase 4: the default fit through the CLI, counters around it."""
-    from sxmc_tpu_torch.cli import main as cli_main
+# Per path: the fit's edits, the CLI flags, its step count, and the exact
+# launches of every kernel per experiment (nsteps + 1 for B1-batched on
+# the binned path: the initial NLL, then every step).
+PATHS = [
+    ("default", {}, [], FULL_STEPS,
+     {"segmented_histogram": 1, "fused_nll": 1, "fused_segment": 3}),
+    ("nchains=8", {"nchains": NCHAINS}, [], FULL_STEPS,
+     {"segmented_histogram": 1, "fused_nll_batched": 1,
+      "fused_segment_batched": 3}),
+    ("fixed systematics", {"fixed": True}, [], LOOP_STEPS,
+     {"segmented_histogram": 2, "lut_eval": 1}),
+    ("binned, nchains=8", {"nchains": NCHAINS}, ["--binned"], LOOP_STEPS,
+     {"segmented_histogram": 1,
+      "segmented_histogram_batched": LOOP_STEPS + 1}),
+]
 
-    out = os.path.join(workdir, "out")
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    rc = cli_main([config_path, out, "--data-root", workdir,
-                   "--device", "cuda", "--max-retries", "0"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    check(rc == 0, f"cli returned {rc}")
-    with open(os.path.join(out, "example_metrics.jsonl")) as f:
-        recs = [json.loads(line) for line in f]
-    failed = [r for r in recs if r["event"] == "experiment_failed"]
-    check(not failed, f"an experiment failed: {failed}")
-    limits = [r["upper"] for r in recs if r["event"] == "experiment_limit"]
-    check(len(limits) == 1 and all(math.isfinite(x) for x in limits),
-          f"limits {limits}")
-    fit = next(r for r in recs if r["event"] == "experiment_fit")
-    result = next(r for r in recs if r["event"] == "experiment_result")
-    check(0.02 < fit["accept_rate"] < 0.95,
-          f"acceptance rate {fit['accept_rate']}")
-    best = result["best_fit"]
-    check(all(math.isfinite(v) for v in best.values()), f"best fit {best}")
-    # The fake data is drawn at the nominal rates: the fitted signal1
-    # rate sits near 1 (about 1000 expected events, ~5% statistical).
-    check(0.7 < best["signal1"] < 1.3, f"best-fit signal1 {best['signal1']}")
+
+def path_config(config_path: str, workdir: str, tag: str, edits: dict,
+                nsteps: int) -> str:
+    with open(config_path) as f:
+        cfg = json.load(f)
+    cfg["fit"]["nsteps"] = nsteps
+    if edits.get("nchains"):
+        cfg["fit"]["nchains"] = edits["nchains"]
+    if edits.get("fixed"):
+        for syst in cfg["pdfs"]["systematics"].values():
+            syst["fixed"] = True
+    path = os.path.join(workdir, tag.replace(" ", "_").replace(",", "")
+                        .replace("=", "") + ".json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path
+
+
+def main_paths(torch, kernels, config_path: str, workdir: str):
+    """Phase 4: the four paths through the CLI, counters around each."""
+    from sxmc_tpu_torch.cli import main as cli_main
     from sxmc_tpu_torch.stats.likelihood import LikelihoodSpace
 
-    ls = LikelihoodSpace.load(os.path.join(out, "example_0.npz"))
-    check(ls.samples.shape == (60000, 4) and np.isfinite(ls.samples).all()
-          and np.isfinite(ls.nll_values).all(), "likelihood space")
-    for name in ("segmented_histogram", "fused_nll", "fused_segment"):
-        check(counts[name] > 0, f"{name} was not launched on the main path")
-    print(f"main path: limit {limits[0]:.6g}, best fit {best}, accept rate "
-          f"{fit['accept_rate']:.4f}, fit {fit['wall_seconds']:.3f} s = "
-          f"{fit['steps_per_sec']:.6g} steps/s, whole CLI run {wall:.2f} s; "
-          f"launches {counts}")
-    return counts, fit
+    results = []
+    for tag, edits, flags, nsteps, expect in PATHS:
+        if nsteps != FULL_STEPS:
+            print(f"{tag}: cut to {nsteps} steps (the example has "
+                  f"{FULL_STEPS}): the stepper loop is host-bound")
+        cfg = path_config(config_path, workdir, tag, edits, nsteps)
+        out = os.path.join(workdir, "out_" + os.path.basename(cfg)[:-5])
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli_main([cfg, out, "--data-root", workdir, "--device", "cuda",
+                       "--max-retries", "0"] + flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        check(rc == 0, f"{tag}: cli returned {rc}")
+        want = {k: expect.get(k, 0) for k in counts}
+        check(counts == want, f"{tag}: launches {counts}, expected {want}")
+        with open(os.path.join(out, "example_metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        failed = [r for r in recs if r["event"] == "experiment_failed"]
+        check(not failed, f"{tag}: an experiment failed: {failed}")
+        limits = [r["upper"] for r in recs
+                  if r["event"] == "experiment_limit"]
+        check(len(limits) == 1 and all(math.isfinite(x) for x in limits),
+              f"{tag}: limits {limits}")
+        fit = next(r for r in recs if r["event"] == "experiment_fit")
+        result = next(r for r in recs if r["event"] == "experiment_result")
+        check(0.02 < fit["accept_rate"] < 0.95,
+              f"{tag}: acceptance rate {fit['accept_rate']}")
+        best = result["best_fit"]
+        check(all(math.isfinite(v) for v in best.values()),
+              f"{tag}: best fit {best}")
+        # The fake data is drawn at the nominal rates: the fitted signal1
+        # rate sits near 1 (about 1000 expected events, ~5% statistical).
+        check(0.7 < best["signal1"] < 1.3,
+              f"{tag}: best-fit signal1 {best['signal1']}")
+        nch = edits.get("nchains", 1)
+        nkeep = nsteps - 2 * int(nsteps * 0.2)
+        ls = LikelihoodSpace.load(os.path.join(out, "example_0.npz"))
+        check(ls.samples.shape == (nch * nkeep, 4)
+              and np.isfinite(ls.samples).all()
+              and np.isfinite(ls.nll_values).all(),
+              f"{tag}: likelihood space {ls.samples.shape}")
+        if edits.get("fixed"):
+            check(bool((ls.samples[:, 2:] == 0.0).all()),
+                  f"{tag}: a fixed systematic moved")
+        print(f"path {tag}: limit {limits[0]:.6g}, best fit {best}, accept "
+              f"rate {fit['accept_rate']:.4f}, {nsteps} steps x {nch} "
+              f"chain(s) in {fit['wall_seconds']:.3f} s = "
+              f"{fit['steps_per_sec']!r} chain-steps/s, whole CLI run "
+              f"{wall:.2f} s; launches {counts}")
+        results.append({"path": tag, "nsteps": nsteps, "nchains": nch,
+                        "steps_per_sec": fit["steps_per_sec"],
+                        "wall_seconds": fit["wall_seconds"],
+                        "cli_seconds": wall, "limit": limits[0],
+                        "accept_rate": fit["accept_rate"],
+                        "launches": counts})
+    return results
 
 
 def main() -> int:
@@ -338,19 +653,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         config_path = write_example(workdir)
         measured = check_kernels(torch, kernels, config_path, workdir)
-        counts, fit = main_path(torch, kernels, config_path, workdir)
+        paths = main_paths(torch, kernels, config_path, workdir)
 
-    src = "sxmc_tpu_torch/csrc/sxmc_kernels.cu"
-    replaces = {
-        "segmented_histogram": "sxmc_tpu/ops/pallas_hist.py:416",
-        "fused_nll": "sxmc_tpu/ops/pallas_step.py:451",
-        "fused_segment": "sxmc_tpu/ops/pallas_step.py:808",
-    }
-    rows = [dict(name=name, route="cuda", source=src,
-                 replaces=replaces[name], launches=counts[name],
-                 **measured[name])
-            for name in replaces]
-    print(f"main path: {fit['steps_per_sec']!r} steps/s on {smi}")
+    rows = []
+    for name, replaces in REPLACES.items():
+        launches = sum(p["launches"][name] for p in paths)
+        check(launches > 0, f"{name} was launched on none of the paths")
+        rows.append(dict(name=name, route="cuda", source=SRC,
+                         replaces=replaces, launches=launches,
+                         launches_by_path={p["path"]: p["launches"][name]
+                                           for p in paths},
+                         **measured[name]))
+    for p in paths:
+        print(f"path {p['path']}: {p['steps_per_sec']!r} chain-steps/s "
+              f"({p['nsteps']} steps x {p['nchains']} chain(s)) on {smi}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

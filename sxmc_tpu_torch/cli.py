@@ -43,7 +43,6 @@ def main(argv=None) -> int:
         "bias_study": "ROADMAP queue A, item 10",
         "checkpoint_steps": "ROADMAP queue A, item 8",
         "rate_substeps": "ROADMAP queue A, item 6, kernel B5",
-        "binned": "ROADMAP queue A, item 2",
     }
     parser.add_argument("--sharded", action="store_true",
                         help="not ported")
@@ -57,7 +56,10 @@ def main(argv=None) -> int:
                         metavar="N", help="not ported")
     parser.add_argument("--rate-substeps", type=int, default=0,
                         metavar="M", help="not ported")
-    parser.add_argument("--binned", action="store_true", help="not ported")
+    parser.add_argument("--binned", action="store_true", default=None,
+                        help="use the binned likelihood (the exact "
+                             "regrouping of the unbinned NLL by dataset "
+                             "bin); overrides fit.binned")
     args = parser.parse_args(argv)
 
     def requested(key):  # --gof takes an optional count; 0 asks for it too
@@ -80,7 +82,7 @@ def main(argv=None) -> int:
 
     main_fit(args.config, args.output_path, device=device,
              resume=args.resume, data_root=args.data_root,
-             max_retries=args.max_retries)
+             max_retries=args.max_retries, binned=args.binned)
     return 0
 
 

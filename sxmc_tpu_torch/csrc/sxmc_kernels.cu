@@ -2,24 +2,39 @@
 // interface loaded through ctypes (sxmc_tpu_torch/ops/kernels.py).
 //
 // B1  sx_histogram     replaces sxmc_tpu/ops/pallas_hist.py::
-//                      pallas_histogram_segmented (single-theta form).
+//                      pallas_histogram_segmented, single-theta form
+//                      (nchains == 1) and batched theta (nchains, npar).
+// B2  sx_eval_lut      replaces sxmc_tpu/ops/pallas_hist.py::
+//                      pallas_eval_lut.
 // B3  sx_fused (nsteps == 0)
-//                      replaces sxmc_tpu/ops/pallas_step.py::pallas_fused_step.
+//                      replaces sxmc_tpu/ops/pallas_step.py::
+//                      pallas_fused_step, single and batched chains.
 // B4  sx_fused (nsteps > 0)
 //                      replaces sxmc_tpu/ops/pallas_step.py::
-//                      pallas_fused_segment (single-chain diagonal form).
+//                      pallas_fused_segment, single-chain and batched
+//                      (lock-step chains) diagonal forms.
 //
 // B1 -- what bounds it.  Per sample it reads nfields floats (12 bytes on
-// the reference example), does a few float ops and one atomic increment:
-// a memory-bound pass, except that at few bins (the example has 10)
-// every warp hits the same few counters.  Design: one privatised
-// unsigned histogram per warp group in shared memory (up to 8 replicas
-// per block, chosen to fit 40 KB), flushed with one global atomicAdd per
-// nonzero cell; measured on an H100, the rebuild then costs about the
-// same at 10 bins as at 1000.  The TPU's two-level one-hot matmul,
-// trash cell and chunk padding exist only because the TPU has no
-// atomics; they are not carried over.  Segments are addressed by
-// offsets, not padding.
+// the reference example), does a few float ops and one atomic increment
+// per chain: a memory-bound pass with one chain, except that at few bins
+// (the example has 10) every warp hits the same few counters; with
+// chains the binning work grows nchains-fold over one read.  Design:
+// one privatised unsigned histogram per warp group in shared memory (up
+// to 8 replicas per block, chosen to fit 36 KB), flushed with one global
+// atomicAdd per nonzero cell; measured on an H100, the rebuild then
+// costs about the same at 10 bins as at 1000.  Batched, every replica
+// holds all chains' histograms; when they do not fit (8 chains x 2
+// signals x 1000 bins is 64 KB) the counts go to global memory per
+// chain.  The TPU's two-level one-hot matmul, trash cell and chunk
+// padding exist only because the TPU has no atomics; they are not
+// carried over.  Segments are addressed by offsets, not padding.
+//
+// B2 -- what bounds it.  One gather per output: read a read bin, read a
+// count (the table is small and stays in L1/L2), divide, write: memory-
+// bound on the read bins and the output, 8 bytes per value.  Design: a
+// 2-D grid (events x table rows), 4 events per thread with their read
+// bins loaded together, no padding.  The TPU's one-hot matmul exists
+// only because XLA's gather is slow on a TPU; it is not carried over.
 //
 // B3/B4 -- what bounds it.  One Metropolis step is: propose, rebuild
 // the dynamic histograms (the whole MC set, ~12 MB at 1M samples,
@@ -35,14 +50,19 @@
 //   rebuild  (all blocks; histogram into one of two global buffers,
 //             the other one zeroed for the next step)     -- grid.sync
 //   norms, per-event gather + mix + log, f64 per-block partial into a
-//             fixed slot                                   -- grid.sync
-//   finish + accept (every block reduces the slots in the same fixed
-//             order and takes the same decision; block 0 writes the
-//             history)
+//             fixed slot per chain                         -- grid.sync
+//   finish + accept (every block reduces each chain's slots in the same
+//             fixed order and takes the same decision; block 0 writes
+//             the history)
 // Taking the decision in every block saves the third barrier a
 // broadcast from block 0 would need.  Sums are float64 (the H100 has
 // native f64; the TPU needed compensated f32 pairs), reduced in a fixed
-// order, so the result is the same from run to run.
+// order, so the result is the same from run to run.  Lock-step chains
+// (nchains > 1) share each step's sample reads and both barriers: each
+// sample is loaded once and binned for every chain, each chain has its
+// own double-buffered histograms and its own per-block partials, and
+// every block reduces every chain's partials and takes every chain's
+// decision.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -51,20 +71,24 @@
 
 namespace cg = cooperative_groups;
 
-static const int kSmemBudget = 40 * 1024;
+// Dynamic shared memory for histogram replicas; with sx_fused_kernel's
+// up to ~8.4 KB of static arrays a block stays under the 48 KB a launch
+// gets without an opt-in.
+static const int kSmemBudget = 36 * 1024;
 
-// Shared-memory histogram replicas that fit the budget (0: use global).
-static int sx_replicas(const SxSpec& sp) {
-  const long long per = 4LL * sp.ndyn * sp.total;
-  const long long norm = 4LL * sp.ndyn;
+// Shared-memory histogram replicas (each holding all nchains chains)
+// that fit the budget (0: use global).
+static int sx_replicas(const SxSpec& sp, int nchains) {
+  const long long per = 4LL * nchains * sp.ndyn * sp.total;
+  const long long norm = 4LL * nchains * sp.ndyn;
   if (per == 0 || per + norm > kSmemBudget) return 0;
   long long r = (kSmemBudget - norm) / per;
   const int warps = SX_THREADS / 32;
   return (int)(r < warps ? r : warps);
 }
 
-static int sx_smem_bytes(const SxSpec& sp, int nrep) {
-  return 4 * (nrep * sp.ndyn * sp.total + sp.ndyn);
+static int sx_smem_bytes(const SxSpec& sp, int nchains, int nrep) {
+  return 4 * nchains * (nrep * sp.ndyn * sp.total + sp.ndyn);
 }
 
 static cudaError_t sx_num_sms(int* nsm) {
@@ -76,19 +100,22 @@ static cudaError_t sx_num_sms(int* nsm) {
 
 // ---------------------------------------------------------------- B1
 
+template <bool kChains>
 __global__ void __launch_bounds__(SX_THREADS)
 sx_hist_kernel(const SxSpec sp, const float* __restrict__ samples,
-               const float* __restrict__ par, unsigned* g_hist,
-               unsigned* g_norm, int nrep) {
+               const float* __restrict__ par, int nchains, int pstride,
+               unsigned* g_hist, unsigned* g_norm, int nrep) {
   extern __shared__ unsigned sh[];
-  const int nh = sp.ndyn * sp.total;
+  const int nh = nchains * sp.ndyn * sp.total;
   unsigned* sh_norm = sh + nrep * nh;
-  for (int t = threadIdx.x; t < nrep * nh + sp.ndyn; t += blockDim.x)
+  for (int t = threadIdx.x; t < nrep * nh + nchains * sp.ndyn;
+       t += blockDim.x)
     sh[t] = 0u;
   __syncthreads();
-  sx_accumulate(sp, samples, par, sh, sh_norm, g_hist, nrep);
+  sx_accumulate<kChains>(sp, samples, par, nchains, pstride, sh, sh_norm,
+                         g_hist, nrep);
   __syncthreads();
-  sx_flush(sp, sh, sh_norm, nrep, g_hist, g_norm);
+  sx_flush(sp, nchains, sh, sh_norm, nrep, g_hist, g_norm);
 }
 
 __global__ void sx_to_float(const unsigned* __restrict__ in,
@@ -98,10 +125,60 @@ __global__ void sx_to_float(const unsigned* __restrict__ in,
     out[t] = (float)in[t];
 }
 
+// ---------------------------------------------------------------- B2
+
+// out[s, i] = counts[s, rb] / (norms[s] * bin_volume) with rb the read
+// bin of output row s (rb row s % rb_rows): -1 -> NaN (out of domain),
+// -2 -> 0 (dataset mismatch).  A 2-D grid: x over the events, y over
+// the table rows, so no thread divides an index.  Each thread takes
+// kLutPer events a block apart and loads all their read bins before it
+// uses one: one 4-byte load in flight per thread leaves the memory
+// system half idle.  The float32 division is IEEE (nvcc's default
+// -prec-div=true), as torch's, so both give the same bits.
+static const int kLutPer = 4;
+
+__global__ void sx_eval_lut_kernel(const float* __restrict__ counts,
+                                   const float* __restrict__ norms,
+                                   const int* __restrict__ rb, int nseg,
+                                   int rb_rows, int total, long long nev,
+                                   float bin_volume, float* __restrict__ out) {
+  const long long i0 =
+      (long long)blockIdx.x * blockDim.x * kLutPer + threadIdx.x;
+  for (int s = blockIdx.y; s < nseg; s += gridDim.y) {
+    const float denom = norms[s] * bin_volume;
+    const int* row = rb + (long long)(s % rb_rows) * nev;
+    const float* cnt = counts + (long long)s * total;
+    int b[kLutPer];
+#pragma unroll
+    for (int k = 0; k < kLutPer; ++k) {
+      const long long i = i0 + (long long)k * blockDim.x;
+      b[k] = i < nev ? row[i] : -2;
+    }
+#pragma unroll
+    for (int k = 0; k < kLutPer; ++k) {
+      const long long i = i0 + (long long)k * blockDim.x;
+      float v;
+      if (b[k] == -1) {
+        v = __int_as_float(0x7fc00000);  // the canonical quiet NaN, as torch's
+      } else if (b[k] == -2) {
+        v = 0.0f;
+      } else {
+        v = cnt[min(max(b[k], 0), total - 1)] / denom;
+      }
+      if (i < nev) out[(long long)s * nev + i] = v;
+    }
+  }
+}
+
 // ------------------------------------------------------------- B3/B4
 
-__global__ void __launch_bounds__(SX_THREADS)
-sx_fused_kernel(const SxSpec sp, const float* __restrict__ samples,
+// The cooperative grid never holds more than 4 blocks per SM
+// (sx_fused_grid), so the kernel may use 64 registers a thread: with
+// them ptxas spills nothing (at its default 32 the per-sample field
+// arrays spilled, and a step took ~1 us longer on an H100).
+template <bool kChains>
+__global__ void __launch_bounds__(SX_THREADS, 4)
+sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
                 const float* __restrict__ hist_init,
                 const int* __restrict__ rb, int nev,
                 const float* __restrict__ params0,
@@ -111,30 +188,39 @@ sx_fused_kernel(const SxSpec sp, const float* __restrict__ samples,
                 const float* __restrict__ log_u, int nsteps, int debug,
                 unsigned* scratch, double* partials, float* samples_out,
                 float* nlls_out, float* acc_out, int nrep) {
+  if (!kChains) nch = 1;  // lets the compiler fold the chain loops away
   cg::grid_group grid = cg::this_grid();
   extern __shared__ unsigned sh[];
-  __shared__ float s_cur[SX_MAXPAR];
-  __shared__ float s_prop[SX_MAXPAR];
-  __shared__ float s_w[SX_MAXSIG];
-  __shared__ float s_norm[SX_MAXSIG];
-  __shared__ float s_cur_pair[2];
-  __shared__ int s_accept;
-  __shared__ double s_red[SX_THREADS];
+  __shared__ float s_cur[SX_MAXCP];
+  __shared__ float s_prop[SX_MAXCP];
+  __shared__ float s_w[SX_MAXCS];
+  __shared__ float s_norm[SX_MAXCS];
+  __shared__ float s_pair[2 * SX_MAXCHAINS];
+  __shared__ int s_accept[SX_MAXCHAINS];
+  // Per-block event sums: one chain reduces through a shared tree (s_red;
+  // measured faster on an H100 than warp shuffles for one chain),
+  // lock-step chains through warp shuffles into s_warp.
+  __shared__ double s_warp[kChains ? SX_MAXCHAINS * (SX_THREADS / 32) : 1];
+  __shared__ double s_red[kChains ? 1 : SX_THREADS];
 
   const int tid = threadIdx.x;
-  const int nh = sp.ndyn * sp.total;
-  const int buf = nh + sp.ndyn;  // one histogram buffer + its norms
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = SX_THREADS / 32;
+  const int np = sp.npar;
+  const int ncp = nch * np;
+  const int ncs = nch * sp.nsig;
+  const int nh = nch * sp.ndyn * sp.total;  // every chain's histograms
+  const int buf = nh + nch * sp.ndyn;       // one buffer + its norms
   unsigned* sh_norm = sh + nrep * nh;
   const long long gtid = (long long)blockIdx.x * blockDim.x + tid;
   const long long gstride = (long long)gridDim.x * blockDim.x;
   const bool eval_only = nsteps == 0;
   const int nrun = eval_only ? 1 : nsteps;
 
-  if (tid < sp.npar) s_cur[tid] = params0[tid];
-  if (tid == 0 && !eval_only) {
-    s_cur_pair[0] = nll0[0];
-    s_cur_pair[1] = nll0[1];
-  }
+  for (int t = tid; t < ncp; t += blockDim.x) s_cur[t] = params0[t];
+  if (!eval_only)
+    for (int t = tid; t < 2 * nch; t += blockDim.x) s_pair[t] = nll0[t];
   __syncthreads();
 
   for (int s = 0; s < nrun; ++s) {
@@ -143,90 +229,119 @@ sx_fused_kernel(const SxSpec sp, const float* __restrict__ samples,
     unsigned* next_hist = scratch + ((s + 1) & 1) * buf;
 
     // Propose: metropolis._make_step's op order, noise * max(w, 0);
-    // w <= 0 pins the parameter.
-    if (tid < sp.npar) {
-      const float c = s_cur[tid];
+    // w <= 0 pins the parameter.  Entry t is parameter t % np of chain
+    // t / np.
+    for (int t = tid; t < ncp; t += blockDim.x) {
+      const float c = s_cur[t];
       if (eval_only) {
-        s_prop[tid] = c;
+        s_prop[t] = c;
       } else {
-        const float w = width[tid];
-        const float nz =
-            noise[(long long)s * sp.npar + tid] * fmaxf(w, 0.0f);
-        s_prop[tid] = (w > 0.0f) ? c + nz : c;
+        const float w = width[t];
+        const float nz = noise[(long long)s * ncp + t] * fmaxf(w, 0.0f);
+        s_prop[t] = (w > 0.0f) ? c + nz : c;
       }
     }
-    for (int t = tid; t < nrep * nh + sp.ndyn; t += blockDim.x) sh[t] = 0u;
+    for (int t = tid; t < nrep * nh + nch * sp.ndyn; t += blockDim.x)
+      sh[t] = 0u;
     // The buffer of step s - 1 is free again: clear it for step s + 1.
     for (long long t = gtid; t < buf; t += gstride) next_hist[t] = 0u;
     __syncthreads();
 
-    // Rebuild the dynamic histograms at the proposal.
-    sx_accumulate(sp, samples, s_prop, sh, sh_norm, cur_hist, nrep);
+    // Rebuild every chain's dynamic histograms at its proposal.
+    sx_accumulate<kChains>(sp, samples, s_prop, nch, np, sh, sh_norm,
+                           cur_hist, nrep);
     __syncthreads();
-    sx_flush(sp, sh, sh_norm, nrep, cur_hist, cur_norm);
+    sx_flush(sp, nch, sh, sh_norm, nrep, cur_hist, cur_norm);
     grid.sync();
 
-    // Norms and per-signal weights ((rate * nexpected) * norm) / n_mc.
-    if (tid < sp.nsig) {
-      const int slot = sp.sig_slot[tid];
-      const float norm = slot >= 0 ? (float)__ldcg(&cur_norm[slot])
-                                   : sp.norm_init[tid];
-      const float rate = s_prop[sp.source_id[tid]];
-      s_norm[tid] = norm;
-      s_w[tid] = ((rate * sp.nexpected[tid]) * norm) / sp.n_mc[tid];
+    // Norms and per-signal weights ((rate * nexpected) * norm) / n_mc;
+    // entry t is signal t % nsig of chain t / nsig.
+    for (int t = tid; t < ncs; t += blockDim.x) {
+      const int c = t / sp.nsig;
+      const int j = t - c * sp.nsig;
+      const int slot = sp.sig_slot[j];
+      const float norm =
+          slot >= 0 ? (float)__ldcg(&cur_norm[c * sp.ndyn + slot])
+                    : sp.norm_init[j];
+      const float rate = s_prop[c * np + sp.source_id[j]];
+      s_norm[t] = norm;
+      s_w[t] = ((rate * sp.nexpected[j]) * norm) / sp.n_mc[j];
     }
     __syncthreads();
 
-    // Events: LUT gather with the -1/-2 sentinels (both give 0 here, as
-    // nll_pair's nan_to_num makes them), the mix in ascending signal
-    // order, log where positive; f64 accumulation.
-    double acc = 0.0;
-    for (long long i = gtid; i < nev; i += gstride) {
-      float mix = 0.0f;
-      for (int j = 0; j < sp.nsig; ++j) {
-        const int b = rb[(long long)j * nev + i];
-        float val = 0.0f;
-        if (b >= 0) {
-          const int slot = sp.sig_slot[j];
-          const float cnt =
-              slot >= 0 ? (float)__ldcg(&cur_hist[slot * sp.total + b])
-                        : hist_init[j * sp.total + b];
-          val = cnt / (s_norm[j] * sp.bin_volume);
-          if (!isfinite(val)) val = 0.0f;
+    // Events, chain by chain: LUT gather with the -1/-2 sentinels (both
+    // give 0 here, as nll_pair's nan_to_num makes them), the mix in
+    // ascending signal order, log where positive; f64 accumulation,
+    // then a warp sum into a fixed slot per (chain, warp).
+    for (int c = 0; c < nch; ++c) {
+      const unsigned* chist = cur_hist + c * sp.ndyn * sp.total;
+      const float* cw = s_w + c * sp.nsig;
+      const float* cn = s_norm + c * sp.nsig;
+      double acc = 0.0;
+      for (long long i = gtid; i < nev; i += gstride) {
+        float mix = 0.0f;
+        for (int j = 0; j < sp.nsig; ++j) {
+          const int b = rb[(long long)j * nev + i];
+          float val = 0.0f;
+          if (b >= 0) {
+            const int slot = sp.sig_slot[j];
+            const float cnt =
+                slot >= 0 ? (float)__ldcg(&chist[slot * sp.total + b])
+                          : hist_init[j * sp.total + b];
+            val = cnt / (cn[j] * sp.bin_volume);
+            if (!isfinite(val)) val = 0.0f;
+          }
+          const float term = cw[j] * val;
+          mix = (j == 0) ? term : mix + term;
         }
-        const float term = s_w[j] * val;
-        mix = (j == 0) ? term : mix + term;
+        if (mix > 0.0f) acc += (double)logf(mix);
       }
-      if (mix > 0.0f) acc += (double)logf(mix);
+      if constexpr (kChains) {
+        for (int off = 16; off > 0; off >>= 1)
+          acc += __shfl_down_sync(0xffffffffu, acc, off);
+        if (lane == 0) s_warp[c * nwarps + warp] = acc;
+      } else {
+        s_red[tid] = acc;
+      }
     }
-    s_red[tid] = acc;
     __syncthreads();
-    for (int h = SX_THREADS / 2; h > 0; h >>= 1) {
-      if (tid < h) s_red[tid] += s_red[tid + h];
-      __syncthreads();
+    if constexpr (kChains) {
+      for (int c = tid; c < nch; c += blockDim.x) {
+        double v = 0.0;
+        for (int w = 0; w < nwarps; ++w) v += s_warp[c * nwarps + w];
+        partials[(long long)c * gridDim.x + blockIdx.x] = v;
+      }
+    } else {
+      for (int h = SX_THREADS / 2; h > 0; h >>= 1) {
+        if (tid < h) s_red[tid] += s_red[tid + h];
+        __syncthreads();
+      }
+      if (tid == 0) partials[blockIdx.x] = s_red[0];
     }
-    if (tid == 0) partials[blockIdx.x] = s_red[0];
     grid.sync();
 
-    // Every block: the same fixed-order reduction, finish and decision.
-    if (tid < 32) {
+    // Every block: for each chain (warp w takes chains w, w + 8, ...)
+    // the same fixed-order reduction, finish and decision.
+    for (int c = warp; c < nch; c += nwarps) {
+      const double* cp = partials + (long long)c * gridDim.x;
       double v = 0.0;
-      for (int b = tid; b < (int)gridDim.x; b += 32) v += __ldcg(&partials[b]);
+      for (int b = lane; b < (int)gridDim.x; b += 32) v += __ldcg(&cp[b]);
       for (int off = 16; off > 0; off >>= 1)
         v += __shfl_down_sync(0xffffffffu, v, off);
-      if (tid == 0) {
+      if (lane == 0) {
+        const float* prop = s_prop + c * np;
         const float ev_hi = (float)v;
         const float ev_lo = (float)(v - (double)ev_hi);
         double wsum = 0.0;
-        for (int j = 0; j < sp.nsig; ++j) wsum += (double)s_w[j];
+        for (int j = 0; j < sp.nsig; ++j) wsum += (double)s_w[c * sp.nsig + j];
         double con = 0.0;
         bool neg_rate = false;
-        for (int k = 0; k < sp.npar; ++k) {
+        for (int k = 0; k < np; ++k) {
           if (sp.sigmas[k] > 0.0f) {
-            const float z = (s_prop[k] - sp.means[k]) / sp.sigmas[k];
+            const float z = (prop[k] - sp.means[k]) / sp.sigmas[k];
             con += (double)(z * z);
           }
-          if (k < sp.nsources && s_prop[k] < 0.0f) neg_rate = true;
+          if (k < sp.nsources && prop[k] < 0.0f) neg_rate = true;
         }
         const double ev = (double)ev_hi + (double)ev_lo;
         const double total = -ev + wsum + 0.5 * con;
@@ -238,35 +353,51 @@ sx_fused_kernel(const SxSpec sp, const float* __restrict__ samples,
         }
         if (eval_only) {
           if (blockIdx.x == 0) {
-            nlls_out[0] = hi;
-            nlls_out[1] = lo;
+            nlls_out[2 * c] = hi;
+            nlls_out[2 * c + 1] = lo;
           }
         } else {
           // df_diff's op order, then the log-space accept of the TPU
           // kernel: log(u) <= delta (pallas_step.py:782-792).
-          const float delta = (s_cur_pair[0] - hi) + (s_cur_pair[1] - lo);
-          const bool a = debug || delta > 0.0f || log_u[s] <= delta;
-          s_accept = a ? 1 : 0;
+          const float delta =
+              (s_pair[2 * c] - hi) + (s_pair[2 * c + 1] - lo);
+          const bool a = debug || delta > 0.0f ||
+                         log_u[(long long)s * nch + c] <= delta;
+          s_accept[c] = a ? 1 : 0;
           if (a) {
-            s_cur_pair[0] = hi;
-            s_cur_pair[1] = lo;
+            s_pair[2 * c] = hi;
+            s_pair[2 * c + 1] = lo;
           }
           if (blockIdx.x == 0) {
-            nlls_out[2LL * s] = s_cur_pair[0];
-            nlls_out[2LL * s + 1] = s_cur_pair[1];
-            acc_out[s] = a ? 1.0f : 0.0f;
+            const long long o = (long long)s * nch + c;
+            nlls_out[2 * o] = s_pair[2 * c];
+            nlls_out[2 * o + 1] = s_pair[2 * c + 1];
+            acc_out[o] = a ? 1.0f : 0.0f;
           }
         }
       }
     }
     __syncthreads();
-    if (!eval_only && tid < sp.npar) {
-      if (s_accept) s_cur[tid] = s_prop[tid];
-      if (blockIdx.x == 0)
-        samples_out[(long long)s * sp.npar + tid] = s_cur[tid];
+    if (!eval_only) {
+      for (int t = tid; t < ncp; t += blockDim.x) {
+        if (s_accept[t / np]) s_cur[t] = s_prop[t];
+        if (blockIdx.x == 0) samples_out[(long long)s * ncp + t] = s_cur[t];
+      }
     }
     __syncthreads();
   }
+}
+
+// Each kernel is built twice: for one chain (kChains = false) and for
+// lock-step chains.
+static const void* sx_hist_fn(int nchains) {
+  return nchains == 1 ? (const void*)sx_hist_kernel<false>
+                      : (const void*)sx_hist_kernel<true>;
+}
+
+static const void* sx_fused_fn(int nchains) {
+  return nchains == 1 ? (const void*)sx_fused_kernel<false>
+                      : (const void*)sx_fused_kernel<true>;
 }
 
 // ------------------------------------------------------ C interface
@@ -279,90 +410,128 @@ const char* sx_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// B1: scratch holds ndyn * total + ndyn unsigned ints; out is
-// ndyn * total + ndyn float32: the (ndyn, total) counts, then each
-// segment's in-domain count.
-int sx_histogram(const SxSpec* sp, const float* samples, const float* par,
-                 unsigned* scratch, float* out, void* stream) {
+// B1: par holds nchains parameter vectors pstride apart.  scratch holds
+// nchains * (ndyn * total + ndyn) unsigned ints; out as many float32:
+// the (nchains, ndyn, total) counts, then the (nchains, ndyn) in-domain
+// counts.
+int sx_histogram(const SxSpec* sp, int nchains, const float* samples,
+                 const float* par, int pstride, unsigned* scratch,
+                 float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int nh = sp->ndyn * sp->total;
-  cudaError_t err =
-      cudaMemsetAsync(scratch, 0, sizeof(unsigned) * (nh + sp->ndyn), st);
+  if (nchains < 1 || nchains > SX_MAXCHAINS) return cudaErrorInvalidValue;
+  const int nh = nchains * sp->ndyn * sp->total;
+  const int nall = nh + nchains * sp->ndyn;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(unsigned) * nall, st);
   if (err != cudaSuccess) return err;
-  const int nrep = sx_replicas(*sp);
-  const int smem = sx_smem_bytes(*sp, nrep);
+  const int nrep = sx_replicas(*sp, nchains);
+  const int smem = sx_smem_bytes(*sp, nchains, nrep);
   int nsm = 0, occ = 0;
   if ((err = sx_num_sms(&nsm)) != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, sx_hist_kernel,
-                                                      SX_THREADS, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &occ, sx_hist_fn(nchains), SX_THREADS, smem);
   if (err != cudaSuccess) return err;
   if (occ < 1) return cudaErrorInvalidConfiguration;
   const long long n = sp->seg_off[sp->ndyn];
   long long blocks = (long long)nsm * (occ < 4 ? occ : 4);
   const long long need = (n + SX_THREADS - 1) / SX_THREADS;
   if (need < blocks) blocks = need > 0 ? need : 1;
-  sx_hist_kernel<<<(int)blocks, SX_THREADS, smem, st>>>(
-      *sp, samples, par, scratch, scratch + nh, nrep);
+  if (nchains == 1)
+    sx_hist_kernel<false><<<(int)blocks, SX_THREADS, smem, st>>>(
+        *sp, samples, par, 1, pstride, scratch, scratch + nh, nrep);
+  else
+    sx_hist_kernel<true><<<(int)blocks, SX_THREADS, smem, st>>>(
+        *sp, samples, par, nchains, pstride, scratch, scratch + nh, nrep);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  sx_to_float<<<(nh + sp->ndyn + 255) / 256, 256, 0, st>>>(
-      scratch, out, nh + sp->ndyn);
+  sx_to_float<<<(nall + 255) / 256, 256, 0, st>>>(scratch, out, nall);
   return cudaGetLastError();
 }
 
-// Grid size of sx_fused for this spec (the number of partial slots).
-// More resident blocks hide more of the rebuild's read latency, but
-// every block adds to the two grid barriers and the partial reduction
-// of each step.  Measured on an H100 (see PERF.md), the best grid
-// gives each thread about two samples per step, up to 4 blocks per SM
-// (8 was slower at 1M samples): 1 block per SM at 20k samples, 3 at
-// 200k, 4 at 1M and 4M.
-int sx_fused_grid(const SxSpec* sp, int* nblocks) {
-  const int nrep = sx_replicas(*sp);
+// B2: counts (nseg, total), norms (nseg,), rb (rb_rows, nev) with nseg
+// a multiple of rb_rows -> out (nseg, nev).
+int sx_eval_lut(const float* counts, const float* norms, const int* rb,
+                int nseg, int rb_rows, int total, long long nev,
+                float bin_volume, float* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (rb_rows < 1 || nseg % rb_rows != 0 || total < 1)
+    return cudaErrorInvalidValue;
+  if (nseg == 0 || nev == 0) return cudaSuccess;
+  const long long blocks = (nev + 256 * kLutPer - 1) / (256 * kLutPer);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)blocks, nseg < 65535 ? nseg : 65535);
+  sx_eval_lut_kernel<<<grid, 256, 0, st>>>(counts, norms, rb, nseg, rb_rows,
+                                           total, nev, bin_volume, out);
+  return cudaGetLastError();
+}
+
+// Grid size of sx_fused for this spec and chain count (the number of
+// partial slots per chain).  More resident blocks hide more of the
+// rebuild's latency, but every block adds to the two grid barriers and
+// the partial reductions of each step.  Measured on an H100 with one
+// chain (see PERF.md), the best grid gives each thread about two
+// samples to bin per step, up to 4 blocks per SM (8 was slower at 1M
+// samples): 1 block per SM at 20k samples, 3 at 200k, 4 at 1M and 4M.
+// Lock-step chains bin each loaded sample nchains times, so a thread's
+// work per sample grows nchains-fold: the rule counts binnings
+// (samples x nchains), not samples.
+int sx_fused_grid(const SxSpec* sp, int nchains, int* nblocks) {
+  const int nrep = sx_replicas(*sp, nchains);
   int nsm = 0, occ = 0;
   cudaError_t err = sx_num_sms(&nsm);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &occ, sx_fused_kernel, SX_THREADS, sx_smem_bytes(*sp, nrep));
+      &occ, sx_fused_fn(nchains), SX_THREADS,
+      sx_smem_bytes(*sp, nchains, nrep));
   if (err != cudaSuccess) return err;
   if (occ < 1) return cudaErrorCooperativeLaunchTooLarge;
-  // Samples one block on every SM covers at two per thread.
+  // Binnings one block on every SM covers at two per thread.
   const long long layer = 2LL * nsm * SX_THREADS;
-  long long per_sm = (sp->seg_off[sp->ndyn] + layer - 1) / layer;
+  const long long work = (long long)sp->seg_off[sp->ndyn] * nchains;
+  long long per_sm = (work + layer - 1) / layer;
   per_sm = per_sm < 1 ? 1 : (per_sm > 4 ? 4 : per_sm);
   *nblocks = nsm * (int)(per_sm < occ ? per_sm : occ);
   return cudaSuccess;
 }
 
-// B3 (nsteps == 0: NLL at params0 into nlls_out[0..1]) and B4 (nsteps >
-// 0: a whole fixed-width segment).  scratch holds 2 * (ndyn * total +
-// ndyn) unsigned ints, partials nblocks doubles (sx_fused_grid).
-int sx_fused(const SxSpec* sp, const float* samples, const float* hist_init,
-             const int* rb, int nev, const float* params0, const float* nll0,
-             const float* width, const float* noise, const float* log_u,
-             int nsteps, int debug, unsigned* scratch, double* partials,
-             int nblocks, float* samples_out, float* nlls_out,
-             float* acc_out, void* stream) {
+// B3 (nsteps == 0: NLL of each chain at params0 into nlls_out (nchains,
+// 2)) and B4 (nsteps > 0: a whole fixed-width segment; histories
+// (nsteps, nchains, npar), (nsteps, nchains, 2), (nsteps, nchains)).
+// scratch holds 2 * nchains * (ndyn * total + ndyn) unsigned ints,
+// partials nchains * nblocks doubles (sx_fused_grid).
+int sx_fused(const SxSpec* sp, int nchains, const float* samples,
+             const float* hist_init, const int* rb, int nev,
+             const float* params0, const float* nll0, const float* width,
+             const float* noise, const float* log_u, int nsteps, int debug,
+             unsigned* scratch, double* partials, int nblocks,
+             float* samples_out, float* nlls_out, float* acc_out,
+             void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int nh = sp->ndyn * sp->total;
-  cudaError_t err = cudaMemsetAsync(
-      scratch, 0, 2 * sizeof(unsigned) * (nh + sp->ndyn), st);
+  if (nchains < 1 || nchains > SX_MAXCHAINS ||
+      nchains * sp->npar > SX_MAXCP || nchains * sp->nsig > SX_MAXCS)
+    return cudaErrorInvalidValue;
+  const int buf = nchains * (sp->ndyn * sp->total + sp->ndyn);
+  cudaError_t err =
+      cudaMemsetAsync(scratch, 0, 2 * sizeof(unsigned) * buf, st);
   if (err != cudaSuccess) return err;
-  int grid_ok = 0;
-  if ((err = (cudaError_t)sx_fused_grid(sp, &grid_ok)) != cudaSuccess)
-    return err;
-  if (nblocks > grid_ok) return cudaErrorCooperativeLaunchTooLarge;
-  int nrep = sx_replicas(*sp);
-  const int smem = sx_smem_bytes(*sp, nrep);
+  int nrep = sx_replicas(*sp, nchains);
+  const int smem = sx_smem_bytes(*sp, nchains, nrep);
+  // A cooperative grid must be resident all at once.
+  int nsm = 0, occ = 0;
+  if ((err = sx_num_sms(&nsm)) != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &occ, sx_fused_fn(nchains), SX_THREADS, smem);
+  if (err != cudaSuccess) return err;
+  if (nblocks < 1 || nblocks > nsm * occ)
+    return cudaErrorCooperativeLaunchTooLarge;
   SxSpec spv = *sp;
-  void* args[] = {(void*)&spv,     (void*)&samples,   (void*)&hist_init,
-                  (void*)&rb,      (void*)&nev,       (void*)&params0,
-                  (void*)&nll0,    (void*)&width,     (void*)&noise,
-                  (void*)&log_u,   (void*)&nsteps,    (void*)&debug,
-                  (void*)&scratch, (void*)&partials,  (void*)&samples_out,
-                  (void*)&nlls_out, (void*)&acc_out,  (void*)&nrep};
-  err = cudaLaunchCooperativeKernel((const void*)sx_fused_kernel,
-                                    dim3(nblocks), dim3(SX_THREADS), args,
-                                    smem, st);
+  void* args[] = {(void*)&spv,      (void*)&nchains,  (void*)&samples,
+                  (void*)&hist_init, (void*)&rb,      (void*)&nev,
+                  (void*)&params0,  (void*)&nll0,     (void*)&width,
+                  (void*)&noise,    (void*)&log_u,    (void*)&nsteps,
+                  (void*)&debug,    (void*)&scratch,  (void*)&partials,
+                  (void*)&samples_out, (void*)&nlls_out, (void*)&acc_out,
+                  (void*)&nrep};
+  err = cudaLaunchCooperativeKernel(sx_fused_fn(nchains), dim3(nblocks),
+                                    dim3(SX_THREADS), args, smem, st);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

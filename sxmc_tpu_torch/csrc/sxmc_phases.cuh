@@ -1,7 +1,8 @@
 // Shared device code of the sxmc_tpu_torch kernels (Hopper, sm_90a).
 //
 // The phase functions below are used by both the segmented histogram
-// (kernel B1) and the fused NLL / whole-segment kernel (B3/B4), the
+// (kernel B1, single and batched) and the fused NLL / whole-segment
+// kernel (B3/B4, single and batched), the
 // way sxmc_tpu/ops/pallas_step.py::_phase_bodies shares its bodies
 // between pallas_fused_step and pallas_fused_segment: one copy of the
 // systematics and bin-id math, so a proposal is binned identically by
@@ -24,6 +25,9 @@
 #define SX_MAXSYST 8
 #define SX_MAXPOW 4
 #define SX_MAXPAR 64
+#define SX_MAXCHAINS 32  // lock-step chains of one launch
+#define SX_MAXCP 512     // chains x parameters
+#define SX_MAXCS 256     // chains x signals
 #define SX_THREADS 256
 
 #define SX_SHIFT 0
@@ -67,15 +71,11 @@ struct SxSpec {
   float sigmas[SX_MAXPAR];
 };
 
-// Flat bin id of sample i (of dynamic segment seg) after the masked
-// systematics at parameters par, or -1 when it is out of domain.
-// samples is field-major: field f of sample i is samples[f * n + i].
-__device__ __forceinline__ int sx_bin_sample(const SxSpec& sp,
-                                             const float* __restrict__ samples,
-                                             long long n, long long i,
+// Bin the fields of one sample (of dynamic segment seg) after the masked
+// systematics at parameters par: the flat bin id, or -1 when it is out
+// of domain.  The systematics transform cols in place.
+__device__ __forceinline__ int sx_bin_fields(const SxSpec& sp, float* cols,
                                              int seg, const float* par) {
-  float cols[SX_MAXFIELDS];
-  for (int f = 0; f < sp.nfields; ++f) cols[f] = samples[f * n + i];
   for (int k = 0; k < sp.nsyst; ++k) {
     if (!((sp.syst_mask[k] >> seg) & 1u)) continue;
     const int o = sp.syst_obs[k];
@@ -106,48 +106,99 @@ __device__ __forceinline__ int sx_bin_sample(const SxSpec& sp,
   return id;
 }
 
-// Histogram this block's share of every dynamic segment.  Counts go to
-// the block's shared-memory replicas (warp w uses replica w % nrep,
-// which divides the contention of few-bin histograms), or straight to
-// global memory when nrep == 0 (histograms too large for shared
-// memory).  In-domain counts per segment go to sh_norm.  Unsigned
-// integer counts: exact, whatever order the atomics land in.
-__device__ __forceinline__ void sx_accumulate(const SxSpec& sp,
-                                              const float* __restrict__ samples,
-                                              const float* par,
-                                              unsigned* sh_hist,
-                                              unsigned* sh_norm,
-                                              unsigned* g_hist, int nrep) {
+// Load sample i's fields (field-major: field f of sample i is
+// samples[f * n + i]).
+__device__ __forceinline__ void sx_load(const SxSpec& sp,
+                                        const float* __restrict__ samples,
+                                        long long n, long long i,
+                                        float* cols) {
+  for (int f = 0; f < sp.nfields; ++f) cols[f] = samples[f * n + i];
+}
+
+// Histogram this block's share of every dynamic segment, for nchains
+// parameter vectors (chain c's at par + c * pstride).  Counts go to the
+// block's shared-memory replicas (warp w uses replica w % nrep, which
+// divides the contention of few-bin histograms), or straight to global
+// memory when nrep == 0 (histograms too large for shared memory).
+// Histogram layout, in a replica and in global memory alike: (nchains,
+// ndyn, total); in-domain counts go to sh_norm (nchains, ndyn).
+// Unsigned integer counts: exact, whatever order the atomics land in.
+//
+// One chain: each thread bins its samples in place and counts its
+// in-domain ones, one warp sum per segment.  Lock-step chains: each
+// sample is loaded once and binned for every chain (a copy of the
+// loaded fields per chain but the last, which transforms them in
+// place); the loop is warp-uniform (lanes past a segment's end idle)
+// so that one ballot per chain and sample row counts the in-domain
+// samples.  The kernels are instantiated once per form (kChains), so
+// the single chain's registers and spills are not the chains' loop's.
+template <bool kChains>
+__device__ __forceinline__ void sx_accumulate(
+    const SxSpec& sp, const float* __restrict__ samples, const float* par,
+    int nchains, int pstride, unsigned* sh_hist, unsigned* sh_norm,
+    unsigned* g_hist, int nrep) {
   const long long n = sp.seg_off[sp.ndyn];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  unsigned* mine = nrep ? sh_hist + (warp % nrep) * sp.ndyn * sp.total
-                        : g_hist;
+  unsigned* mine =
+      nrep ? sh_hist + (warp % nrep) * nchains * sp.ndyn * sp.total : g_hist;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (int seg = 0; seg < sp.ndyn; ++seg) {
-    unsigned cnt = 0;
-    unsigned* row = mine + seg * sp.total;
     const long long end = sp.seg_off[seg + 1];
-    for (long long i = sp.seg_off[seg] +
-                       (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i < end; i += stride) {
-      const int id = sx_bin_sample(sp, samples, n, i, seg, par);
-      if (id >= 0) {
-        ++cnt;
-        atomicAdd(&row[id], 1u);
+    if constexpr (!kChains) {
+      unsigned cnt = 0;
+      unsigned* row = mine + seg * sp.total;
+      for (long long i = sp.seg_off[seg] +
+                         (long long)blockIdx.x * blockDim.x + threadIdx.x;
+           i < end; i += stride) {
+        float cols[SX_MAXFIELDS];
+        sx_load(sp, samples, n, i, cols);
+        const int id = sx_bin_fields(sp, cols, seg, par);
+        if (id >= 0) {
+          ++cnt;
+          atomicAdd(&row[id], 1u);
+        }
+      }
+      cnt = __reduce_add_sync(0xffffffffu, cnt);
+      if (lane == 0 && cnt) atomicAdd(&sh_norm[seg], cnt);
+    } else {
+      const long long first =
+          (long long)blockIdx.x * blockDim.x + (warp << 5);
+      for (long long base = sp.seg_off[seg] + first; base < end;
+           base += stride) {
+        const long long i = base + lane;
+        const bool live = i < end;
+        float in[SX_MAXFIELDS];
+        if (live) sx_load(sp, samples, n, i, in);
+        for (int c = 0; c < nchains; ++c) {
+          int id = -1;
+          if (live) {
+            if (c + 1 < nchains) {
+              float cols[SX_MAXFIELDS];
+              for (int f = 0; f < sp.nfields; ++f) cols[f] = in[f];
+              id = sx_bin_fields(sp, cols, seg, par + c * pstride);
+            } else {
+              id = sx_bin_fields(sp, in, seg, par + c * pstride);
+            }
+          }
+          if (id >= 0)
+            atomicAdd(&mine[(c * sp.ndyn + seg) * sp.total + id], 1u);
+          const unsigned hit = __ballot_sync(0xffffffffu, id >= 0);
+          if (lane == 0 && hit)
+            atomicAdd(&sh_norm[c * sp.ndyn + seg], (unsigned)__popc(hit));
+        }
       }
     }
-    cnt = __reduce_add_sync(0xffffffffu, cnt);
-    if (lane == 0 && cnt) atomicAdd(&sh_norm[seg], cnt);
   }
 }
 
-// Add the block's shared replicas and in-domain counts to global memory.
-__device__ __forceinline__ void sx_flush(const SxSpec& sp,
+// Add the block's shared replicas and in-domain counts of nchains
+// chains to global memory.
+__device__ __forceinline__ void sx_flush(const SxSpec& sp, int nchains,
                                          const unsigned* sh_hist,
                                          const unsigned* sh_norm, int nrep,
                                          unsigned* g_hist, unsigned* g_norm) {
-  const int nh = sp.ndyn * sp.total;
+  const int nh = nchains * sp.ndyn * sp.total;
   if (nrep) {
     for (int t = threadIdx.x; t < nh; t += blockDim.x) {
       unsigned v = 0;
@@ -155,6 +206,6 @@ __device__ __forceinline__ void sx_flush(const SxSpec& sp,
       if (v) atomicAdd(&g_hist[t], v);
     }
   }
-  for (int t = threadIdx.x; t < sp.ndyn; t += blockDim.x)
+  for (int t = threadIdx.x; t < nchains * sp.ndyn; t += blockDim.x)
     if (sh_norm[t]) atomicAdd(&g_norm[t], sh_norm[t]);
 }

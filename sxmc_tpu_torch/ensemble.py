@@ -37,16 +37,12 @@ def check_slice(fc: FitConfig, sampler: str = "metropolis") -> None:
     todo = []
     if sampler != "metropolis":
         todo.append(f"sampler {sampler!r} (ROADMAP queue A, items 9-11)")
-    if fc.nchains > 1:
-        todo.append("fit.nchains > 1 (ROADMAP queue A, item 5)")
     if fc.rate_substeps > 0:
         todo.append("fit.rate_substeps > 0 (ROADMAP queue A, item 6, "
                     "kernel B5)")
     if fc.proposal != "diagonal":
         todo.append(f"fit.proposal {fc.proposal!r} (ROADMAP queue A, "
                     "item 6)")
-    if fc.binned:
-        todo.append("fit.binned (ROADMAP queue A, item 2)")
     if fc.plots:
         todo.append("fit.plots (plots.py, ROADMAP queue A, item 7); set "
                     '"plots": false')
@@ -83,6 +79,7 @@ def run_ensemble(
     """
     check_slice(fc, sampler)
     device = torch.device(device)
+    nchains = max(fc.nchains, 1)
     os.makedirs(output_path, exist_ok=True)
     metrics = MetricsLogger(os.path.join(
         output_path, f"{fc.output_prefix}_metrics.jsonl"))
@@ -97,7 +94,7 @@ def run_ensemble(
     mcmc = None
     if not fc.samples:
         mcmc = MCMC(fc.sources, fc.signals, fc.systematics,
-                    fc.observables, device=device)
+                    fc.observables, device=device, binned=fc.binned)
 
     limits: List[float] = []
     failures: List[dict] = []
@@ -134,7 +131,7 @@ def run_ensemble(
 
             sw = Stopwatch()
             ls = mcmc(samples_data, fc.nsteps, fc.burnin_fraction,
-                      debug_mode=fc.debug_mode,
+                      debug_mode=fc.debug_mode, nchains=nchains,
                       generator=torch.Generator(device).manual_seed(
                           chain_seed),
                       presampler=(presampler_fn(i) if presampler_fn
@@ -147,16 +144,16 @@ def run_ensemble(
             ls.save(lspace_file)
             metrics.log(
                 "experiment_fit", experiment=i, sampler=sampler,
-                nsteps=fc.nsteps, nchains=fc.nchains,
+                nsteps=fc.nsteps, nchains=nchains,
                 wall_seconds=elapsed,
-                steps_per_sec=fc.nsteps / max(elapsed, 1e-9),
+                steps_per_sec=fc.nsteps * nchains / max(elapsed, 1e-9),
                 accept_rate=mcmc.last_accept_rate)
 
         log(ls.print_best_fit())
         log(ls.print_correlations())
 
         # Convergence diagnostics (absent from the reference).
-        diag = summarize(ls.samples, list(ls.names), nchains=1)
+        diag = summarize(ls.samples, list(ls.names), nchains=nchains)
         log("-- Diagnostics --")
         for pname, d in diag.items():
             log(f" {pname}: ESS={d['ess']:.0f} R-hat={d['rhat']:.3f}")
@@ -215,11 +212,15 @@ def run_ensemble(
 
 def main_fit(config_file: str, output_path: str, device="cuda",
              resume: bool = False, data_root: Optional[str] = None,
-             max_retries: int = 1) -> List[float]:
-    """The whole fit from a config file (reference: sxmc.cpp:181-229)."""
+             max_retries: int = 1,
+             binned: Optional[bool] = None) -> List[float]:
+    """The whole fit from a config file (reference: sxmc.cpp:181-229);
+    ``binned``, when given, overrides ``fit.binned``."""
     print("sxmc_tpu_torch: Loading configuration...")
     print(f"sxmc_tpu_torch: Configuration: {config_file}")
     fc = FitConfig.from_json_file(config_file, data_root=data_root)
+    if binned is not None:
+        fc.binned = binned
     print(fc.print())
     print(f"sxmc_tpu_torch: Running ensemble on {device}...")
     limits = run_ensemble(fc, output_path, device=device, resume=resume,

@@ -3,8 +3,8 @@
 Takes the numpy arrays a ``sxmc_tpu`` run produced and builds the
 port's objects from them, so that both packages can compute on
 identical inputs: a chain state, the NLL constants, a dataset, and
-presampled noise streams.  Nothing here imports jax: the caller
-converts with ``np.asarray`` on its side.
+presampled noise streams (one chain's or lock-step chains').  Nothing
+here imports jax: the caller converts with ``np.asarray`` on its side.
 """
 
 from __future__ import annotations
@@ -47,31 +47,35 @@ def dataset(data) -> np.ndarray:
 
 
 def stream(noise, u, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """A phase's ``(noise (n, npar), log_u (n,))`` from the JAX
-    ``_presample(keys, npar, 0)`` output ``(noise (n, 1, npar), u (n,
-    1))``; ``log_u`` is the float32 ``log(u)`` the fused path takes."""
+    """A phase's ``(noise, u)`` float32 streams from the JAX package's.
+
+    One chain: ``_presample(keys, npar, 0)`` gives ``(noise (n, 1,
+    npar), u (n, 1))`` -> ``(n, npar)``, ``(n,)``.  Lock-step chains:
+    ``_run_chains_batched``'s ``phase_xs(ks, n)`` gives ``(noise (n,
+    nchains, 1, npar), u (n, nchains, 1))`` -> ``(n, nchains, npar)``,
+    ``(n, nchains)``.  The port's routes take what they need from
+    ``u``: the stepper ``u`` itself, the fused kernels ``log(u)``.
+    """
     noise = np.asarray(noise, np.float32)
     u = np.asarray(u, np.float32)
-    if noise.ndim == 3:
-        noise = noise[:, 0, :]
-    if u.ndim == 2:
-        u = u[:, 0]
-    with np.errstate(divide="ignore"):
-        log_u = np.log(u)
-    return as_f32(noise, device), as_f32(log_u, device)
+    if noise.ndim not in (3, 4) or noise.shape[-2] != 1 \
+            or u.shape != noise.shape[:-1]:
+        raise ValueError(f"not a joint-step stream: noise {noise.shape}, "
+                         f"u {u.shape}")
+    return as_f32(noise[..., 0, :], device), as_f32(u[..., 0], device)
 
 
 def presampler(phases: Sequence[Tuple[np.ndarray, np.ndarray]],
                device="cpu") -> Presampler:
-    """A presampler that hands out the given ``(noise, u)`` streams,
-    one per phase (burn-in 1, burn-in 2, main)."""
+    """A presampler that hands out the given JAX ``(noise, u)`` streams
+    (see :func:`stream`), one per phase (burn-in 1, burn-in 2, main)."""
     streams = [stream(n, u, device) for n, u in phases]
 
     def draw(phase: int, n: int):
-        noise, log_u = streams[phase]
+        noise, u = streams[phase]
         if noise.shape[0] != n:
             raise ValueError(f"phase {phase} stream has {noise.shape[0]} "
                              f"steps, the chain asks for {n}")
-        return noise, log_u
+        return noise, u
 
     return draw

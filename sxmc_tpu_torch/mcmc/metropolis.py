@@ -1,25 +1,40 @@
-"""Adaptive Metropolis MCMC on one device (port of the single-chain
-diagonal path of ``sxmc_tpu/mcmc/metropolis.py``).
+"""Adaptive Metropolis MCMC on one device (port of the diagonal paths of
+``sxmc_tpu/mcmc/metropolis.py``: one chain or lock-step chains).
 
 Semantics (reference src/mcmc.{h,cpp}, nll_kernels.cpp:191-271):
   * parameter vector = source rates then systematic coefficients, with
     means/sigmas/fixed flattened identically (mcmc.cpp:47-81);
   * initial jump widths 0.1 * width * (2.4^2 / nfloat), fixed
     parameters pinned with width -1 (mcmc.cpp:197-228);
-  * independent Gaussian proposals per parameter; the accept is the
-    fused TPU path's log form ``delta > 0 or log(u) <= delta``
-    (pallas_step.py:782-792), debug mode accepts everything;
+  * independent Gaussian proposals per parameter; debug mode accepts
+    everything;
   * three fixed-width phases: burn-in 1, burn-in 2, main, with the
-    widths retuned from each burn-in phase's sample RMS, and the burn-in
-    samples dropped unless debug (mcmc.cpp:273-311,
-    metropolis.py:1221-1289).
+    widths retuned from each burn-in phase's sample RMS (per chain),
+    and the burn-in samples dropped unless debug (mcmc.cpp:273-311,
+    metropolis.py:1221-1289); lock-step chains are pooled chain-major
+    into ``(nchains * nkeep, npar)`` (metropolis.py:228-233).
 
-Each phase is ONE launch of the whole-segment kernel (B4) and the
-chain's initial NLL one launch of the fused NLL kernel (B3), through
-``PdfStack``.  The proposal noise and accept uniforms of a phase are
-drawn up front on the device from the chain's ``torch.Generator``
-(:func:`presample`); a caller may inject other streams instead, which
-is how the tests feed the JAX package's ``_presample`` streams to both
+Two routes, chosen as the JAX package chooses them (``_fused_ok``,
+metropolis.py:378-390):
+  * **fused** (floating systematics, unbinned likelihood): each phase is
+    ONE launch of the whole-segment kernel B4 and the initial NLL one
+    launch of B3, in their batched forms for lock-step chains; accept
+    ``delta > 0 or log(u) <= delta``, as the TPU kernel
+    (pallas_step.py:782-792);
+  * **stepper** (every systematic fixed or none at all, or the binned
+    likelihood): a Python loop of torch ops on the device with no host
+    synchronisation and no branch on tensor values, the JAX scan
+    path's step (metropolis.py:494-516) with its accept ``delta > 0 or
+    u <= exp(delta)``.  With fixed systematics the LUT is built once
+    at the means (B1, then B2) and every step is plain torch NLL math
+    (the JAX package's jnp outside any kernel); binned, every step
+    rebuilds the histograms (B1, or B1-batched for chains) and takes
+    the binned NLL.
+
+The proposal noise and accept uniforms of a phase are drawn up front on
+the device from the chain's ``torch.Generator`` (:func:`presample`); a
+caller may inject other streams instead, which is how the tests feed
+the JAX package's ``_presample`` / ``phase_xs`` streams to both
 packages.
 """
 
@@ -30,14 +45,16 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sxmc_tpu_torch.ops.nll import NLLStatic
+from sxmc_tpu_torch.ops.nll import (NLLStatic, binned_nll_pair, df_diff,
+                                    nll_pair)
 from sxmc_tpu_torch.pdf.stack import PdfStack
 from sxmc_tpu_torch.signal import Observable, Signal, Source, Systematic
 from sxmc_tpu_torch.stats.likelihood import LikelihoodSpace
 
 HAARIO = 2.4 * 2.4  # Haario et al. 2001 proposal scaling (mcmc.cpp:199)
 
-# (phase index 0/1/2, nsteps) -> (noise (n, npar), log_u (n,)) float32.
+# (phase index 0/1/2, nsteps) -> (noise (n, [nchains,] npar), u (n,
+# [nchains])) float32, u ~ U[0, 1).
 Presampler = Callable[[int, int], Tuple[torch.Tensor, torch.Tensor]]
 
 
@@ -65,9 +82,9 @@ class MCMC:
         device="cpu",
         binned: bool = False,
     ):
-        if binned:
-            _not_ported("the binned likelihood",
-                        "ROADMAP queue A, item 2")
+        """``binned=True`` takes the exact binned regrouping of the NLL
+        (ops.nll.binned_nll_pair) for every evaluation."""
+        self.binned = bool(binned)
         self.device = torch.device(device)
         self.nsources = len(sources)
         self.nsignals = len(signals)
@@ -101,10 +118,6 @@ class MCMC:
         self.parameter_names = names
         self.nfloat = int((~fixed).sum())
         self.nsystematics = len(systematics)
-        if self.nsystematics == 0 or self.systematics_fixed:
-            _not_ported(
-                "a fit without a floating systematic (the split "
-                "pallas_eval_lut path)", "ROADMAP queue B, kernel B2")
 
         self.stack = PdfStack(signals, observables, systematics,
                               self.device)
@@ -116,6 +129,9 @@ class MCMC:
                                  np.int32),
             means=means.copy(), sigmas=sigmas.copy(),
             nsources=self.nsources)
+        # The constants on the device, made once: the fused kernels' spec
+        # carries them for the plain versions and the stepper route.
+        self.nll_spec = self.stack.nll_spec(self.static)
         self.last_accept_rate = None
 
     def initial_jump_widths(self) -> np.ndarray:
@@ -148,17 +164,19 @@ class MCMC:
         nchains: int = 1,
         rate_substeps: int = 0,
         proposal: str = "diagonal",
+        pool_adaptation: bool = False,
         presampler: Optional[Presampler] = None,
     ) -> LikelihoodSpace:
         """Run the random walk; returns the likelihood space.
 
         ``data`` is ``(nevents, nobservables + 1)`` with dataset tags.
-        The noise comes from ``generator`` (a ``torch.Generator`` on
-        this MCMC's device), or from ``presampler`` when given.
+        ``nchains > 1`` runs lock-step chains, each retuned on its own,
+        and pools their post-burn-in samples.  The noise comes from
+        ``generator`` (a ``torch.Generator`` on this MCMC's device), or
+        from ``presampler`` when given.
         """
-        if nchains != 1:
-            _not_ported("nchains > 1 (lock-step batched chains)",
-                        "ROADMAP queue A, item 5")
+        if nchains < 1:
+            raise ValueError(f"nchains={nchains} must be at least 1")
         if rate_substeps:
             _not_ported("rate_substeps > 0 (blocked Metropolis-within-"
                         "Gibbs)", "ROADMAP queue A, item 6, kernel B5")
@@ -166,6 +184,9 @@ class MCMC:
             _not_ported("proposal 'full_cov'", "ROADMAP queue A, item 6")
         if proposal != "diagonal":
             raise ValueError(f"unknown proposal {proposal!r}")
+        if pool_adaptation and nchains > 1:
+            _not_ported("pool_adaptation (pooled burn-in retuning)",
+                        "ROADMAP queue A, item 5")
         self.stack.set_data(data)
         burnin_steps = int(nsteps * burnin_fraction)
         if burnin_steps > 0 and nsteps <= 2 * burnin_steps \
@@ -180,39 +201,188 @@ class MCMC:
             gen = generator
 
             def presampler(phase, n):
-                return presample(gen, n, self.nparameters, self.device)
+                return presample(gen, n, self.nparameters, self.device,
+                                 nchains)
 
         samples, nlls, accept_rate = run_chain(
             self, self.stack.read_bins, nsteps, burnin_steps, debug_mode,
-            presampler)
+            presampler, nchains)
         self.last_accept_rate = float(accept_rate)
         return LikelihoodSpace.from_arrays(
             samples.cpu().numpy(), nll_history_to_f64(nlls),
             self.parameter_names)
 
 
-def presample(gen: torch.Generator, n: int, npar: int, device
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def presample(gen: torch.Generator, n: int, npar: int, device,
+              nchains: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """A phase's proposal noise ``(n, npar)`` ~ N(0, 1) and accept
-    ``log(u)`` ``(n,)``, u ~ U[0, 1), drawn on the device from ``gen``."""
-    noise = torch.randn((n, npar), generator=gen, device=device,
+    uniforms ``u`` ``(n,)`` ~ U[0, 1), drawn on the device from
+    ``gen``; with ``nchains > 1``, ``(n, nchains, npar)`` and ``(n,
+    nchains)``."""
+    lead = (n,) if nchains == 1 else (n, nchains)
+    noise = torch.randn(lead + (npar,), generator=gen, device=device,
                         dtype=torch.float32)
-    u = torch.rand(n, generator=gen, device=device, dtype=torch.float32)
-    return noise, torch.log(u)
+    u = torch.rand(lead, generator=gen, device=device, dtype=torch.float32)
+    return noise, u
 
 
-def initial_state(mcmc: MCMC, read_bins: torch.Tensor):
-    """Initial ``(params, (hi, lo), width)`` of a chain (kernel B3)."""
+def _syst_float(mcmc: MCMC) -> bool:
+    return mcmc.nsystematics > 0 and not mcmc.systematics_fixed
+
+
+def _fused_ok(mcmc: MCMC) -> bool:
+    """True when the fused kernels (B3/B4) replace the split rebuild ->
+    LUT -> nll_pair chain: floating systematics (else there is no
+    per-step rebuild to fuse), the unbinned likelihood, and a stack with
+    a dynamic segment (metropolis.py:378-390)."""
+    return (_syst_float(mcmc) and not mcmc.binned
+            and mcmc.stack.supports_fused)
+
+
+def _nll_backend(mcmc: MCMC, read_bins: torch.Tensor):
+    """Likelihood-mode dispatch (metropolis.py:333-375): ``(evaluate,
+    evaluate_batch, pair)``.  Unbinned, ``evaluate`` is the LUT (B1,
+    then B2) and ``pair`` :func:`nll_pair`; binned, ``evaluate`` is the
+    histograms (B1) and ``pair`` the binned NLL against the data counts
+    derived once from the read bins."""
+    stack = mcmc.stack
+    if not mcmc.binned:
+        def evaluate(theta):
+            return stack.evaluate(theta, read_bins)
+
+        def evaluate_batch(thetas):
+            return stack.evaluate_batch(thetas, read_bins)
+
+        return evaluate, evaluate_batch, nll_pair
+
+    counts = stack.counts_from_read_bins(read_bins)
+    mask = torch.as_tensor(stack.dataset_mask, device=mcmc.device)
+    bv = stack.bin_volume
+
+    def pair(params, hists, norms, c):
+        return binned_nll_pair(params, hists, norms, c, counts, mask, bv)
+
+    return stack.histograms, stack.histograms_batch, pair
+
+
+def _chain_nll(mcmc: MCMC, read_bins: torch.Tensor):
+    """params ``(npar,)`` or ``(nchains, npar)`` -> the compensated
+    ``(hi, lo)`` pair(s): the JAX package's ``_chain_nll`` and
+    ``_chain_nll_batch`` in one (metropolis.py:393-419, 978-1013).
+    Fused: B3 (or B3-batched).  Otherwise the state comes from
+    ``_nll_backend``: built once at the means when no systematic floats,
+    else at every call (``evaluate`` or ``evaluate_batch``)."""
+    if _fused_ok(mcmc):
+        stack, spec = mcmc.stack, mcmc.nll_spec
+
+        def fused(params):
+            if params.dim() == 2:
+                return stack.fused_nll_pair_batch(params, read_bins, spec)
+            return stack.fused_nll_pair(params, read_bins, spec)
+
+        return fused
+    evaluate, evaluate_batch, pair = _nll_backend(mcmc, read_bins)
+    ns = mcmc.nsources
+    dst = mcmc.nll_spec.consts
+    if not _syst_float(mcmc):
+        theta0 = torch.as_tensor(mcmc.parameter_means[ns:],
+                                 device=mcmc.device)
+        state0 = evaluate(theta0)
+
+        def fixed(params):
+            return pair(params, *state0, dst)
+
+        return fixed
+
+    def rebuilt(params):
+        state = (evaluate_batch(params[:, ns:]) if params.dim() == 2
+                 else evaluate(params[ns:]))
+        return pair(params, *state, dst)
+
+    return rebuilt
+
+
+def _make_step(chain_nll, debug_mode: bool):
+    """One Metropolis step of the stepper route (metropolis.py:494-516,
+    1054-1064), for ``(npar,)`` or ``(nchains, npar)`` params: propose
+    ``where(width > 0, params + noise * max(width, 0), params)``, accept
+    where ``delta > 0`` or ``u <= exp(delta)``."""
+
+    def step(carry, xs):
+        params, (cur_hi, cur_lo), width = carry
+        noise_raw, u = xs
+        noise = noise_raw * torch.clamp_min(width, 0.0)
+        proposed = torch.where(width > 0, params + noise, params)
+        prop_hi, prop_lo = chain_nll(proposed)
+        delta = df_diff(cur_hi, cur_lo, prop_hi, prop_lo)
+        accept = (delta > 0) | (u <= torch.exp(delta))
+        if debug_mode:
+            accept = torch.ones_like(accept)
+        params = torch.where(accept[..., None], proposed, params)
+        cur_hi = torch.where(accept, prop_hi, cur_hi)
+        cur_lo = torch.where(accept, prop_lo, cur_lo)
+        return ((params, (cur_hi, cur_lo), width),
+                (params, (cur_hi, cur_lo), accept.to(torch.float32)))
+
+    return step
+
+
+def _phase_runner(mcmc: MCMC, read_bins: torch.Tensor, chain_nll,
+                  debug_mode: bool):
+    """``run(params, (hi, lo), width, noise, u)`` -> ``(params, (hi,
+    lo), samples (n, ..., npar), (hi (n, ...), lo (n, ...)), accepts
+    (n, ...))``: one fixed-width phase on the fused route (one B4 launch,
+    ``log(u)``) or the stepper route (a loop of :func:`_make_step`)."""
+    if _fused_ok(mcmc):
+        def fused(params, cur, width, noise, u):
+            nll0 = torch.stack([cur[0], cur[1]], dim=-1).to(torch.float32)
+            segment = (mcmc.stack.fused_segment_batch if params.dim() == 2
+                       else mcmc.stack.fused_segment)
+            samples, nlls, accs = segment(
+                params, nll0, width, read_bins, noise, torch.log(u),
+                mcmc.nll_spec, debug_mode)
+            return (samples[-1], (nlls[-1, ..., 0], nlls[-1, ..., 1]),
+                    samples, (nlls[..., 0], nlls[..., 1]), accs)
+
+        return fused
+    step = _make_step(chain_nll, debug_mode)
+
+    def stepped(params, cur, width, noise, u):
+        n = noise.shape[0]
+        samples = torch.empty((n,) + tuple(params.shape),
+                              dtype=torch.float32, device=params.device)
+        hi = torch.empty((n,) + tuple(cur[0].shape), dtype=torch.float32,
+                         device=params.device)
+        lo, accs = torch.empty_like(hi), torch.empty_like(hi)
+        carry = (params, cur, width)
+        for k in range(n):
+            carry, (p, (h, l), a) = step(carry, (noise[k], u[k]))
+            samples[k], hi[k], lo[k], accs[k] = p, h, l, a
+        return carry[0], carry[1], samples, (hi, lo), accs
+
+    return stepped
+
+
+def initial_state(mcmc: MCMC, read_bins: torch.Tensor, nchains: int = 1,
+                  chain_nll=None):
+    """Initial ``(params, (hi, lo), width)``: the means and the initial
+    widths, ``(nchains, npar)`` for lock-step chains, and their NLL
+    (B3 or B3-batched on the fused route)."""
     dev = mcmc.device
     params0 = torch.as_tensor(mcmc.parameter_means, device=dev)
-    nll0 = mcmc.stack.fused_nll_pair(params0, read_bins, mcmc.static)
     width0 = torch.as_tensor(mcmc.initial_jump_widths(), device=dev)
-    return params0, nll0, width0
+    if nchains > 1:
+        params0 = params0.expand(nchains, -1).contiguous()
+        width0 = width0.expand(nchains, -1).contiguous()
+    if chain_nll is None:
+        chain_nll = _chain_nll(mcmc, read_bins)
+    return params0, chain_nll(params0), width0
 
 
 def retune_width(mcmc: MCMC, width: torch.Tensor,
                  phase_samples: torch.Tensor) -> torch.Tensor:
-    """Jump-width rescale from a burn-in phase (mcmc.cpp:279-305).
+    """Jump-width rescale from a burn-in phase (mcmc.cpp:279-305), per
+    chain for ``(n, nchains, npar)`` samples.
 
     The sample RMS is taken in f64 and rounded once to f32 (the JAX
     package takes it in f32; the two agree to an ulp).
@@ -226,37 +396,39 @@ def retune_width(mcmc: MCMC, width: torch.Tensor,
 
 
 def run_segment(mcmc: MCMC, params, cur_nll, width, read_bins,
-                noise: torch.Tensor, log_u: torch.Tensor,
+                noise: torch.Tensor, u: torch.Tensor,
                 debug_mode: bool = False):
-    """One fixed-width segment as ONE whole-segment kernel launch.
+    """One fixed-width segment from presampled ``noise`` and accept
+    uniforms ``u``: one whole-segment kernel launch on the fused route,
+    the stepper loop otherwise (metropolis.py:255-310).
 
     ``cur_nll`` is the (hi, lo) pair of ``params``.  Returns
     ``(params, (hi, lo), samples (n, npar), (hi (n,), lo (n,)),
     accepts (n,))``: the carry and the scan history of the JAX
     package's ``run_segment``.
     """
-    nll0 = torch.stack([cur_nll[0], cur_nll[1]]).to(torch.float32)
-    samples, nlls, accs = mcmc.stack.fused_segment(
-        params, nll0, width, read_bins, noise, log_u, mcmc.static,
-        debug_mode)
-    carry_nll = (nlls[-1, 0], nlls[-1, 1])
-    return samples[-1], carry_nll, samples, (nlls[:, 0], nlls[:, 1]), accs
+    run = _phase_runner(mcmc, read_bins, _chain_nll(mcmc, read_bins),
+                        debug_mode)
+    return run(params, cur_nll, width, noise, u)
 
 
 def run_chain(mcmc: MCMC, read_bins: torch.Tensor, nsteps: int,
               burnin_steps: int, debug_mode: bool,
-              presampler: Presampler):
-    """One chain through its three phases (metropolis.py:1221-1289).
+              presampler: Presampler, nchains: int = 1):
+    """One chain, or ``nchains`` lock-step chains, through the three
+    phases (metropolis.py:1020-1196, 1221-1289).
 
     Returns ``(samples, (hi, lo), accept_rate)`` of the recorded steps
-    (the main phase, plus the burn-in phases in debug mode).
+    (the main phase, plus the burn-in phases in debug mode), chains
+    pooled chain-major: ``(nchains * nkeep, npar)``.
     """
-    params, cur, width = initial_state(mcmc, read_bins)
+    chain_nll = _chain_nll(mcmc, read_bins)
+    params, cur, width = initial_state(mcmc, read_bins, nchains, chain_nll)
+    run = _phase_runner(mcmc, read_bins, chain_nll, debug_mode)
 
     def phase(k, n, params, cur, width):
-        noise, log_u = presampler(k, n)
-        return run_segment(mcmc, params, cur, width, read_bins, noise,
-                           log_u, debug_mode)
+        noise, u = presampler(k, n)
+        return run(params, cur, width, noise, u)
 
     outs = []
     if burnin_steps > 0:
@@ -273,7 +445,11 @@ def run_chain(mcmc: MCMC, read_bins: torch.Tensor, nsteps: int,
         outs.append((s, n, a))
 
     samples = torch.cat([o[0] for o in outs])
-    nlls = (torch.cat([o[1][0] for o in outs]),
-            torch.cat([o[1][1] for o in outs]))
+    hi = torch.cat([o[1][0] for o in outs])
+    lo = torch.cat([o[1][1] for o in outs])
     accepts = torch.cat([o[2] for o in outs])
-    return samples, nlls, accepts.mean()
+    if nchains > 1:
+        # (nsteps, nchains, ...) -> chain-major pooled rows.
+        samples = samples.transpose(0, 1).reshape(-1, mcmc.nparameters)
+        hi, lo = hi.T.reshape(-1), lo.T.reshape(-1)
+    return samples, (hi, lo), accepts.mean()

@@ -1,20 +1,29 @@
 """The hand-written Hopper kernels: build, bind, wrap, count.
 
-Three kernels carry the default Metropolis fit (sources and notes in
+Four kernels carry the Metropolis fits (sources and notes in
 ``sxmc_tpu_torch/csrc/``):
 
   B1 :func:`segmented_histogram`  <- sxmc_tpu/ops/pallas_hist.py::
-     pallas_histogram_segmented (fake-data generation, EvalHist)
+     pallas_histogram_segmented (fake-data generation, EvalHist, the
+     split path's one build, the binned likelihood);
+     :func:`segmented_histogram_batched` is its ``(nchains, npar)``
+     theta form (the binned likelihood with lock-step chains)
+  B2 :func:`lut_eval`             <- sxmc_tpu/ops/pallas_hist.py::
+     pallas_eval_lut (PdfStack.evaluate / evaluate_batch, EvalHist.eval)
   B3 :func:`fused_nll`            <- sxmc_tpu/ops/pallas_step.py::
-     pallas_fused_step (the chain's initial NLL)
+     pallas_fused_step (a chain's initial NLL); :func:`fused_nll_batched`
+     for ``(nchains, npar)`` params
   B4 :func:`fused_segment`        <- sxmc_tpu/ops/pallas_step.py::
-     pallas_fused_segment (one whole fixed-width Metropolis phase)
+     pallas_fused_segment (one whole fixed-width Metropolis phase);
+     :func:`fused_segment_batched` for lock-step chains
 
-Each wrapper checks its inputs, and then takes one of two routes
-decided only by where the tensors lie: on the CPU it runs the plain
-PyTorch version beside it (``*_plain``), on a CUDA device it launches
-the kernel or raises.  There is no fallback from the card to the plain
-version.  Every launch adds one to the wrapper's ``launches`` count.
+Each form takes one shape and counts its launches under its own name,
+so that a run shows which form ran.  Each wrapper checks its inputs,
+and then takes one of two routes decided only by where the tensors lie: on the CPU it runs the
+plain PyTorch version beside it (``*_plain``), on a CUDA device it
+launches the kernel or raises.  There is no fallback from the card to
+the plain version.  Every launch adds one to the wrapper's
+``launches`` count.
 
 The library is compiled with nvcc at first use, into
 ``build/sxmc_kernels/<hash of the sources>/`` beside the package, and
@@ -39,11 +48,12 @@ import torch
 
 from sxmc_tpu_torch.ops import histogram as hist_ops
 from sxmc_tpu_torch.ops import transforms
-from sxmc_tpu_torch.ops.nll import NLLStatic, df_diff, nll_pair
+from sxmc_tpu_torch.ops.nll import NLLConsts, NLLStatic, df_diff, nll_pair
 
 # Limits of the C struct SxSpec (csrc/sxmc_phases.cuh).
 MAXOBS, MAXFIELDS, MAXSEG, MAXSIG = 4, 8, 32, 32
 MAXSYST, MAXPOW, MAXPAR = 8, 4, 64
+MAXCHAINS, MAXCP, MAXCS = 32, 512, 256  # chains; x params; x signals
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -125,10 +135,13 @@ class HistSpec:
 @dataclasses.dataclass(frozen=True)
 class NLLSpec:
     """What the fused kernels need beyond the histogram: the NLL
-    constants, which dynamic segment (or -1: static row) each signal
-    is, the static signals' in-domain counts and the bin volume."""
+    constants (on the host for the kernels' C spec, on the device for
+    the plain versions), which dynamic segment (or -1: static row) each
+    signal is, the static signals' in-domain counts and the bin
+    volume."""
 
     st: NLLStatic
+    consts: NLLConsts
     sig_slot: Tuple[int, ...]
     norm_init: Tuple[float, ...]
     bin_volume: float
@@ -279,12 +292,15 @@ def _library() -> ctypes.CDLL:
     lib.sx_spec_size.argtypes, lib.sx_spec_size.restype = [], _I
     lib.sx_error_string.argtypes = [_I]
     lib.sx_error_string.restype = ctypes.c_char_p
-    lib.sx_histogram.argtypes = [_P] * 6
+    lib.sx_histogram.argtypes = [_P, _I, _P, _P, _I, _P, _P, _P]
     lib.sx_histogram.restype = _I
-    lib.sx_fused_grid.argtypes = [_P, _P]
+    lib.sx_eval_lut.argtypes = [_P, _P, _P, _I, _I, _I, ctypes.c_longlong,
+                                ctypes.c_float, _P, _P]
+    lib.sx_eval_lut.restype = _I
+    lib.sx_fused_grid.argtypes = [_P, _I, _P]
     lib.sx_fused_grid.restype = _I
-    lib.sx_fused.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
-                             _P, _P, _I, _P, _P, _P, _P]
+    lib.sx_fused.argtypes = [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
+                             _I, _P, _P, _I, _P, _P, _P, _P]
     lib.sx_fused.restype = _I
     if lib.sx_spec_size() != ctypes.sizeof(_CSpec):
         raise RuntimeError(
@@ -335,13 +351,19 @@ def _check_samples(hs: HistSpec, samples: torch.Tensor) -> None:
 
 def _dyn_counts_plain(hs: HistSpec, samples: torch.Tensor,
                       par: torch.Tensor, par_off: int) -> torch.Tensor:
-    """``(ndyn, total)`` int64 counts: the plain version of the
+    """``(ndyn, total)`` int64 counts, or ``(nchains, ndyn, total)``
+    for ``(nchains, npar)`` parameters: the plain version of the
     rebuild every kernel here does."""
     dev = samples.device
     cols = [samples[f] for f in range(hs.nfields)]
     sizes = torch.as_tensor(np.diff(hs.seg_off), device=dev)
     seg = torch.repeat_interleave(torch.arange(hs.ndyn, device=dev), sizes)
-    theta = par[par_off:]
+    batched = par.dim() == 2
+    theta = par[..., par_off:]
+    if batched:
+        # theta[pidx] becomes a (nchains, 1) column: every transformed
+        # field broadcasts to (nchains, n), one row per chain.
+        theta = theta.T.unsqueeze(-1)
     for desc, mask in hs.systematics:
         if not any(mask):
             continue
@@ -351,54 +373,79 @@ def _dyn_counts_plain(hs: HistSpec, samples: torch.Tensor,
         else:
             on = torch.as_tensor(mask, device=dev)[seg]
             cols[desc.obs] = torch.where(on, new, cols[desc.obs])
+    obs = torch.stack(torch.broadcast_tensors(*cols[:hs.nobs]), dim=-1)
+    nch = par.shape[0] if batched else 1
     ids, valid = hist_ops.compute_bin_ids(
-        torch.stack(cols[:hs.nobs], dim=1), hs.lower, hs.upper, hs.nbins)
-    return hist_ops.segmented_histogram(ids, valid, seg, hs.ndyn, hs.total)
+        obs.expand(nch, hs.n, hs.nobs).reshape(-1, hs.nobs), hs.lower,
+        hs.upper, hs.nbins)
+    segs = (torch.arange(nch, device=dev)[:, None] * hs.ndyn
+            + seg[None, :]).reshape(-1)
+    counts = hist_ops.segmented_histogram(ids, valid, segs, nch * hs.ndyn,
+                                          hs.total)
+    return counts.reshape(nch, hs.ndyn, hs.total) if batched else counts
 
 
 def segmented_histogram_plain(hs: HistSpec, samples: torch.Tensor,
                               theta: torch.Tensor
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of B1: ``(ndyn, total)`` float32 counts and the
-    ``(ndyn,)`` float32 in-domain counts (integer sums, then cast)."""
+    """Plain version of B1 (single and batched): ``([nchains,] ndyn,
+    total)`` float32 counts and the ``([nchains,] ndyn)`` float32
+    in-domain counts (integer sums, then cast)."""
     counts = _dyn_counts_plain(hs, samples, theta, 0)
-    return counts.to(torch.float32), counts.sum(dim=1).to(torch.float32)
+    return counts.to(torch.float32), counts.sum(dim=-1).to(torch.float32)
+
+
+def lut_eval_plain(counts: torch.Tensor, norms: torch.Tensor,
+                   read_bins: torch.Tensor, bin_volume: float
+                   ) -> torch.Tensor:
+    """Plain version of B2: ``counts[s, rb] / (norms[s] * bin_volume)``
+    with the -1 -> NaN and -2 -> 0 sentinels; row s reads read-bin row
+    ``s % len(read_bins)``."""
+    from sxmc_tpu_torch.pdf.evalhist import eval_from_bins
+
+    reps = counts.shape[0] // read_bins.shape[0]
+    rb = read_bins.repeat(reps, 1) if reps > 1 else read_bins
+    return eval_from_bins(counts, norms, bin_volume, rb)
 
 
 def assemble(ns: NLLSpec, hist_init: torch.Tensor,
              counts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full ``(nsig, total)`` float32 table + ``(nsig,)`` norms from the
-    static rows and the dynamic segments' integer counts."""
+    """Full ``([nchains,] nsig, total)`` float32 table + ``([nchains,]
+    nsig)`` norms from the static rows and the dynamic segments'
+    integer counts ``([nchains,] ndyn, total)``."""
     dev = hist_init.device
+    lead = tuple(counts.shape[:-2])
     dyn = [j for j, s in enumerate(ns.sig_slot) if s >= 0]
     slots = torch.as_tensor([ns.sig_slot[j] for j in dyn], device=dev)
     idx = torch.as_tensor(dyn, device=dev)
-    hists = hist_init.clone()
-    hists[idx] = counts[slots].to(torch.float32)
-    norms = torch.as_tensor(np.asarray(ns.norm_init, np.float32), device=dev)
-    norms[idx] = counts[slots].sum(dim=1).to(torch.float32)
+    hists = hist_init.expand(*lead, *hist_init.shape).clone()
+    hists[..., idx, :] = counts[..., slots, :].to(torch.float32)
+    norms = torch.as_tensor(np.asarray(ns.norm_init, np.float32),
+                            device=dev).expand(*lead, ns.nsig).clone()
+    norms[..., idx] = counts[..., slots, :].sum(dim=-1).to(torch.float32)
     return hists, norms
 
 
 def fused_nll_plain(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
                     hist_init: torch.Tensor, rb: torch.Tensor,
                     params: torch.Tensor):
-    """Plain version of B3: rebuild, LUT, ``nll_pair``."""
-    from sxmc_tpu_torch.pdf.evalhist import eval_from_bins
-
+    """Plain version of B3 (single and batched): rebuild, LUT,
+    ``nll_pair``."""
     counts = _dyn_counts_plain(hs, samples, params, int(ns.st.nsources))
     hists, norms = assemble(ns, hist_init, counts)
-    lut = eval_from_bins(hists, norms, ns.bin_volume, rb)
-    return nll_pair(params, lut, norms, ns.st)
+    lut = lut_eval_plain(hists.reshape(-1, hs.total), norms.reshape(-1),
+                         rb, ns.bin_volume)
+    lut = lut.reshape(*hists.shape[:-1], rb.shape[1])
+    return nll_pair(params, lut, norms, ns.consts)
 
 
 def fused_segment_plain(hs, ns, samples, hist_init, rb, params0, nll0,
                         width, noise, log_u, debug_mode: bool = False):
-    """Plain version of B4: the step loop, one :func:`fused_nll_plain`
-    per proposal, the log-space accept.  Stays on the device (no
-    host synchronisation per step)."""
+    """Plain version of B4 (single and batched): the step loop, one
+    :func:`fused_nll_plain` per proposal, the log-space accept.  Stays
+    on the device (no host synchronisation per step)."""
     cur = params0.clone()
-    cur_hi, cur_lo = nll0[0].clone(), nll0[1].clone()
+    cur_hi, cur_lo = nll0[..., 0].clone(), nll0[..., 1].clone()
     zero = torch.zeros((), dtype=torch.float32, device=params0.device)
     wpos = torch.clamp_min(width, 0.0)
     out_s, out_n, out_a = [], [], []
@@ -409,16 +456,52 @@ def fused_segment_plain(hs, ns, samples, hist_init, rb, params0, nll0,
         acc = (delta > zero) | (log_u[s] <= delta)
         if debug_mode:
             acc = torch.ones_like(acc)
-        cur = torch.where(acc, prop, cur)
+        cur = torch.where(acc[..., None], prop, cur)
         cur_hi = torch.where(acc, hi, cur_hi)
         cur_lo = torch.where(acc, lo, cur_lo)
         out_s.append(cur)
-        out_n.append(torch.stack([cur_hi, cur_lo]))
+        out_n.append(torch.stack([cur_hi, cur_lo], dim=-1))
         out_a.append(acc.to(torch.float32))
     return torch.stack(out_s), torch.stack(out_n), torch.stack(out_a)
 
 
 # ------------------------------------------------------------ wrappers
+
+
+@functools.lru_cache(maxsize=64)
+def _hist_c_spec(hs: HistSpec) -> _CSpec:
+    """B1's C spec, built once per layout (B1 runs every step of the
+    binned likelihood)."""
+    return _c_spec(hs, None, 0)
+
+
+def _check_theta(hs: HistSpec, theta: torch.Tensor, ndim: int,
+                 device) -> None:
+    npar = max((max(d.par_indices) + 1 for d, _ in hs.systematics),
+               default=0)
+    if theta.dim() != ndim or theta.shape[-1] < npar:
+        want = "(npar,)" if ndim == 1 else "(nchains, npar)"
+        raise ValueError(f"theta has shape {tuple(theta.shape)}, needs "
+                         f"{want} with npar >= {npar}")
+    _expect(theta, "theta", theta.shape, torch.float32, device)
+
+
+def _launch_histogram(hs: HistSpec, samples: torch.Tensor,
+                      theta: torch.Tensor, nch: int, what: str):
+    dev = samples.device
+    lib = _library()
+    nh = nch * hs.ndyn * hs.total
+    out = torch.empty(nh + nch * hs.ndyn, dtype=torch.float32, device=dev)
+    scratch = torch.empty(out.shape[0], dtype=torch.int32, device=dev)
+    pstride = theta.shape[-1]
+    if pstride == 0:
+        theta = torch.zeros(1, dtype=torch.float32, device=dev)
+    err = lib.sx_histogram(ctypes.byref(_hist_c_spec(hs)), nch,
+                           _ptr(samples), _ptr(theta), pstride,
+                           _ptr(scratch), _ptr(out), _stream(dev))
+    _check_cuda(lib, err, what)
+    return (out[:nh].view(nch, hs.ndyn, hs.total),
+            out[nh:].view(nch, hs.ndyn))
 
 
 def segmented_histogram(hs: HistSpec, samples: torch.Tensor,
@@ -427,34 +510,84 @@ def segmented_histogram(hs: HistSpec, samples: torch.Tensor,
     """B1: ``(ndyn, total)`` float32 counts of the dynamic segments at
     systematic parameters ``theta`` and their ``(ndyn,)`` in-domain
     counts (the norms), both exact integer counts."""
-    dev = samples.device
     _check_samples(hs, samples)
-    npar = max((max(d.par_indices) + 1 for d, _ in hs.systematics),
-               default=0)
-    if theta.dim() != 1 or theta.shape[0] < npar:
-        raise ValueError(f"theta has shape {tuple(theta.shape)}, needs "
-                         f"({npar},) or longer")
-    _expect(theta, "theta", theta.shape, torch.float32, dev)
-    if dev.type == "cpu":
+    _check_theta(hs, theta, 1, samples.device)
+    if samples.device.type == "cpu":
         return segmented_histogram_plain(hs, samples, theta)
-    lib = _library()
-    nh = hs.ndyn * hs.total
-    out = torch.empty(nh + hs.ndyn, dtype=torch.float32, device=dev)
-    scratch = torch.empty(nh + hs.ndyn, dtype=torch.int32, device=dev)
-    cs = _c_spec(hs, None, 0)
-    if theta.shape[0] == 0:
-        theta = torch.zeros(1, dtype=torch.float32, device=dev)
-    err = lib.sx_histogram(ctypes.byref(cs), _ptr(samples), _ptr(theta),
-                           _ptr(scratch), _ptr(out), _stream(dev))
-    _check_cuda(lib, err, "segmented_histogram")
+    counts, norms = _launch_histogram(hs, samples, theta, 1,
+                                      "segmented_histogram")
     segmented_histogram.launches += 1
-    return out[:nh].view(hs.ndyn, hs.total), out[nh:]
+    return counts[0], norms[0]
 
 
 segmented_histogram.launches = 0
 
 
-def _check_fused(hs, ns, samples, hist_init, rb, params):
+def segmented_histogram_batched(hs: HistSpec, samples: torch.Tensor,
+                                theta: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B1, batched theta: ``(nchains, npar)`` parameter vectors ->
+    ``(nchains, ndyn, total)`` counts and ``(nchains, ndyn)`` norms, from
+    one read of the samples (each sample is loaded once and binned for
+    every chain)."""
+    _check_samples(hs, samples)
+    _check_theta(hs, theta, 2, samples.device)
+    nch = theta.shape[0]
+    if not 1 <= nch <= MAXCHAINS:
+        raise ValueError(f"{nch} chains (the kernel takes 1..{MAXCHAINS})")
+    if samples.device.type == "cpu":
+        return segmented_histogram_plain(hs, samples, theta)
+    counts, norms = _launch_histogram(hs, samples, theta, nch,
+                                      "segmented_histogram_batched")
+    segmented_histogram_batched.launches += 1
+    return counts, norms
+
+
+segmented_histogram_batched.launches = 0
+
+
+def lut_eval(counts: torch.Tensor, norms: torch.Tensor,
+             read_bins: torch.Tensor, bin_volume: float) -> torch.Tensor:
+    """B2: the ``(nseg, nev)`` float32 LUT ``counts[s, rb] / (norms[s] *
+    bin_volume)``, -1 -> NaN (out of domain), -2 -> 0 (dataset
+    mismatch).
+
+    ``counts`` ``(nseg, total)`` and ``norms`` ``(nseg,)`` float32;
+    ``read_bins`` int32 ``(r, nev)`` with ``nseg`` a multiple of r: row s
+    reads read-bin row ``s % r`` (chains x signals rows share the
+    signals' read bins without a copy).  ``bin_volume`` is used as
+    float32, on both routes.
+    """
+    dev = counts.device
+    if counts.dim() != 2 or read_bins.dim() != 2:
+        raise ValueError("counts must be (nseg, total) and read_bins "
+                         "(r, nevents)")
+    nseg, total = counts.shape
+    _expect(counts, "counts", (nseg, total), torch.float32, dev)
+    _expect(norms, "norms", (nseg,), torch.float32, dev)
+    rows, nev = read_bins.shape
+    if rows < 1 or nseg % rows:
+        raise ValueError(f"{rows} read-bin rows do not divide {nseg} "
+                         f"table rows")
+    _expect(read_bins, "read_bins", (rows, nev), torch.int32, dev)
+    bv = float(np.float32(bin_volume))
+    if dev.type == "cpu":
+        return lut_eval_plain(counts, norms, read_bins, bv)
+    out = torch.empty((nseg, nev), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = _library()
+    err = lib.sx_eval_lut(_ptr(counts), _ptr(norms), _ptr(read_bins), nseg,
+                          rows, total, nev, bv, _ptr(out), _stream(dev))
+    _check_cuda(lib, err, "lut_eval")
+    lut_eval.launches += 1
+    return out
+
+
+lut_eval.launches = 0
+
+
+def _check_fused(hs, ns, samples, hist_init, rb, params, nch):
     dev = samples.device
     ns.validate()
     _check_samples(hs, samples)
@@ -462,26 +595,35 @@ def _check_fused(hs, ns, samples, hist_init, rb, params):
     if rb.dim() != 2:
         raise ValueError("read_bins must be (nsignals, nevents)")
     _expect(rb, "read_bins", (ns.nsig, rb.shape[1]), torch.int32, dev)
-    _expect(params, "params", (ns.npar,), torch.float32, dev)
+    _expect(params, "params", (ns.npar,) if nch is None else (nch, ns.npar),
+            torch.float32, dev)
     if sorted(s for s in ns.sig_slot if s >= 0) != list(range(hs.ndyn)):
         raise ValueError(f"sig_slot {ns.sig_slot} does not cover the "
                          f"{hs.ndyn} dynamic segments")
+    if nch is not None and not (1 <= nch <= MAXCHAINS
+                                and nch * ns.npar <= MAXCP
+                                and nch * ns.nsig <= MAXCS):
+        raise ValueError(
+            f"{nch} chains x {ns.npar} parameters x {ns.nsig} signals "
+            f"(the kernels take up to {MAXCHAINS} chains, {MAXCP} "
+            f"chain-parameters and {MAXCS} chain-signals)")
 
 
 def _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
                   noise, log_u, nsteps, debug, samples_out, nlls_out,
-                  acc_out, what):
+                  acc_out, nch, what):
     dev = samples.device
     lib = _library()
     cs = _c_spec(hs, ns, int(ns.st.nsources))
     nblocks = ctypes.c_int(0)
-    _check_cuda(lib, lib.sx_fused_grid(ctypes.byref(cs),
+    _check_cuda(lib, lib.sx_fused_grid(ctypes.byref(cs), nch,
                                        ctypes.byref(nblocks)), what)
-    partials = torch.empty(nblocks.value, dtype=torch.float64, device=dev)
-    scratch = torch.empty(2 * (hs.ndyn * hs.total + hs.ndyn),
+    partials = torch.empty(nch * nblocks.value, dtype=torch.float64,
+                           device=dev)
+    scratch = torch.empty(2 * nch * (hs.ndyn * hs.total + hs.ndyn),
                           dtype=torch.int32, device=dev)
     err = lib.sx_fused(
-        ctypes.byref(cs), _ptr(samples), _ptr(hist_init), _ptr(rb),
+        ctypes.byref(cs), nch, _ptr(samples), _ptr(hist_init), _ptr(rb),
         rb.shape[1], _ptr(params0), _ptr(nll0), _ptr(width), _ptr(noise),
         _ptr(log_u), nsteps, int(debug), _ptr(scratch), _ptr(partials),
         nblocks.value, _ptr(samples_out), _ptr(nlls_out), _ptr(acc_out),
@@ -495,17 +637,49 @@ def fused_nll(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
     """B3: the compensated NLL ``(hi, lo)`` at ``params`` in one
     launch: rebuild the dynamic histograms on top of the static rows,
     norms, LUT gather, mix, log-sum, finish."""
-    _check_fused(hs, ns, samples, hist_init, rb, params)
+    _check_fused(hs, ns, samples, hist_init, rb, params, None)
     if samples.device.type == "cpu":
         return fused_nll_plain(hs, ns, samples, hist_init, rb, params)
     out = torch.empty(2, dtype=torch.float32, device=samples.device)
     _launch_fused(hs, ns, samples, hist_init, rb, params, None, None, None,
-                  None, 0, False, None, out, None, "fused_nll")
+                  None, 0, False, None, out, None, 1, "fused_nll")
     fused_nll.launches += 1
     return out[0], out[1]
 
 
 fused_nll.launches = 0
+
+
+def fused_nll_batched(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
+                      hist_init: torch.Tensor, rb: torch.Tensor,
+                      params: torch.Tensor):
+    """B3, batched: ``(nchains, npar)`` params -> ``(hi (nchains,), lo
+    (nchains,))``, every chain from one read of each sample."""
+    nch = params.shape[0]
+    _check_fused(hs, ns, samples, hist_init, rb, params, nch)
+    if samples.device.type == "cpu":
+        return fused_nll_plain(hs, ns, samples, hist_init, rb, params)
+    out = torch.empty((nch, 2), dtype=torch.float32, device=samples.device)
+    _launch_fused(hs, ns, samples, hist_init, rb, params, None, None, None,
+                  None, 0, False, None, out, None, nch, "fused_nll_batched")
+    fused_nll_batched.launches += 1
+    return out[:, 0], out[:, 1]
+
+
+fused_nll_batched.launches = 0
+
+
+def _check_segment(ns, params0, nll0, width, noise, log_u, nch):
+    dev = params0.device
+    lead = () if nch is None else (nch,)
+    n = noise.shape[0] if noise.dim() == 2 + len(lead) else -1
+    _expect(nll0, "nll0", lead + (2,), torch.float32, dev)
+    _expect(width, "width", lead + (ns.npar,), torch.float32, dev)
+    _expect(noise, "noise", (n,) + lead + (ns.npar,), torch.float32, dev)
+    _expect(log_u, "log_u", (n,) + lead, torch.float32, dev)
+    if n < 1:
+        raise ValueError("a segment needs at least one step")
+    return n
 
 
 def fused_segment(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
@@ -521,14 +695,8 @@ def fused_segment(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
     nlls (n, 2), accepts (n,))``.
     """
     dev = samples.device
-    _check_fused(hs, ns, samples, hist_init, rb, params0)
-    n = noise.shape[0] if noise.dim() == 2 else -1
-    _expect(nll0, "nll0", (2,), torch.float32, dev)
-    _expect(width, "width", (ns.npar,), torch.float32, dev)
-    _expect(noise, "noise", (n, ns.npar), torch.float32, dev)
-    _expect(log_u, "log_u", (n,), torch.float32, dev)
-    if n < 1:
-        raise ValueError("a segment needs at least one step")
+    _check_fused(hs, ns, samples, hist_init, rb, params0, None)
+    n = _check_segment(ns, params0, nll0, width, noise, log_u, None)
     if dev.type == "cpu":
         return fused_segment_plain(hs, ns, samples, hist_init, rb, params0,
                                    nll0, width, noise, log_u, debug_mode)
@@ -537,18 +705,51 @@ def fused_segment(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
     acc_out = torch.empty(n, dtype=torch.float32, device=dev)
     _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
                   noise, log_u, n, debug_mode, samples_out, nlls_out,
-                  acc_out, "fused_segment")
+                  acc_out, 1, "fused_segment")
     fused_segment.launches += 1
     return samples_out, nlls_out, acc_out
 
 
 fused_segment.launches = 0
 
-KERNELS = (segmented_histogram, fused_nll, fused_segment)
+
+def fused_segment_batched(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
+                          hist_init: torch.Tensor, rb: torch.Tensor,
+                          params0: torch.Tensor, nll0: torch.Tensor,
+                          width: torch.Tensor, noise: torch.Tensor,
+                          log_u: torch.Tensor, debug_mode: bool = False):
+    """B4, lock-step chains: ``params0 (nchains, npar)``, ``nll0
+    (nchains, 2)``, ``width (nchains, npar)``, ``noise (n, nchains,
+    npar)``, ``log_u (n, nchains)`` -> histories ``(n, nchains, npar)``,
+    ``(n, nchains, 2)``, ``(n, nchains)`` (pallas_step.py:882-903).
+    Each chain decides as :func:`fused_segment` would alone."""
+    dev = samples.device
+    nch = params0.shape[0]
+    _check_fused(hs, ns, samples, hist_init, rb, params0, nch)
+    n = _check_segment(ns, params0, nll0, width, noise, log_u, nch)
+    if dev.type == "cpu":
+        return fused_segment_plain(hs, ns, samples, hist_init, rb, params0,
+                                   nll0, width, noise, log_u, debug_mode)
+    samples_out = torch.empty((n, nch, ns.npar), dtype=torch.float32,
+                              device=dev)
+    nlls_out = torch.empty((n, nch, 2), dtype=torch.float32, device=dev)
+    acc_out = torch.empty((n, nch), dtype=torch.float32, device=dev)
+    _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
+                  noise, log_u, n, debug_mode, samples_out, nlls_out,
+                  acc_out, nch, "fused_segment_batched")
+    fused_segment_batched.launches += 1
+    return samples_out, nlls_out, acc_out
+
+
+fused_segment_batched.launches = 0
+
+KERNELS = (segmented_histogram, segmented_histogram_batched, lut_eval,
+           fused_nll, fused_nll_batched, fused_segment,
+           fused_segment_batched)
 
 
 def launch_counts() -> dict:
-    """Launches of each kernel since the last reset."""
+    """Launches of each kernel and form since the last reset."""
     return {k.__name__: k.launches for k in KERNELS}
 
 

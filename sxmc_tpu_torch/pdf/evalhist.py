@@ -11,11 +11,13 @@ Semantics (reference src/pdfz.{h,cpp}):
     (pdfz.cpp:245-302, 411-436; evalhist.py:140-155);
   * PDF value = bins[id] / (norm * bin_volume).
 
-The histogram is built by the segmented-histogram kernel wrapper
-(``ops.kernels.segmented_histogram``) with one segment: on a CUDA
-device that is the hand-written kernel, on the CPU its plain version.
-Weighted samples, density export and ``random_sample`` are not ported
-yet (ROADMAP queue A, item 3).
+:meth:`EvalHist.eval` is the segmented-histogram kernel B1
+(``ops.kernels.segmented_histogram``) with one segment, then the LUT
+gather B2 (``ops.kernels.lut_eval``): on a CUDA device the hand-written
+kernels, on the CPU their plain versions (the JAX package's
+``pallas_histogram`` + ``pallas_eval_lut``).  Weighted samples,
+density export and ``random_sample`` are not ported yet (ROADMAP queue
+A, item 3).
 """
 
 from __future__ import annotations
@@ -125,6 +127,25 @@ class EvalHist:
         return read_bins_for(pts, self.nobservables, self.lower_host,
                              self.upper_host, self.nbins, [self.dataset])[0]
 
+    def hist_spec(self):
+        """The kernels' view of this PDF: one segment, every systematic
+        acting on it."""
+        from sxmc_tpu_torch.ops import kernels
+
+        return kernels.HistSpec.build(
+            nfields=self.nfields, lower=self.lower_host,
+            upper=self.upper_host, nbins=self.nbins,
+            systematics=[(d, (True,)) for d in self.systematics],
+            seg_off=(0, self.n_mc))
+
+    def device_samples(self) -> torch.Tensor:
+        """The field-major ``(nfields, n)`` samples on ``device``."""
+        if self._samples_t is None:
+            self._samples_t = torch.as_tensor(
+                np.ascontiguousarray(self.samples_host.T),
+                device=self.device)
+        return self._samples_t
+
     def histogram(self, params=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Build ``(bins, norm)`` at the given systematic parameters."""
         from sxmc_tpu_torch.ops import kernels
@@ -133,17 +154,9 @@ class EvalHist:
                    default=0)
         theta = (np.zeros(npar, np.float32) if params is None
                  else np.atleast_1d(np.asarray(params, np.float32)))
-        if self._samples_t is None:
-            self._samples_t = torch.as_tensor(
-                np.ascontiguousarray(self.samples_host.T),
-                device=self.device)
-        spec = kernels.HistSpec.build(
-            nfields=self.nfields, lower=self.lower_host,
-            upper=self.upper_host, nbins=self.nbins,
-            systematics=[(d, (True,)) for d in self.systematics],
-            seg_off=(0, self.n_mc))
         bins, norms = kernels.segmented_histogram(
-            spec, self._samples_t, torch.as_tensor(theta, device=self.device))
+            self.hist_spec(), self.device_samples(),
+            torch.as_tensor(theta, device=self.device))
         return bins[0], norms[0]
 
     def eval(self, read_bins: torch.Tensor, params=None
@@ -153,8 +166,13 @@ class EvalHist:
         Returns ``(pdf_values, norm)``: ``(npoints,)`` float32 densities
         (NaN/0 sentinels applied) and the scalar in-domain norm.
         """
+        from sxmc_tpu_torch.ops import kernels
+
         bins, norm = self.histogram(params)
-        return eval_from_bins(bins, norm, self.bin_volume, read_bins), norm
+        lut = kernels.lut_eval(bins[None], norm[None],
+                               read_bins.to(torch.int32)[None],
+                               self.bin_volume)
+        return lut[0], norm
 
     def eval_points(self, points, params=None):
         """Convenience: compute read_bins then evaluate."""

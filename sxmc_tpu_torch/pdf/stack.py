@@ -10,8 +10,13 @@ again; only the *dynamic* signals' samples go to the device, field-major
 ``(nfields, n)`` and back to back, each signal a segment addressed by
 its offset (the TPU padded every segment to a chunk multiple instead).
 
-Entry points used by the default fit: :meth:`histograms` (kernel B1),
-:meth:`fused_nll_pair` (B3) and :meth:`fused_segment` (B4).  KDE and
+Entry points: :meth:`histograms` (kernel B1) and
+:meth:`histograms_batch` (B1's batched form); :meth:`evaluate` and
+:meth:`evaluate_batch` (B1, then the LUT gather B2), the split path of
+fits whose systematics are fixed or absent; :meth:`fused_nll_pair`
+(B3) and :meth:`fused_segment` (B4), with :meth:`fused_nll_pair_batch`
+and :meth:`fused_segment_batch` for lock-step chains; and the binned likelihood's data counts
+(:meth:`data_bin_counts`, :meth:`counts_from_read_bins`).  KDE and
 weighted signals are not ported yet and raise.
 """
 
@@ -24,7 +29,7 @@ import torch
 
 from sxmc_tpu_torch.ops import histogram as hist_ops
 from sxmc_tpu_torch.ops import kernels
-from sxmc_tpu_torch.ops.nll import NLLStatic
+from sxmc_tpu_torch.ops.nll import NLLStatic, device_consts
 from sxmc_tpu_torch.ops.transforms import SystematicDesc
 from sxmc_tpu_torch.pdf.evalhist import EvalHist, read_bins_for
 from sxmc_tpu_torch.signal import Observable, Signal, Systematic
@@ -83,6 +88,12 @@ class PdfStack:
         self.bin_volume = hist_ops.bin_volume(lower, upper, self.nbins)
         self.n_mc = np.asarray([s.n_mc for s in signals], np.float32)
         self.datasets = [s.dataset for s in signals]
+        # Unique dataset tags + (ndatasets, nsignals) membership mask:
+        # the binned likelihood's analog of the -2 dataset sentinel.
+        self.unique_datasets = tuple(sorted(set(self.datasets)))
+        self.dataset_mask = np.asarray(
+            [[1.0 if s == d else 0.0 for s in self.datasets]
+             for d in self.unique_datasets], np.float32)
 
         arrays = [s.histogram.samples_host for s in signals]
         self.nfields = max(a.shape[1] for a in arrays)
@@ -107,6 +118,9 @@ class PdfStack:
             norm_init[i] = h.sum(dtype=np.float64)
         self.hist_init = torch.as_tensor(hist_init, device=self.device)
         self.norm_init = tuple(float(x) for x in norm_init)
+        self._norm_init_t = torch.as_tensor(norm_init, device=self.device)
+        self._dyn_idx_t = torch.as_tensor(self._dyn_idx, dtype=torch.int64,
+                                          device=self.device)
         self.sig_slot = tuple(
             self._dyn_idx.index(i) if touched[i] else -1
             for i in range(self.nsignals))
@@ -133,7 +147,10 @@ class PdfStack:
     # ------------------------------------------------------------------
 
     def nll_spec(self, st: NLLStatic) -> kernels.NLLSpec:
-        return kernels.NLLSpec(st=st, sig_slot=self.sig_slot,
+        """The fused kernels' NLL spec for the fit constants ``st``
+        (copies them to the device: make it once per fit)."""
+        return kernels.NLLSpec(st=st, consts=device_consts(st, self.device),
+                               sig_slot=self.sig_slot,
                                norm_init=self.norm_init,
                                bin_volume=self.bin_volume)
 
@@ -156,44 +173,136 @@ class PdfStack:
         return read_bins_for(pts, self.nobservables, self.lower_host,
                              self.upper_host, self.nbins, self.datasets)
 
+    @property
+    def supports_fused(self) -> bool:
+        """True when the fused kernels (B3/B4) apply: at least one
+        dynamic segment (KDE and weighted stacks do not reach here)."""
+        return self._ndyn >= 1
+
     def histograms(self, theta_syst) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(nsignals, total_nbins)`` counts + ``(nsignals,)`` norms at
-        theta (the dynamic rows through kernel B1)."""
+        theta (the dynamic rows through kernel B1; with no dynamic
+        signal, the static table alone)."""
         hists = self.hist_init.clone()
-        norms = torch.as_tensor(np.asarray(self.norm_init, np.float32),
-                                device=self.device)
+        norms = self._norm_init_t.clone()
         if self._ndyn:
             theta = as_f32(theta_syst, self.device).reshape(-1)
             dyn, dyn_norms = kernels.segmented_histogram(
                 self.hist_spec, self.samples, theta)
-            idx = torch.as_tensor(self._dyn_idx, device=self.device)
-            hists[idx] = dyn
-            norms[idx] = dyn_norms
+            hists[self._dyn_idx_t] = dyn
+            norms[self._dyn_idx_t] = dyn_norms
         return hists, norms
 
-    def _require_dynamic(self) -> None:
-        if not self._ndyn:
+    def histograms_batch(self, thetas) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(nchains, nsignals, total_nbins)`` counts + ``(nchains,
+        nsignals)`` norms at ``(nchains, nsyst)`` thetas: the dynamic
+        rows of every chain from one B1-batched launch."""
+        thetas = as_f32(thetas, self.device)
+        nch = thetas.shape[0]
+        hists = self.hist_init.expand(nch, -1, -1).clone()
+        norms = self._norm_init_t.expand(nch, -1).clone()
+        if self._ndyn:
+            dyn, dyn_norms = kernels.segmented_histogram_batched(
+                self.hist_spec, self.samples,
+                thetas.reshape(nch, -1).contiguous())
+            hists[:, self._dyn_idx_t] = dyn
+            norms[:, self._dyn_idx_t] = dyn_norms
+        return hists, norms
+
+    def evaluate(self, theta_syst, read_bins=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """theta -> ``(lut (nsignals, nevents), norms (nsignals,))``:
+        B1 for the dynamic rows on top of the static ones, then the LUT
+        gather B2 over the read bins (JAX stack.py:960-1001)."""
+        rb = self.read_bins if read_bins is None else read_bins
+        hists, norms = self.histograms(theta_syst)
+        return kernels.lut_eval(hists, norms, rb, self.bin_volume), norms
+
+    def evaluate_batch(self, thetas, read_bins=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Batched ``(lut, norms)``: thetas ``(nchains, nsyst)`` ->
+        ``((nchains, nsignals, nevents), (nchains, nsignals))``; B2 runs
+        over the ``nchains * nsignals`` rows, every chain reading the
+        same read bins."""
+        rb = self.read_bins if read_bins is None else read_bins
+        hists, norms = self.histograms_batch(thetas)
+        nch = hists.shape[0]
+        lut = kernels.lut_eval(
+            hists.reshape(nch * self.nsignals, self.total_nbins),
+            norms.reshape(-1), rb, self.bin_volume)
+        return lut.reshape(nch, self.nsignals, rb.shape[1]), norms
+
+    def data_bin_counts(self, data) -> torch.Tensor:
+        """The binned likelihood's sufficient statistic: ``(ndatasets,
+        total_nbins)`` float32 counts of the data events ``(nevents,
+        nobservables + 1)`` per dataset, with :meth:`compute_read_bins`'
+        bin-id math (out-of-domain events and tags of no signal fall in
+        no row)."""
+        pts = as_f32(data, self.device)
+        ids, valid = hist_ops.compute_bin_ids(
+            pts[:, :self.nobservables], self.lower_host, self.upper_host,
+            self.nbins)
+        tags = pts[:, self.nobservables]
+        rows = [torch.bincount(ids[valid & (tags == float(ds))],
+                               minlength=self.total_nbins)
+                for ds in self.unique_datasets]
+        return torch.stack(rows).to(torch.float32)
+
+    def counts_from_read_bins(self, read_bins: torch.Tensor
+                              ) -> torch.Tensor:
+        """Per-dataset data bin counts from per-signal read bins
+        ``(nsignals, nevents)`` -> ``(ndatasets, total_nbins)``: row j
+        of the read bins is >= 0 exactly for in-domain events carrying
+        signal j's dataset tag, so one representative row per dataset
+        gives :meth:`data_bin_counts` without the raw events."""
+        rows = []
+        for d in self.unique_datasets:
+            rb = read_bins[self.datasets.index(d)]
+            rows.append(torch.bincount(rb[rb >= 0].to(torch.int64),
+                                       minlength=self.total_nbins))
+        return torch.stack(rows).to(torch.float32)
+
+    def _require_fused(self) -> None:
+        if not self.supports_fused:
             raise NotImplementedError(
-                "a fit with no floating systematic takes the split "
-                "pallas_eval_lut path, which is not ported yet (ROADMAP "
-                "queue B, kernel B2)")
+                "the fused kernels need a dynamic signal (a floating "
+                "systematic acting on it); take the split path "
+                "(PdfStack.evaluate) instead")
 
     def fused_nll_pair(self, params: torch.Tensor, read_bins: torch.Tensor,
-                       st: NLLStatic):
-        """Compensated NLL ``(hi, lo)`` at ``params`` (kernel B3)."""
-        self._require_dynamic()
-        return kernels.fused_nll(self.hist_spec, self.nll_spec(st),
-                                 self.samples, self.hist_init, read_bins,
-                                 params)
+                       ns: kernels.NLLSpec):
+        """Compensated NLL ``(hi, lo)`` at ``params`` ``(npar,)``
+        (kernel B3); ``ns`` from :meth:`nll_spec`."""
+        self._require_fused()
+        return kernels.fused_nll(self.hist_spec, ns, self.samples,
+                                 self.hist_init, read_bins, params)
+
+    def fused_nll_pair_batch(self, params: torch.Tensor,
+                             read_bins: torch.Tensor, ns: kernels.NLLSpec):
+        """``(nchains, npar)`` params -> ``(nchains,)`` pairs (B3's
+        batched form)."""
+        self._require_fused()
+        return kernels.fused_nll_batched(self.hist_spec, ns, self.samples,
+                                         self.hist_init, read_bins, params)
 
     def fused_segment(self, params0, nll0, width, read_bins, noise, log_u,
-                      st: NLLStatic, debug_mode: bool = False):
-        """A whole fixed-width Metropolis segment (kernel B4); returns
-        ``(samples (n, npar), nlls (n, 2), accepts (n,))``."""
-        self._require_dynamic()
+                      ns: kernels.NLLSpec, debug_mode: bool = False):
+        """A whole fixed-width Metropolis segment of one chain (kernel
+        B4); returns ``(samples (n, npar), nlls (n, 2), accepts (n,))``."""
+        self._require_fused()
         return kernels.fused_segment(
-            self.hist_spec, self.nll_spec(st), self.samples, self.hist_init,
-            read_bins, params0, nll0, width, noise, log_u, debug_mode)
+            self.hist_spec, ns, self.samples, self.hist_init, read_bins,
+            params0, nll0, width, noise, log_u, debug_mode)
+
+    def fused_segment_batch(self, params0, nll0, width, read_bins, noise,
+                            log_u, ns: kernels.NLLSpec,
+                            debug_mode: bool = False):
+        """:meth:`fused_segment` for ``(nchains, npar)`` params: the
+        lock-step histories ``(n, nchains, ...)`` (B4's batched form)."""
+        self._require_fused()
+        return kernels.fused_segment_batched(
+            self.hist_spec, ns, self.samples, self.hist_init, read_bins,
+            params0, nll0, width, noise, log_u, debug_mode)
 
 
 def _desc(s: Systematic) -> SystematicDesc:

@@ -1,5 +1,6 @@
 """Kernels B1/B3/B4: plain versions against the JAX Pallas kernels, and
-(on a card) the CUDA kernels against their plain versions.
+(on a card) the CUDA kernels B1, B2, B3 and B4, single and batched,
+against their plain versions.
 
 The JAX side runs as its own CPU tests run it: a PdfStack built under
 ``force_pallas_interpret`` takes the per-segment Pallas path, kernels
@@ -92,7 +93,7 @@ def test_plain_fused_nll_matches_pallas(jax_side, port, params):
     jhi, jlo = js.fused_nll_pair(jnp.asarray(p), js._read_bins,
                                  js.device_data, jax_side.static)
     thi, tlo = port.stack.fused_nll_pair(torch.as_tensor(p),
-                                         port.stack.read_bins, port.static)
+                                         port.stack.read_bins, port.nll_spec)
     want = float(np.float64(jhi) + np.float64(jlo))
     got = float(thi.double() + tlo.double())
     if params[0] < 0:
@@ -116,7 +117,7 @@ def test_plain_segment_matches_pallas(jax_side, port):
     t_s, t_n, t_a = port.stack.fused_segment(
         torch.tensor(np.asarray(p0)), nll0_t,
         torch.tensor(np.asarray(w0)), port.stack.read_bins,
-        torch.as_tensor(noise), torch.as_tensor(log_u), port.static)
+        torch.as_tensor(noise), torch.as_tensor(log_u), port.nll_spec)
     np.testing.assert_array_equal(t_a.numpy(), np.asarray(js_a)[:, 0])
     # XLA may contract a proposal's cur + noise * w into an FMA (about
     # an ulp, carried along the chain; tests/test_fused_segment.py
@@ -134,7 +135,7 @@ def test_plain_debug_segment_accepts_all(port):
     params, nll0, width = initial_state(port, st.read_bins)
     noise, log_u = (torch.as_tensor(x) for x in _streams(port.nparameters))
     s, n, a = st.fused_segment(params, torch.stack(nll0), width,
-                               st.read_bins, noise, log_u, port.static,
+                               st.read_bins, noise, log_u, port.nll_spec,
                                debug_mode=True)
     assert bool((a == 1).all())
     # Every proposal is taken: the walk is cur + noise * width, step by step.
@@ -145,7 +146,7 @@ def test_plain_debug_segment_accepts_all(port):
 def test_wrapper_checks_inputs(port):
     st = port.stack
     with pytest.raises(TypeError):
-        kernels.fused_nll(st.hist_spec, st.nll_spec(port.static),
+        kernels.fused_nll(st.hist_spec, port.nll_spec,
                           st.samples, st.hist_init, st.read_bins,
                           torch.zeros(port.nparameters, dtype=torch.float64))
     with pytest.raises(ValueError):
@@ -183,10 +184,10 @@ def test_cuda_fused_nll_matches_plain(cuda_pair, params):
     mcmc, dev = cuda_pair
     st = mcmc.stack
     p = torch.as_tensor(np.asarray(params, np.float32), device=dev)
-    hi, lo = kernels.fused_nll(st.hist_spec, st.nll_spec(mcmc.static),
+    hi, lo = kernels.fused_nll(st.hist_spec, mcmc.nll_spec,
                                st.samples, st.hist_init, st.read_bins, p)
     phi, plo = kernels.fused_nll_plain(st.hist_spec,
-                                       st.nll_spec(mcmc.static),
+                                       mcmc.nll_spec,
                                        st.samples, st.hist_init,
                                        st.read_bins, p)
     assert abs(float(hi.double() + lo.double())
@@ -201,7 +202,7 @@ def test_cuda_segment_matches_plain(cuda_pair):
     noise, log_u = (torch.as_tensor(x, device=dev)
                     for x in _streams(mcmc.nparameters, n=200))
     nll0 = torch.stack(nll0)
-    args = (st.hist_spec, st.nll_spec(mcmc.static), st.samples,
+    args = (st.hist_spec, mcmc.nll_spec, st.samples,
             st.hist_init, st.read_bins, params, nll0, width, noise, log_u)
     s, n, a = kernels.fused_segment(*args)
     ps, pn, pa = kernels.fused_segment_plain(*args)
@@ -216,7 +217,7 @@ def test_cuda_segment_debug_mode_accepts_all(cuda_pair):
     params, nll0, width = initial_state(mcmc, st.read_bins)
     noise, log_u = (torch.as_tensor(x, device=dev)
                     for x in _streams(mcmc.nparameters, n=50))
-    args = (st.hist_spec, st.nll_spec(mcmc.static), st.samples,
+    args = (st.hist_spec, mcmc.nll_spec, st.samples,
             st.hist_init, st.read_bins, params, torch.stack(nll0), width,
             noise, log_u)
     s, n, a = kernels.fused_segment(*args, debug_mode=True)
@@ -224,3 +225,63 @@ def test_cuda_segment_debug_mode_accepts_all(cuda_pair):
     assert bool((a == 1).all()) and torch.equal(a, pa)
     assert torch.equal(s, ps)
     assert (n.double().sum(1) - pn.double().sum(1)).abs().max() <= NLL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [3, 1])
+def test_cuda_lut_eval_equals_plain(cuda_pair, rows):
+    mcmc, dev = cuda_pair
+    st = mcmc.stack
+    hists, norms = st.histograms(torch.as_tensor([0.01, -0.002],
+                                                 device=dev))
+    rb = st.read_bins[:rows].contiguous()
+    got = kernels.lut_eval(hists, norms, rb, st.bin_volume)
+    want = kernels.lut_eval_plain(hists, norms, rb, st.bin_volume)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    assert kernels.lut_eval.launches > 0
+
+
+@pytest.mark.cuda
+def test_cuda_histogram_batched_equals_plain(cuda_pair):
+    mcmc, dev = cuda_pair
+    st = mcmc.stack
+    th = torch.as_tensor(np.asarray(THETAS * 2, np.float32), device=dev)
+    got = kernels.segmented_histogram_batched(st.hist_spec, st.samples, th)
+    want = kernels.segmented_histogram_plain(st.hist_spec, st.samples, th)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    single = kernels.segmented_histogram(st.hist_spec, st.samples, th[1])
+    assert all(torch.equal(g[1], s) for g, s in zip(got, single))
+
+
+@pytest.mark.cuda
+def test_cuda_fused_nll_batched_matches_plain(cuda_pair):
+    mcmc, dev = cuda_pair
+    st = mcmc.stack
+    p = torch.as_tensor(np.asarray(PARAMS, np.float32), device=dev)
+    args = (st.hist_spec, mcmc.nll_spec, st.samples,
+            st.hist_init, st.read_bins, p)
+    hi, lo = kernels.fused_nll_batched(*args)
+    phi, plo = kernels.fused_nll_plain(*args)
+    assert (hi.double() + lo.double() - phi.double()
+            - plo.double()).abs().max() <= NLL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_segment_batched_matches_plain(cuda_pair):
+    mcmc, dev = cuda_pair
+    st = mcmc.stack
+    nch = 4
+    params, nll0, width = initial_state(mcmc, st.read_bins, nchains=nch)
+    noise, log_u = _streams(mcmc.nparameters * nch, n=100)
+    noise = torch.as_tensor(noise.reshape(100, nch, -1), device=dev)
+    log_u = torch.as_tensor(np.log(np.random.default_rng(3).uniform(
+        0, 1, (100, nch))).astype(np.float32), device=dev)
+    args = (st.hist_spec, mcmc.nll_spec, st.samples,
+            st.hist_init, st.read_bins, params,
+            torch.stack(nll0, dim=-1), width, noise, log_u)
+    s, n, a = kernels.fused_segment_batched(*args)
+    ps, pn, pa = kernels.fused_segment_plain(*args)
+    assert s.shape == (100, nch, mcmc.nparameters)
+    assert torch.equal(a, pa) and torch.equal(s, ps)
+    assert (n.double().sum(-1) - pn.double().sum(-1)).abs().max() <= NLL_TOL

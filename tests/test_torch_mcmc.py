@@ -5,7 +5,9 @@ and, for the walk, the JAX package's own ``_presample`` noise streams
 handed to the port through ``sxmc_tpu_torch.interop``.  The JAX side
 runs its CPU path (the scan stepper, accept ``u <= exp(delta)``); the
 port runs the fused kernels' plain versions (accept ``log(u) <=
-delta``), which decide alike except within rounding of u == exp(delta).
+delta``) where systematics float, which decide alike except within
+rounding of u == exp(delta), and the same scan stepper where they are
+fixed.
 NLL tolerance 1e-3 absolute as in test_torch_ops.py.
 """
 
@@ -88,10 +90,10 @@ def test_run_segment_fed_jax_streams(chains, nsteps, seed):
                                            nsteps)
     noise, u = jm._presample(jax.random.split(key, nsteps),
                              jmc.nparameters, 0)
-    t_noise, t_logu = interop.stream(noise, u)
+    t_noise, t_u = interop.stream(noise, u)
     tp, tnll, tw = interop.chain_state(p0, nll0, w0)
     _, _, ts, (thi, tlo), tacc = tm.run_segment(
-        tmc, tp, tnll, tw, tmc.stack.read_bins, t_noise, t_logu)
+        tmc, tp, tnll, tw, tmc.stack.read_bins, t_noise, t_u)
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6,
                                atol=1e-7)
     want = np.asarray(jnl[0], np.float64) + np.asarray(jnl[1], np.float64)
@@ -103,25 +105,62 @@ def test_run_segment_fed_jax_streams(chains, nsteps, seed):
 def test_presample_shapes_and_determinism():
     g1 = torch.Generator().manual_seed(3)
     g2 = torch.Generator().manual_seed(3)
-    n1, l1 = tm.presample(g1, 50, 4, "cpu")
-    n2, l2 = tm.presample(g2, 50, 4, "cpu")
-    assert n1.shape == (50, 4) and l1.shape == (50,)
-    assert n1.dtype == l1.dtype == torch.float32
-    assert torch.equal(n1, n2) and torch.equal(l1, l2)
-    assert bool((l1 <= 0).all())
+    n1, u1 = tm.presample(g1, 50, 4, "cpu")
+    n2, u2 = tm.presample(g2, 50, 4, "cpu")
+    assert n1.shape == (50, 4) and u1.shape == (50,)
+    assert n1.dtype == u1.dtype == torch.float32
+    assert torch.equal(n1, n2) and torch.equal(u1, u2)
+    assert bool(((u1 >= 0) & (u1 < 1)).all())
+    nb, ub = tm.presample(g1, 50, 4, "cpu", nchains=3)
+    assert nb.shape == (50, 3, 4) and ub.shape == (50, 3)
 
 
 @pytest.mark.parametrize("kw", [dict(nchains=2), dict(rate_substeps=1),
                                 dict(proposal="full_cov")])
 def test_out_of_slice_options_raise(chains, kw):
+    """Options off the port raise; nchains > 1, ported since, pools two
+    lock-step chains chain-major."""
     _, tmc = chains
+    if kw.get("nchains", 1) > 1:
+        ls = tmc(make_data(), 100, 0.2, generator=torch.Generator(), **kw)
+        assert ls.samples.shape == (2 * 60, tmc.nparameters)
+        assert np.isfinite(ls.samples).all()
+        assert np.isfinite(ls.nll_values).all()
+        assert 0.0 < tmc.last_accept_rate < 1.0
+        return
     with pytest.raises(NotImplementedError):
         tmc(make_data(), 100, 0.2, generator=torch.Generator(), **kw)
 
 
 def test_fixed_systematics_raise():
+    """Fixed systematics (the split path, once raising) build their LUT
+    once with B1 + B2 and step with the scan path's stepper: the same
+    walk as the JAX package fed the same streams."""
     srcs, sigs, systs, obs = make_stack_inputs("sxmc_tpu_torch")
-    for s in systs:
+    jsrcs, jsigs, jsysts, jobs = make_stack_inputs("sxmc_tpu")
+    for s in systs + jsysts:
         s.fixed = True
-    with pytest.raises(NotImplementedError, match="B2"):
-        tm.MCMC(srcs, sigs, systs, obs, device="cpu")
+    tmc = tm.MCMC(srcs, sigs, systs, obs, device="cpu")
+    jmc = jm.MCMC(jsrcs, jsigs, jsysts, jobs)
+    for m in (tmc, jmc):
+        m.stack.set_data(make_data())
+    rb, dd = jmc.stack._read_bins, jmc.stack.device_data
+    p0, nll0, w0 = jm.initial_state(jmc, rb, dd)
+    key = jax.random.PRNGKey(4)
+    _, _, js, jnl, jacc = jm.run_segment(jmc, p0, nll0, w0, rb, dd, key,
+                                         24)
+    noise, u = jm._presample(jax.random.split(key, 24), jmc.nparameters, 0)
+    tp, tnll, tw = tm.initial_state(tmc, tmc.stack.read_bins)
+    assert abs(float(tnll[0].double() + tnll[1].double())
+               - float(np.float64(nll0[0]) + np.float64(nll0[1]))) <= NLL_TOL
+    t_noise, t_u = interop.stream(noise, u)
+    _, _, ts, (thi, tlo), tacc = tm.run_segment(
+        tmc, *interop.chain_state(p0, nll0, w0), tmc.stack.read_bins,
+        t_noise, t_u)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6,
+                               atol=1e-7)
+    want = np.asarray(jnl[0], np.float64) + np.asarray(jnl[1], np.float64)
+    np.testing.assert_allclose(thi.double().numpy() + tlo.double().numpy(),
+                               want, rtol=0, atol=NLL_TOL)
+    assert float(tacc.mean()) == pytest.approx(float(jacc), abs=1e-6)
+    assert np.all(np.asarray(js)[:, 3:] == 0.0)  # the fixed ones stay

@@ -1,12 +1,14 @@
 """The port stands alone: it imports no jax and never runs silently on
 the CPU when the card was asked for."""
 
+import json
 import os
 import pathlib
 import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -71,7 +73,25 @@ def test_imports_with_jax_blocked_and_cuda_is_explicit(tmp_path):
                                   ["--rate-substeps", "2"], ["--binned"],
                                   ["--sampler", "hmc"]])
 def test_out_of_slice_cli_flags_raise(tmp_path, flag):
+    """Flags off the port raise naming their ROADMAP item; --binned,
+    ported since, runs a binned fit of the golden configuration."""
     from sxmc_tpu_torch.cli import main
 
+    if flag == ["--binned"]:
+        cfg = json.loads((REPO / "tests" / "data" / "golden" /
+                          "config.json").read_text())
+        cfg["fit"].update(nexperiments=1, nsteps=200, output_format="npz")
+        path = tmp_path / "config.json"
+        path.write_text(json.dumps(cfg))
+        out = tmp_path / "out"
+        golden = str(REPO / "tests" / "data" / "golden")
+        assert main([str(path), str(out), "--device", "cpu",
+                     "--data-root", golden] + flag) == 0
+        recs = [json.loads(line) for line in
+                (out / "golden_metrics.jsonl").read_text().splitlines()]
+        assert "experiment_failed" not in [r["event"] for r in recs]
+        limit = [r for r in recs if r["event"] == "experiment_limit"][0]
+        assert np.isfinite(limit["upper"])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["config.json", str(tmp_path), "--device", "cpu"] + flag)

@@ -134,6 +134,11 @@ def _static(nsig=2, npar=3):
         nsources=2)
 
 
+def _consts(st):
+    """The port's NLL functions take the constants as device tensors."""
+    return t_nll.device_consts(st, "cpu")
+
+
 def _jax_static(st):
     return j_nll.NLLStatic(st.nexpected, st.n_mc, st.source_id, st.means,
                            st.sigmas, st.nsources)
@@ -158,7 +163,7 @@ def test_nll_pair_matches_jax(lut, pars):
     jh, jl = j_nll.nll_pair(jnp.asarray(pars), jnp.asarray(lut),
                             jnp.asarray(norms), _jax_static(st))
     th, tl = t_nll.nll_pair(torch.as_tensor(pars), torch.as_tensor(lut),
-                            torch.as_tensor(norms), st)
+                            torch.as_tensor(norms), _consts(st))
     want = float(np.float64(jh) + np.float64(jl))
     got = float(th.double() + tl.double())
     assert abs(got - want) <= NLL_TOL, (got, want)
@@ -168,8 +173,9 @@ def test_nan_sentinel_counts_as_zero(lut):
     st = _static()
     pars = torch.as_tensor([1.1, 0.9, 0.01])
     norms = torch.as_tensor([9500.0, 18100.0])
-    a = t_nll.nll(pars, torch.as_tensor(lut), norms, st)
-    b = t_nll.nll(pars, torch.as_tensor(np.nan_to_num(lut)), norms, st)
+    a = t_nll.nll(pars, torch.as_tensor(lut), norms, _consts(st))
+    b = t_nll.nll(pars, torch.as_tensor(np.nan_to_num(lut)), norms,
+                  _consts(st))
     assert float(a) == float(b)
 
 
@@ -177,7 +183,7 @@ def test_barrier_on_negative_rate(lut):
     st = _static()
     hi, lo = t_nll.nll_pair(torch.as_tensor([-0.1, 1.0, 0.0]),
                             torch.as_tensor(lut),
-                            torch.as_tensor([9500.0, 18100.0]), st)
+                            torch.as_tensor([9500.0, 18100.0]), _consts(st))
     assert float(hi) == float(np.float32(1e18)) and float(lo) == 0.0
 
 
@@ -186,7 +192,7 @@ def test_barrier_on_nonfinite_event_sum():
     pars = torch.as_tensor([1.0, 1.0, 0.0])
     w = torch.as_tensor([1.0, 2.0])
     hi, lo = t_nll.finish_nll(pars, torch.tensor(float("inf")),
-                              torch.tensor(0.0), w, st)
+                              torch.tensor(0.0), w, _consts(st))
     jhi, jlo = j_nll.finish_nll(jnp.asarray(pars.numpy()), jnp.float32(
         np.inf), jnp.float32(0.0), jnp.asarray(w.numpy()), _jax_static(st))
     assert float(hi) == float(jhi) == float(np.float32(1e18))
@@ -202,7 +208,8 @@ def test_finish_matches_jax():
                               _jax_static(st))
     th, tl = t_nll.finish_nll(torch.as_tensor(pars),
                               torch.tensor(-2345.678),
-                              torch.tensor(1e-5), torch.as_tensor(w), st)
+                              torch.tensor(1e-5), torch.as_tensor(w),
+                              _consts(st))
     assert abs(float(th.double() + tl.double())
                - float(np.float64(jh) + np.float64(jl))) <= NLL_TOL
 
@@ -250,7 +257,7 @@ class TestPrecisionAtScale:
     def _port(fit, pars):
         lut, norms, st, _, _ = fit
         hi, lo = t_nll.nll_pair(torch.as_tensor(pars), torch.as_tensor(lut),
-                                torch.as_tensor(norms), st)
+                                torch.as_tensor(norms), _consts(st))
         return float(hi.double() + lo.double())
 
     @staticmethod

@@ -23,17 +23,30 @@ from the root of a checkout, on a machine with one Hopper card.  It
           and one of 8 lock-step chains, fed identical noise; accept
           decisions and parameters identical, NLL history within
           NLL_TOL;
+       B4 fused_segment_tril / fused_segment_tril_batched (full-
+          covariance proposals cur + L @ z): the same, with correlated
+          lower-triangular scales, and the full_cov retune between
+          phases timed (the process's first Cholesky, then a warm one);
+       B5 blocked_segment / blocked_segment_batched (blocked
+          Metropolis-within-Gibbs): 500 cycles of one systematic move
+          and M = 4 rate moves, one chain and 8, the same checks; and
+          B5 at M = 1 beside it, which prices a rate move against a
+          rebuild step;
+       B1 through EvalHist.histogram on signal1's 500k rows;
   4. runs the port's CLI (--device cuda) on the reference example
      (examples/reference_example.json: 2 signals x 500k rows, 10 energy
-     bins, a radius cut, scale and resolution systematics) four times:
+     bins, a radius cut, scale and resolution systematics) ten times:
      the default fit; "nchains": 8; both systematics fixed; --binned with
-     "nchains": 8.  Every launch counter is reset just before each run
-     and read just after; each run must launch exactly its path's
-     kernels, end with a finite limit and no failed experiment, and fit
-     sanely.  The two runs on the stepper loop (fixed, binned) take
-     fewer steps, printed as a cut;
+     "nchains": 8; "proposal": "full_cov", alone and with 8 chains;
+     "rate_substeps": 4, alone and with 8 chains; "rate_substeps": 4
+     with --binned; "proposal": "full_cov" with fixed systematics.
+     Every launch counter is reset just before each run and read just
+     after; each run must launch exactly its path's kernels, end with a
+     finite limit and no failed experiment, and fit sanely.  The runs on
+     the stepper loop (fixed, binned) take fewer steps, printed as a cut;
+     blocked runs also print parameter updates/s;
   5. prints the kernels' JSON line (every kernel and form: launches on
-     the four paths, error, times, bound, library time), the card line,
+     the ten paths, error, times, bound, library time), the card line,
      and as its last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when CUDA is unavailable, when
@@ -59,6 +72,8 @@ SEGMENT_STEPS = 500
 NCHAINS = 8
 FULL_STEPS = 100_000   # the example's nsteps
 LOOP_STEPS = 20_000    # the stepper-loop paths' cut
+SHORT_STEPS = 2_000    # the cut of the new options' stepper-loop paths
+RATE_SUBSTEPS = 4      # M of the blocked runs (README, bench.py)
 
 # The H100 SXM's published peaks: HBM bytes/s
 # and float32 operations/s outside the tensor cores, at 700 W.
@@ -73,6 +88,10 @@ REPLACES = {
     "fused_nll_batched": "sxmc_tpu/ops/pallas_step.py:451",
     "fused_segment": "sxmc_tpu/ops/pallas_step.py:808",
     "fused_segment_batched": "sxmc_tpu/ops/pallas_step.py:808",
+    "fused_segment_tril": "sxmc_tpu/ops/pallas_step.py:808",
+    "fused_segment_tril_batched": "sxmc_tpu/ops/pallas_step.py:808",
+    "blocked_segment": "sxmc_tpu/ops/pallas_step.py:1239",
+    "blocked_segment_batched": "sxmc_tpu/ops/pallas_step.py:1239",
 }
 
 
@@ -239,7 +258,8 @@ def check_kernels(torch, kernels, config_path: str, workdir: str):
     """Phase 3: each kernel and form against its plain version."""
     from sxmc_tpu_torch.fitconfig import FitConfig
     from sxmc_tpu_torch.generator import make_fake_dataset
-    from sxmc_tpu_torch.mcmc.metropolis import MCMC, initial_state
+    from sxmc_tpu_torch.mcmc.metropolis import (MCMC, initial_state,
+                                                retune_scale_tril)
     from sxmc_tpu_torch.ops.transforms import SHIFT, SystematicDesc
     from sxmc_tpu_torch.pdf.evalhist import EvalHist
     from sxmc_tpu_torch.signal import nominal_params
@@ -420,6 +440,24 @@ def check_kernels(torch, kernels, config_path: str, workdir: str):
     print(f"EvalHist.eval, {ev.n_mc} rows, {ev_rb.shape[0]} points: values "
           f"and norm equal (B1 + B2)")
 
+    # B1a: EvalHist.histogram (B1 with one segment) on the same rows.
+    ev_hs = ev.hist_spec()
+    got, got_norm = ev.histogram(ev_theta)
+    torch.cuda.synchronize()
+    check(torch.equal(got, pb[0]) and float(got_norm) == float(pn[0]),
+          "EvalHist.histogram differs from its plain version")
+    ms, plain_ms = in_turns(
+        torch, lambda: kernels.segmented_histogram_plain(
+            ev_hs, ev.device_samples(), ev_th),
+        lambda: ev.histogram(ev_theta), 5, 50)
+    dms = device_ms(torch, lambda: ev.histogram(ev_theta), 50, hist_names)
+    b1a = bound(f4 * ev_hs.nfields * ev_hs.n + f4 * (ev_hs.total + 1),
+                binning_ops(ev_hs))
+    print(f"B1a EvalHist.histogram, {ev_hs.n} rows, {ev_hs.total} bins: "
+          f"counts and norm equal; kernel {ms:.4f} ms (on the card {dms} "
+          f"ms), plain {plain_ms:.4f} ms, bound {b1a['bound_ms']:.4f} ms "
+          f"({b1a['bound_by']})")
+
     # B3 at the nominal and at a perturbed point.
     ns = mcmc.nll_spec
     p0 = torch.as_tensor(mcmc.parameter_means, device=dev)
@@ -510,6 +548,101 @@ def check_kernels(torch, kernels, config_path: str, workdir: str):
         out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      **bound(seg_bytes, SEGMENT_STEPS * nch * (
                          binning_ops(hs) + event_ops(nsig, nev)))}
+
+    # B4-tril: the same segments with correlated lower-triangular scales.
+    npar = mcmc.nparameters
+    for name, nch in (("fused_segment_tril", 1),
+                      ("fused_segment_tril_batched", NCHAINS)):
+        params, nll0, width = initial_state(mcmc, rb, nch)
+        nll0 = torch.stack(nll0, dim=-1)
+        w = width.clamp_min(0.0)
+        tril = torch.diag_embed(w) + 0.3 * torch.tril(
+            torch.ones((npar, npar), device=dev), -1) * w[..., :, None]
+        tril = tril.contiguous()
+        gen = torch.Generator(dev).manual_seed(13)
+        lead = (SEGMENT_STEPS,) if nch == 1 else (SEGMENT_STEPS, nch)
+        noise = torch.randn(lead + (npar,), generator=gen, device=dev)
+        log_u = torch.log(torch.rand(lead, generator=gen, device=dev))
+        args = (hs, ns, st.samples, st.hist_init, rb, params, nll0, tril,
+                noise, log_u)
+        kern = getattr(kernels, name)
+        s, nl, a = kern(*args)
+        ps, pnl, pa = kernels.fused_segment_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(a, pa), f"{name}: accept decisions differ")
+        check(torch.equal(s, ps), f"{name}: parameter trajectories differ")
+        check(0 < float(a.sum()) < a.numel(), f"{name}: no walk ({a.mean()})")
+        err = float((nl.double().sum(-1) - pnl.double().sum(-1)).abs().max())
+        check(err <= NLL_TOL, f"{name}: NLL history differs by {err}")
+        ms, plain_ms = in_turns(
+            torch, lambda: kernels.fused_segment_plain(*args),
+            lambda: kern(*args), 1, 10)
+        seg_bytes = (sample_bytes + f4 * (nsig * hs.total + nsig * nev)
+                     + f4 * nch * npar * npar
+                     + f4 * SEGMENT_STEPS * nch * (2 * npar + 4))
+        print(f"B4 {name}, {nch} chain(s) x {SEGMENT_STEPS} steps: "
+              f"trajectories identical (accept rate {float(a.mean()):.3f}), "
+              f"|dNLL| {err:.3g}; kernel {ms:.4f} ms "
+              f"({ms / SEGMENT_STEPS * 1e3:.2f} us/step), plain "
+              f"{plain_ms:.4f} ms")
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     **bound(seg_bytes, SEGMENT_STEPS * nch * (
+                         binning_ops(hs) + event_ops(nsig, nev)
+                         + npar * (npar + 1)))}
+        if nch == 1:
+            # The full_cov retune between phases: the process's first
+            # Cholesky on the card, then a warm one.
+            t0 = time.perf_counter()
+            retune_scale_tril(mcmc, tril, s)
+            torch.cuda.synchronize()
+            first = (time.perf_counter() - t0) * 1e3
+            warm = cuda_ms(torch, lambda: retune_scale_tril(mcmc, tril, s),
+                           20)
+            print(f"retune_scale_tril ({SEGMENT_STEPS} samples): first call "
+                  f"{first:.2f} ms, then {warm:.4f} ms")
+
+    # B5: SEGMENT_STEPS blocked cycles of 1 + RATE_SUBSTEPS decisions.
+    nsub = RATE_SUBSTEPS + 1
+    for name, nch in (("blocked_segment", 1),
+                      ("blocked_segment_batched", NCHAINS)):
+        params, nll0, width = initial_state(mcmc, rb, nch)
+        nll0 = torch.stack(nll0, dim=-1)
+        gen = torch.Generator(dev).manual_seed(17)
+        lead = (SEGMENT_STEPS, nsub) + ((nch,) if nch > 1 else ())
+        noise = torch.randn(lead + (npar,), generator=gen, device=dev)
+        log_u = torch.log(torch.rand(lead, generator=gen, device=dev))
+        args = (hs, ns, st.samples, st.hist_init, rb, params, nll0, width,
+                noise, log_u)
+        kern = getattr(kernels, name)
+        s, nl, a = kern(*args)
+        ps, pnl, pa = kernels.blocked_segment_plain(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(a, pa), f"{name}: accepted fractions differ")
+        check(torch.equal(s, ps), f"{name}: parameter trajectories differ")
+        check(0 < float(a.sum()) < a.numel(), f"{name}: no walk ({a.mean()})")
+        err = float((nl.double().sum(-1) - pnl.double().sum(-1)).abs().max())
+        check(err <= NLL_TOL, f"{name}: NLL history differs by {err}")
+        ms, plain_ms = in_turns(
+            torch, lambda: kernels.blocked_segment_plain(*args),
+            lambda: kern(*args), 1, 10)
+        # M = 1 on the same cycles: what RATE_SUBSTEPS - 1 rate moves add.
+        args1 = args[:8] + (noise[:, :2].contiguous(),
+                            log_u[:, :2].contiguous())
+        ms1 = cuda_ms(torch, lambda: kern(*args1), 10)
+        per_rate = (ms - ms1) / (RATE_SUBSTEPS - 1) / SEGMENT_STEPS * 1e3
+        seg_bytes = (sample_bytes + f4 * (nsig * hs.total + nsig * nev)
+                     + f4 * SEGMENT_STEPS * nch * (nsub * (npar + 1)
+                                                   + npar + 3))
+        print(f"B5 {name}, {nch} chain(s) x {SEGMENT_STEPS} cycles x "
+              f"{nsub} decisions: trajectories identical (accepted "
+              f"fraction {float(a.mean()):.3f}), |dNLL| {err:.3g}; kernel "
+              f"{ms:.4f} ms ({ms / SEGMENT_STEPS * 1e3:.2f} us/cycle; "
+              f"M = 1: {ms1 / SEGMENT_STEPS * 1e3:.2f} us/cycle, so "
+              f"{per_rate:.2f} us per rate move), plain {plain_ms:.4f} ms")
+        out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "ms_m1": ms1, "us_per_rate_move": per_rate,
+                     **bound(seg_bytes, SEGMENT_STEPS * nch * (
+                         binning_ops(hs) + nsub * event_ops(nsig, nev)))}
     out["lut_eval"] = b2
     for v in out.values():
         v.setdefault("library_ms", None)
@@ -530,6 +663,24 @@ PATHS = [
     ("binned, nchains=8", {"nchains": NCHAINS}, ["--binned"], LOOP_STEPS,
      {"segmented_histogram": 1,
       "segmented_histogram_batched": LOOP_STEPS + 1}),
+    ("full_cov", {"proposal": "full_cov"}, [], FULL_STEPS,
+     {"segmented_histogram": 1, "fused_nll": 1, "fused_segment_tril": 3}),
+    ("full_cov, nchains=8", {"proposal": "full_cov", "nchains": NCHAINS},
+     [], FULL_STEPS,
+     {"segmented_histogram": 1, "fused_nll_batched": 1,
+      "fused_segment_tril_batched": 3}),
+    ("rate_substeps=4", {"rate_substeps": RATE_SUBSTEPS}, [], FULL_STEPS,
+     {"segmented_histogram": 1, "fused_nll": 1, "blocked_segment": 3}),
+    ("rate_substeps=4, nchains=8",
+     {"rate_substeps": RATE_SUBSTEPS, "nchains": NCHAINS}, [], FULL_STEPS,
+     {"segmented_histogram": 1, "fused_nll_batched": 1,
+      "blocked_segment_batched": 3}),
+    # Binned blocked stepper: B1 for the fake data, the initial NLL, the
+    # carried histograms at the start, then once per cycle.
+    ("rate_substeps=4, binned", {"rate_substeps": RATE_SUBSTEPS},
+     ["--binned"], SHORT_STEPS, {"segmented_histogram": SHORT_STEPS + 3}),
+    ("full_cov, fixed systematics", {"proposal": "full_cov", "fixed": True},
+     [], SHORT_STEPS, {"segmented_histogram": 2, "lut_eval": 1}),
 ]
 
 
@@ -538,8 +689,9 @@ def path_config(config_path: str, workdir: str, tag: str, edits: dict,
     with open(config_path) as f:
         cfg = json.load(f)
     cfg["fit"]["nsteps"] = nsteps
-    if edits.get("nchains"):
-        cfg["fit"]["nchains"] = edits["nchains"]
+    for key in ("nchains", "proposal", "rate_substeps"):
+        if edits.get(key):
+            cfg["fit"][key] = edits[key]
     if edits.get("fixed"):
         for syst in cfg["pdfs"]["systematics"].values():
             syst["fixed"] = True
@@ -551,7 +703,7 @@ def path_config(config_path: str, workdir: str, tag: str, edits: dict,
 
 
 def main_paths(torch, kernels, config_path: str, workdir: str):
-    """Phase 4: the four paths through the CLI, counters around each."""
+    """Phase 4: the ten paths through the CLI, counters around each."""
     from sxmc_tpu_torch.cli import main as cli_main
     from sxmc_tpu_torch.stats.likelihood import LikelihoodSpace
 
@@ -560,6 +712,7 @@ def main_paths(torch, kernels, config_path: str, workdir: str):
         if nsteps != FULL_STEPS:
             print(f"{tag}: cut to {nsteps} steps (the example has "
                   f"{FULL_STEPS}): the stepper loop is host-bound")
+        m = edits.get("rate_substeps", 0)
         cfg = path_config(config_path, workdir, tag, edits, nsteps)
         out = os.path.join(workdir, "out_" + os.path.basename(cfg)[:-5])
         kernels.reset_launch_counts()
@@ -601,13 +754,19 @@ def main_paths(torch, kernels, config_path: str, workdir: str):
         if edits.get("fixed"):
             check(bool((ls.samples[:, 2:] == 0.0).all()),
                   f"{tag}: a fixed systematic moved")
+        # bench.py's mcmc_updates_per_sec_blocked: every decision of a
+        # blocked cycle updates a block of parameters.
+        updates = fit["steps_per_sec"] * (m + 1) if m else None
         print(f"path {tag}: limit {limits[0]:.6g}, best fit {best}, accept "
-              f"rate {fit['accept_rate']:.4f}, {nsteps} steps x {nch} "
-              f"chain(s) in {fit['wall_seconds']:.3f} s = "
-              f"{fit['steps_per_sec']!r} chain-steps/s, whole CLI run "
-              f"{wall:.2f} s; launches {counts}")
+              f"rate {fit['accept_rate']:.4f}, {nsteps} "
+              f"{'cycles' if m else 'steps'} x {nch} chain(s) in "
+              f"{fit['wall_seconds']:.3f} s = {fit['steps_per_sec']!r} "
+              f"chain-{'cycles' if m else 'steps'}/s"
+              + (f" ({updates!r} parameter updates/s)" if m else "")
+              + f", whole CLI run {wall:.2f} s; launches {counts}")
         results.append({"path": tag, "nsteps": nsteps, "nchains": nch,
                         "steps_per_sec": fit["steps_per_sec"],
+                        "updates_per_sec": updates,
                         "wall_seconds": fit["wall_seconds"],
                         "cli_seconds": wall, "limit": limits[0],
                         "accept_rate": fit["accept_rate"],
@@ -665,8 +824,11 @@ def main() -> int:
                                            for p in paths},
                          **measured[name]))
     for p in paths:
+        extra = (f", {p['updates_per_sec']!r} parameter updates/s"
+                 if p["updates_per_sec"] else "")
         print(f"path {p['path']}: {p['steps_per_sec']!r} chain-steps/s "
-              f"({p['nsteps']} steps x {p['nchains']} chain(s)) on {smi}")
+              f"({p['nsteps']} steps x {p['nchains']} chain(s){extra}) on "
+              f"{smi}")
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

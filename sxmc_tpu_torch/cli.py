@@ -42,7 +42,6 @@ def main(argv=None) -> int:
         "gof": "ROADMAP queue A, item 10",
         "bias_study": "ROADMAP queue A, item 10",
         "checkpoint_steps": "ROADMAP queue A, item 8",
-        "rate_substeps": "ROADMAP queue A, item 6, kernel B5",
     }
     parser.add_argument("--sharded", action="store_true",
                         help="not ported")
@@ -54,8 +53,12 @@ def main(argv=None) -> int:
                         default=0, help="not ported")
     parser.add_argument("--checkpoint-steps", type=int, default=0,
                         metavar="N", help="not ported")
-    parser.add_argument("--rate-substeps", type=int, default=0,
-                        metavar="M", help="not ported")
+    parser.add_argument("--rate-substeps", type=int, default=None,
+                        metavar="M",
+                        help="blocked Metropolis-within-Gibbs: take M "
+                             "extra rate-only updates per systematic "
+                             "update (each skips the PDF rebuild); "
+                             "overrides fit.rate_substeps")
     parser.add_argument("--binned", action="store_true", default=None,
                         help="use the binned likelihood (the exact "
                              "regrouping of the unbinned NLL by dataset "
@@ -82,7 +85,8 @@ def main(argv=None) -> int:
 
     main_fit(args.config, args.output_path, device=device,
              resume=args.resume, data_root=args.data_root,
-             max_retries=args.max_retries, binned=args.binned)
+             max_retries=args.max_retries, binned=args.binned,
+             rate_substeps=args.rate_substeps)
     return 0
 
 

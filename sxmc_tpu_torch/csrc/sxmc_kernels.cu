@@ -9,10 +9,14 @@
 // B3  sx_fused (nsteps == 0)
 //                      replaces sxmc_tpu/ops/pallas_step.py::
 //                      pallas_fused_step, single and batched chains.
-// B4  sx_fused (nsteps > 0)
+// B4  sx_fused (nsteps > 0), sx_fused_tril
 //                      replaces sxmc_tpu/ops/pallas_step.py::
 //                      pallas_fused_segment, single-chain and batched
-//                      (lock-step chains) diagonal forms.
+//                      (lock-step chains) forms, diagonal and tril
+//                      (full-covariance) proposals.
+// B5  sx_blocked       replaces sxmc_tpu/ops/pallas_step.py::
+//                      pallas_fused_segment_blocked, single-chain and
+//                      batched forms.
 //
 // B1 -- what bounds it.  Per sample it reads nfields floats (12 bytes on
 // the reference example), does a few float ops and one atomic increment
@@ -63,6 +67,13 @@
 // own double-buffered histograms and its own per-block partials, and
 // every block reduces every chain's partials and takes every chain's
 // decision.
+//
+// B5 -- what bounds it.  A blocked cycle is one B4 step for the
+// systematic block and then M rate moves, each a pass over the events
+// against the carried histogram: at the example's 1500 events a rate
+// move is bounded by its one grid barrier and the partial reduction,
+// not by the sweep.  Same persistent design as B4; see sx_blocked_kernel
+// for how the histogram buffers and partials are shared safely.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -176,7 +187,12 @@ __global__ void sx_eval_lut_kernel(const float* __restrict__ counts,
 // (sx_fused_grid), so the kernel may use 64 registers a thread: with
 // them ptxas spills nothing (at its default 32 the per-sample field
 // arrays spilled, and a step took ~1 us longer on an H100).
-template <bool kChains>
+//
+// kTril: full-covariance proposals cur + L @ z with width holding each
+// chain's lower-triangular L (nchains, npar, npar), read from global
+// memory (32 chains x 16 parameters would not fit the static shared
+// arrays).  The diagonal instantiations do not contain that code.
+template <bool kChains, bool kTril>
 __global__ void __launch_bounds__(SX_THREADS, 4)
 sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
                 const float* __restrict__ hist_init,
@@ -197,9 +213,6 @@ sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
   __shared__ float s_norm[SX_MAXCS];
   __shared__ float s_pair[2 * SX_MAXCHAINS];
   __shared__ int s_accept[SX_MAXCHAINS];
-  // Per-block event sums: one chain reduces through a shared tree (s_red;
-  // measured faster on an H100 than warp shuffles for one chain),
-  // lock-step chains through warp shuffles into s_warp.
   __shared__ double s_warp[kChains ? SX_MAXCHAINS * (SX_THREADS / 32) : 1];
   __shared__ double s_red[kChains ? 1 : SX_THREADS];
 
@@ -209,7 +222,6 @@ sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
   const int nwarps = SX_THREADS / 32;
   const int np = sp.npar;
   const int ncp = nch * np;
-  const int ncs = nch * sp.nsig;
   const int nh = nch * sp.ndyn * sp.total;  // every chain's histograms
   const int buf = nh + nch * sp.ndyn;       // one buffer + its norms
   unsigned* sh_norm = sh + nrep * nh;
@@ -228,14 +240,24 @@ sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
     unsigned* cur_norm = cur_hist + nh;
     unsigned* next_hist = scratch + ((s + 1) & 1) * buf;
 
-    // Propose: metropolis._make_step's op order, noise * max(w, 0);
-    // w <= 0 pins the parameter.  Entry t is parameter t % np of chain
-    // t / np.
+    // Propose.  Entry t is parameter t % np of chain t / np.
     for (int t = tid; t < ncp; t += blockDim.x) {
       const float c = s_cur[t];
       if (eval_only) {
         s_prop[t] = c;
+      } else if constexpr (kTril) {
+        // sum_{j <= k} L[k, j] * z[j] from 0.0f in ascending j, one
+        // rounded add per term: the TPU kernel's order
+        // (pallas_step.py:713-718).  Zero rows pin a parameter.
+        const int k = t % np;
+        const float* lrow = width + (long long)t * np;
+        const float* z = noise + (long long)s * ncp + (t - k);
+        float a = 0.0f;
+        for (int j = 0; j <= k; ++j) a = a + lrow[j] * z[j];
+        s_prop[t] = c + a;
       } else {
+        // metropolis._make_step's op order, noise * max(w, 0); w <= 0
+        // pins the parameter.
         const float w = width[t];
         const float nz = noise[(long long)s * ncp + t] * fmaxf(w, 0.0f);
         s_prop[t] = (w > 0.0f) ? c + nz : c;
@@ -254,103 +276,21 @@ sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
     sx_flush(sp, nch, sh, sh_norm, nrep, cur_hist, cur_norm);
     grid.sync();
 
-    // Norms and per-signal weights ((rate * nexpected) * norm) / n_mc;
-    // entry t is signal t % nsig of chain t / nsig.
-    for (int t = tid; t < ncs; t += blockDim.x) {
-      const int c = t / sp.nsig;
-      const int j = t - c * sp.nsig;
-      const int slot = sp.sig_slot[j];
-      const float norm =
-          slot >= 0 ? (float)__ldcg(&cur_norm[c * sp.ndyn + slot])
-                    : sp.norm_init[j];
-      const float rate = s_prop[c * np + sp.source_id[j]];
-      s_norm[t] = norm;
-      s_w[t] = ((rate * sp.nexpected[j]) * norm) / sp.n_mc[j];
-    }
+    sx_weights(sp, nch, s_prop,
+               [&](int c) { return cur_norm + c * sp.ndyn; }, s_w, s_norm);
     __syncthreads();
-
-    // Events, chain by chain: LUT gather with the -1/-2 sentinels (both
-    // give 0 here, as nll_pair's nan_to_num makes them), the mix in
-    // ascending signal order, log where positive; f64 accumulation,
-    // then a warp sum into a fixed slot per (chain, warp).
-    for (int c = 0; c < nch; ++c) {
-      const unsigned* chist = cur_hist + c * sp.ndyn * sp.total;
-      const float* cw = s_w + c * sp.nsig;
-      const float* cn = s_norm + c * sp.nsig;
-      double acc = 0.0;
-      for (long long i = gtid; i < nev; i += gstride) {
-        float mix = 0.0f;
-        for (int j = 0; j < sp.nsig; ++j) {
-          const int b = rb[(long long)j * nev + i];
-          float val = 0.0f;
-          if (b >= 0) {
-            const int slot = sp.sig_slot[j];
-            const float cnt =
-                slot >= 0 ? (float)__ldcg(&chist[slot * sp.total + b])
-                          : hist_init[j * sp.total + b];
-            val = cnt / (cn[j] * sp.bin_volume);
-            if (!isfinite(val)) val = 0.0f;
-          }
-          const float term = cw[j] * val;
-          mix = (j == 0) ? term : mix + term;
-        }
-        if (mix > 0.0f) acc += (double)logf(mix);
-      }
-      if constexpr (kChains) {
-        for (int off = 16; off > 0; off >>= 1)
-          acc += __shfl_down_sync(0xffffffffu, acc, off);
-        if (lane == 0) s_warp[c * nwarps + warp] = acc;
-      } else {
-        s_red[tid] = acc;
-      }
-    }
-    __syncthreads();
-    if constexpr (kChains) {
-      for (int c = tid; c < nch; c += blockDim.x) {
-        double v = 0.0;
-        for (int w = 0; w < nwarps; ++w) v += s_warp[c * nwarps + w];
-        partials[(long long)c * gridDim.x + blockIdx.x] = v;
-      }
-    } else {
-      for (int h = SX_THREADS / 2; h > 0; h >>= 1) {
-        if (tid < h) s_red[tid] += s_red[tid + h];
-        __syncthreads();
-      }
-      if (tid == 0) partials[blockIdx.x] = s_red[0];
-    }
+    sx_event_partials<kChains>(
+        sp, nch, [&](int c) { return cur_hist + c * sp.ndyn * sp.total; },
+        hist_init, rb, nev, s_w, s_norm, s_warp, s_red, partials);
     grid.sync();
 
     // Every block: for each chain (warp w takes chains w, w + 8, ...)
     // the same fixed-order reduction, finish and decision.
     for (int c = warp; c < nch; c += nwarps) {
-      const double* cp = partials + (long long)c * gridDim.x;
-      double v = 0.0;
-      for (int b = lane; b < (int)gridDim.x; b += 32) v += __ldcg(&cp[b]);
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_down_sync(0xffffffffu, v, off);
+      float hi, lo;
+      sx_finish(sp, partials + (long long)c * gridDim.x, s_prop + c * np,
+                s_w + c * sp.nsig, &hi, &lo);
       if (lane == 0) {
-        const float* prop = s_prop + c * np;
-        const float ev_hi = (float)v;
-        const float ev_lo = (float)(v - (double)ev_hi);
-        double wsum = 0.0;
-        for (int j = 0; j < sp.nsig; ++j) wsum += (double)s_w[c * sp.nsig + j];
-        double con = 0.0;
-        bool neg_rate = false;
-        for (int k = 0; k < np; ++k) {
-          if (sp.sigmas[k] > 0.0f) {
-            const float z = (prop[k] - sp.means[k]) / sp.sigmas[k];
-            con += (double)(z * z);
-          }
-          if (k < sp.nsources && prop[k] < 0.0f) neg_rate = true;
-        }
-        const double ev = (double)ev_hi + (double)ev_lo;
-        const double total = -ev + wsum + 0.5 * con;
-        float hi = (float)total;
-        float lo = (float)(total - (double)hi);
-        if (neg_rate || !isfinite(ev_hi)) {
-          hi = 1e18f;
-          lo = 0.0f;
-        }
         if (eval_only) {
           if (blockIdx.x == 0) {
             nlls_out[2 * c] = hi;
@@ -388,16 +328,282 @@ sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
   }
 }
 
-// Each kernel is built twice: for one chain (kChains = false) and for
-// lock-step chains.
+// ---------------------------------------------------------------- B5
+
+// B5 -- blocked Metropolis-within-Gibbs (pallas_step.py::
+// _make_blocked_segment_kernel).  A cycle is one systematic-block move
+// (every parameter but the rates, where w > 0; a rebuild, two grid
+// barriers) and then nsub - 1 rate-block moves (the rates only) that
+// score the events against the CURRENT histogram and its in-domain
+// counts: no rebuild, one grid barrier each.  The per-cycle output is
+// the accepted fraction of the nsub decisions.
+//
+// Each chain owns two histogram buffers in scratch, (nchains, 2, ndyn *
+// total + ndyn) unsigned ints; s_cb[c] says which one is current.  A
+// systematic accept swaps the roles (every block takes the same
+// decision, so each keeps the index in shared memory): nothing is
+// copied.  The non-current buffer is cleared right after the systematic
+// decision, while the rate moves run: its last reader (the rejected
+// proposal's sweep, or the previous cycle's rate sweeps when the
+// proposal was taken) finished before that decision's barrier, and the
+// next rebuild comes after at least one more barrier (nsub >= 2).  A
+// rate move has one barrier, so a block can write the next decision's
+// event partials while a slower one still reduces this decision's: the
+// partials are double-buffered by decision parity.  A prologue rebuilds
+// every chain's current histogram at params0 (buffer 0), so a blocked
+// phase is one launch.
+template <bool kChains>
+__global__ void __launch_bounds__(SX_THREADS, 4)
+sx_blocked_kernel(const SxSpec sp, int nch,
+                  const float* __restrict__ samples,
+                  const float* __restrict__ hist_init,
+                  const int* __restrict__ rb, int nev,
+                  const float* __restrict__ params0,
+                  const float* __restrict__ nll0,
+                  const float* __restrict__ width,
+                  const float* __restrict__ noise,
+                  const float* __restrict__ log_u, int ncycles, int nsub,
+                  int debug, unsigned* scratch, double* partials,
+                  float* samples_out, float* nlls_out, float* acc_out,
+                  int nrep) {
+  if (!kChains) nch = 1;
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ unsigned sh[];
+  __shared__ float s_cur[SX_MAXCP];
+  __shared__ float s_prop[SX_MAXCP];
+  __shared__ float s_w[SX_MAXCS];
+  __shared__ float s_norm[SX_MAXCS];
+  __shared__ float s_pair[2 * SX_MAXCHAINS];
+  __shared__ int s_accept[SX_MAXCHAINS];
+  __shared__ int s_accn[SX_MAXCHAINS];  // accepted decisions this cycle
+  __shared__ int s_cb[SX_MAXCHAINS];    // each chain's current buffer
+  __shared__ int s_off[SX_MAXCHAINS];   // each chain's rebuild target
+  __shared__ double s_warp[kChains ? SX_MAXCHAINS * (SX_THREADS / 32) : 1];
+  __shared__ double s_red[kChains ? 1 : SX_THREADS];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = SX_THREADS / 32;
+  const int np = sp.npar;
+  const int ncp = nch * np;
+  const int nh = nch * sp.ndyn * sp.total;
+  const int per = sp.ndyn * sp.total + sp.ndyn;  // one buffer of a chain
+  unsigned* sh_norm = sh + nrep * nh;
+  const long long gtid = (long long)blockIdx.x * blockDim.x + tid;
+  const long long gstride = (long long)gridDim.x * blockDim.x;
+  auto buffer = [&](int c, int b) { return scratch + (2 * c + b) * per; };
+
+  for (int t = tid; t < ncp; t += blockDim.x) s_cur[t] = params0[t];
+  for (int t = tid; t < 2 * nch; t += blockDim.x) s_pair[t] = nll0[t];
+  for (int c = tid; c < nch; c += blockDim.x) {
+    s_cb[c] = 0;
+    s_off[c] = 2 * c * per;
+  }
+  for (int t = tid; t < nrep * nh + nch * sp.ndyn; t += blockDim.x)
+    sh[t] = 0u;
+  __syncthreads();
+  // Prologue: the current histograms at params0 into buffer 0 (scratch
+  // arrives zeroed).  The first reads of them come after the first
+  // cycle's two barriers.
+  sx_accumulate<kChains, true>(sp, samples, s_cur, nch, np, sh, sh_norm,
+                               scratch, nrep, s_off);
+  __syncthreads();
+  sx_flush<true>(sp, nch, sh, sh_norm, nrep, scratch, nullptr, s_off);
+  __syncthreads();
+
+  for (int s = 0; s < ncycles; ++s) {
+    for (int sub = 0; sub < nsub; ++sub) {
+      const long long row = (long long)s * nsub + sub;  // decision index
+      double* part = partials + (row & 1) * nch * gridDim.x;
+      const bool syst = sub == 0;
+      // Propose the block (pallas_step.py:1115-1129): rates (k <
+      // nsources) in a rate move, everything else in a systematic
+      // move, noise * max(w, 0) where w > 0.
+      for (int t = tid; t < ncp; t += blockDim.x) {
+        const int k = t % np;
+        const float c = s_cur[t];
+        const float w = width[t];
+        const float nz = noise[row * ncp + t] * fmaxf(w, 0.0f);
+        s_prop[t] = (w > 0.0f && (k < sp.nsources) != syst) ? c + nz : c;
+      }
+      if (syst) {
+        for (int c = tid; c < nch; c += blockDim.x)
+          s_off[c] = (2 * c + 1 - s_cb[c]) * per;
+        for (int t = tid; t < nrep * nh + nch * sp.ndyn; t += blockDim.x)
+          sh[t] = 0u;
+        __syncthreads();
+        // Rebuild each chain's systematic proposal into its free buffer.
+        sx_accumulate<kChains, true>(sp, samples, s_prop, nch, np, sh,
+                                     sh_norm, scratch, nrep, s_off);
+        __syncthreads();
+        sx_flush<true>(sp, nch, sh, sh_norm, nrep, scratch, nullptr, s_off);
+        grid.sync();
+        sx_weights(sp, nch, s_prop,
+                   [&](int c) { return scratch + s_off[c] + per - sp.ndyn; },
+                   s_w, s_norm);
+        __syncthreads();
+        sx_event_partials<kChains>(
+            sp, nch, [&](int c) { return scratch + s_off[c]; }, hist_init,
+            rb, nev, s_w, s_norm, s_warp, s_red, part);
+      } else {
+        __syncthreads();
+        sx_weights(sp, nch, s_prop,
+                   [&](int c) { return buffer(c, s_cb[c]) + per - sp.ndyn; },
+                   s_w, s_norm);
+        __syncthreads();
+        sx_event_partials<kChains>(
+            sp, nch, [&](int c) { return buffer(c, s_cb[c]); }, hist_init,
+            rb, nev, s_w, s_norm, s_warp, s_red, part);
+      }
+      grid.sync();
+
+      // Every block takes every chain's decision (warp w takes chains
+      // w, w + 8, ...), as B4 does.
+      for (int c = warp; c < nch; c += nwarps) {
+        float hi, lo;
+        sx_finish(sp, part + (long long)c * gridDim.x, s_prop + c * np,
+                  s_w + c * sp.nsig, &hi, &lo);
+        if (lane == 0) {
+          const float delta =
+              (s_pair[2 * c] - hi) + (s_pair[2 * c + 1] - lo);
+          const bool a = debug || delta > 0.0f ||
+                         log_u[row * nch + c] <= delta;
+          s_accept[c] = a ? 1 : 0;
+          s_accn[c] = (syst ? 0 : s_accn[c]) + (a ? 1 : 0);
+          if (a) {
+            s_pair[2 * c] = hi;
+            s_pair[2 * c + 1] = lo;
+            if (syst) s_cb[c] = 1 - s_cb[c];
+          }
+          if (sub == nsub - 1 && blockIdx.x == 0) {
+            const long long o = (long long)s * nch + c;
+            nlls_out[2 * o] = s_pair[2 * c];
+            nlls_out[2 * o + 1] = s_pair[2 * c + 1];
+            acc_out[o] = (float)s_accn[c] / (float)nsub;
+          }
+        }
+      }
+      __syncthreads();
+      for (int t = tid; t < ncp; t += blockDim.x) {
+        if (s_accept[t / np]) s_cur[t] = s_prop[t];
+        if (sub == nsub - 1 && blockIdx.x == 0)
+          samples_out[(long long)s * ncp + t] = s_cur[t];
+      }
+      if (syst) {
+        // Clear every chain's non-current buffer for the next rebuild.
+        for (int c = 0; c < nch; ++c) {
+          unsigned* b = buffer(c, 1 - s_cb[c]);
+          for (long long t = gtid; t < per; t += gstride) b[t] = 0u;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Each kernel is built once per form: one chain (kChains = false) or
+// lock-step chains, and for B4 diagonal or tril proposals.
 static const void* sx_hist_fn(int nchains) {
   return nchains == 1 ? (const void*)sx_hist_kernel<false>
                       : (const void*)sx_hist_kernel<true>;
 }
 
-static const void* sx_fused_fn(int nchains) {
-  return nchains == 1 ? (const void*)sx_fused_kernel<false>
-                      : (const void*)sx_fused_kernel<true>;
+static const void* sx_fused_fn(int nchains, bool tril) {
+  if (tril)
+    return nchains == 1 ? (const void*)sx_fused_kernel<false, true>
+                        : (const void*)sx_fused_kernel<true, true>;
+  return nchains == 1 ? (const void*)sx_fused_kernel<false, false>
+                      : (const void*)sx_fused_kernel<true, false>;
+}
+
+static const void* sx_blocked_fn(int nchains) {
+  return nchains == 1 ? (const void*)sx_blocked_kernel<false>
+                      : (const void*)sx_blocked_kernel<true>;
+}
+
+// Blocks of fn resident on one SM with this spec's shared memory.
+static cudaError_t sx_occupancy(const SxSpec& sp, int nchains,
+                                const void* fn, int* occ) {
+  const int nrep = sx_replicas(sp, nchains);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      occ, fn, SX_THREADS, sx_smem_bytes(sp, nchains, nrep));
+}
+
+// The grid rule of the persistent kernels (B4 and B5), given the blocks
+// per SM that the kernel's resources allow.  More resident blocks hide
+// more of the rebuild's latency, but every block adds to the grid
+// barriers and the partial reductions of each step.  Measured on an
+// H100 with one chain (see PERF.md), the best grid gives each thread
+// about two samples to bin per step, up to 4 blocks per SM (8 was slower
+// at 1M samples): 1 block per SM at 20k samples, 3 at 200k, 4 at 1M and
+// 4M.  Lock-step chains bin each loaded sample nchains times, so a
+// thread's work per sample grows nchains-fold: the rule counts binnings
+// (samples x nchains), not samples.
+static cudaError_t sx_grid_rule(const SxSpec& sp, int nchains, int occ,
+                                int* nblocks) {
+  int nsm = 0;
+  cudaError_t err = sx_num_sms(&nsm);
+  if (err != cudaSuccess) return err;
+  if (occ < 1) return cudaErrorCooperativeLaunchTooLarge;
+  // Binnings one block on every SM covers at two per thread.
+  const long long layer = 2LL * nsm * SX_THREADS;
+  const long long work = (long long)sp.seg_off[sp.ndyn] * nchains;
+  long long per_sm = (work + layer - 1) / layer;
+  per_sm = per_sm < 1 ? 1 : (per_sm > 4 ? 4 : per_sm);
+  *nblocks = nsm * (int)(per_sm < occ ? per_sm : occ);
+  return cudaSuccess;
+}
+
+// Launch a persistent cooperative kernel fn on nblocks blocks, which must
+// all be resident at once.
+static cudaError_t sx_cooperative(const SxSpec& sp, int nchains,
+                                  const void* fn, int nblocks, void** args,
+                                  int smem, cudaStream_t st) {
+  int nsm = 0, occ = 0;
+  cudaError_t err = sx_num_sms(&nsm);
+  if (err != cudaSuccess) return err;
+  if ((err = sx_occupancy(sp, nchains, fn, &occ)) != cudaSuccess) return err;
+  if (nblocks < 1 || nblocks > nsm * occ)
+    return cudaErrorCooperativeLaunchTooLarge;
+  err = cudaLaunchCooperativeKernel(fn, dim3(nblocks), dim3(SX_THREADS),
+                                    args, smem, st);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+static bool sx_chains_fit(const SxSpec& sp, int nchains) {
+  return nchains >= 1 && nchains <= SX_MAXCHAINS &&
+         nchains * sp.npar <= SX_MAXCP && nchains * sp.nsig <= SX_MAXCS;
+}
+
+// B3/B4 for both proposal forms.
+static int sx_fused_launch(const SxSpec* sp, int nchains, bool tril,
+                           const float* samples, const float* hist_init,
+                           const int* rb, int nev, const float* params0,
+                           const float* nll0, const float* width,
+                           const float* noise, const float* log_u,
+                           int nsteps, int debug, unsigned* scratch,
+                           double* partials, int nblocks,
+                           float* samples_out, float* nlls_out,
+                           float* acc_out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!sx_chains_fit(*sp, nchains)) return cudaErrorInvalidValue;
+  const int buf = nchains * (sp->ndyn * sp->total + sp->ndyn);
+  cudaError_t err =
+      cudaMemsetAsync(scratch, 0, 2 * sizeof(unsigned) * buf, st);
+  if (err != cudaSuccess) return err;
+  int nrep = sx_replicas(*sp, nchains);
+  SxSpec spv = *sp;
+  void* args[] = {(void*)&spv,      (void*)&nchains,  (void*)&samples,
+                  (void*)&hist_init, (void*)&rb,      (void*)&nev,
+                  (void*)&params0,  (void*)&nll0,     (void*)&width,
+                  (void*)&noise,    (void*)&log_u,    (void*)&nsteps,
+                  (void*)&debug,    (void*)&scratch,  (void*)&partials,
+                  (void*)&samples_out, (void*)&nlls_out, (void*)&acc_out,
+                  (void*)&nrep};
+  return sx_cooperative(*sp, nchains, sx_fused_fn(nchains, tril), nblocks,
+                        args, sx_smem_bytes(*sp, nchains, nrep), st);
 }
 
 // ------------------------------------------------------ C interface
@@ -463,40 +669,25 @@ int sx_eval_lut(const float* counts, const float* norms, const int* rb,
   return cudaGetLastError();
 }
 
-// Grid size of sx_fused for this spec and chain count (the number of
-// partial slots per chain).  More resident blocks hide more of the
-// rebuild's latency, but every block adds to the two grid barriers and
-// the partial reductions of each step.  Measured on an H100 with one
-// chain (see PERF.md), the best grid gives each thread about two
-// samples to bin per step, up to 4 blocks per SM (8 was slower at 1M
-// samples): 1 block per SM at 20k samples, 3 at 200k, 4 at 1M and 4M.
-// Lock-step chains bin each loaded sample nchains times, so a thread's
-// work per sample grows nchains-fold: the rule counts binnings
-// (samples x nchains), not samples.
+// Grid size of sx_fused (either proposal form) for this spec and chain
+// count: the number of partial slots per chain (sx_grid_rule).
 int sx_fused_grid(const SxSpec* sp, int nchains, int* nblocks) {
-  const int nrep = sx_replicas(*sp, nchains);
-  int nsm = 0, occ = 0;
-  cudaError_t err = sx_num_sms(&nsm);
+  int occ = 0, occ_tril = 0;
+  cudaError_t err = sx_occupancy(*sp, nchains, sx_fused_fn(nchains, false),
+                                 &occ);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &occ, sx_fused_fn(nchains), SX_THREADS,
-      sx_smem_bytes(*sp, nchains, nrep));
+  err = sx_occupancy(*sp, nchains, sx_fused_fn(nchains, true), &occ_tril);
   if (err != cudaSuccess) return err;
-  if (occ < 1) return cudaErrorCooperativeLaunchTooLarge;
-  // Binnings one block on every SM covers at two per thread.
-  const long long layer = 2LL * nsm * SX_THREADS;
-  const long long work = (long long)sp->seg_off[sp->ndyn] * nchains;
-  long long per_sm = (work + layer - 1) / layer;
-  per_sm = per_sm < 1 ? 1 : (per_sm > 4 ? 4 : per_sm);
-  *nblocks = nsm * (int)(per_sm < occ ? per_sm : occ);
-  return cudaSuccess;
+  return sx_grid_rule(*sp, nchains, occ < occ_tril ? occ : occ_tril,
+                      nblocks);
 }
 
 // B3 (nsteps == 0: NLL of each chain at params0 into nlls_out (nchains,
 // 2)) and B4 (nsteps > 0: a whole fixed-width segment; histories
 // (nsteps, nchains, npar), (nsteps, nchains, 2), (nsteps, nchains)).
-// scratch holds 2 * nchains * (ndyn * total + ndyn) unsigned ints,
-// partials nchains * nblocks doubles (sx_fused_grid).
+// width is (nchains, npar).  scratch holds 2 * nchains * (ndyn * total +
+// ndyn) unsigned ints, partials nchains * nblocks doubles
+// (sx_fused_grid).
 int sx_fused(const SxSpec* sp, int nchains, const float* samples,
              const float* hist_init, const int* rb, int nev,
              const float* params0, const float* nll0, const float* width,
@@ -504,36 +695,68 @@ int sx_fused(const SxSpec* sp, int nchains, const float* samples,
              unsigned* scratch, double* partials, int nblocks,
              float* samples_out, float* nlls_out, float* acc_out,
              void* stream) {
+  return sx_fused_launch(sp, nchains, false, samples, hist_init, rb, nev,
+                         params0, nll0, width, noise, log_u, nsteps, debug,
+                         scratch, partials, nblocks, samples_out, nlls_out,
+                         acc_out, stream);
+}
+
+// B4 with full-covariance proposals: as sx_fused with nsteps > 0, width
+// the (nchains, npar, npar) lower-triangular scales.
+int sx_fused_tril(const SxSpec* sp, int nchains, const float* samples,
+                  const float* hist_init, const int* rb, int nev,
+                  const float* params0, const float* nll0, const float* tril,
+                  const float* noise, const float* log_u, int nsteps,
+                  int debug, unsigned* scratch, double* partials,
+                  int nblocks, float* samples_out, float* nlls_out,
+                  float* acc_out, void* stream) {
+  if (nsteps < 1) return cudaErrorInvalidValue;
+  return sx_fused_launch(sp, nchains, true, samples, hist_init, rb, nev,
+                         params0, nll0, tril, noise, log_u, nsteps, debug,
+                         scratch, partials, nblocks, samples_out, nlls_out,
+                         acc_out, stream);
+}
+
+// Grid size of sx_blocked (sx_grid_rule).
+int sx_blocked_grid(const SxSpec* sp, int nchains, int* nblocks) {
+  int occ = 0;
+  cudaError_t err = sx_occupancy(*sp, nchains, sx_blocked_fn(nchains), &occ);
+  if (err != cudaSuccess) return err;
+  return sx_grid_rule(*sp, nchains, occ, nblocks);
+}
+
+// B5: ncycles blocked cycles of nsub >= 2 decisions (one systematic
+// move, nsub - 1 rate moves).  width (nchains, npar), noise (ncycles,
+// nsub, nchains, npar), log_u (ncycles, nsub, nchains); histories
+// (ncycles, nchains, npar), (ncycles, nchains, 2) and the accepted
+// fraction (ncycles, nchains).  scratch holds 2 * nchains * (ndyn *
+// total + ndyn) unsigned ints, partials 2 * nchains * nblocks doubles
+// (sx_blocked_grid).
+int sx_blocked(const SxSpec* sp, int nchains, const float* samples,
+               const float* hist_init, const int* rb, int nev,
+               const float* params0, const float* nll0, const float* width,
+               const float* noise, const float* log_u, int ncycles, int nsub,
+               int debug, unsigned* scratch, double* partials, int nblocks,
+               float* samples_out, float* nlls_out, float* acc_out,
+               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (nchains < 1 || nchains > SX_MAXCHAINS ||
-      nchains * sp->npar > SX_MAXCP || nchains * sp->nsig > SX_MAXCS)
+  if (!sx_chains_fit(*sp, nchains) || ncycles < 1 || nsub < 2)
     return cudaErrorInvalidValue;
   const int buf = nchains * (sp->ndyn * sp->total + sp->ndyn);
   cudaError_t err =
       cudaMemsetAsync(scratch, 0, 2 * sizeof(unsigned) * buf, st);
   if (err != cudaSuccess) return err;
   int nrep = sx_replicas(*sp, nchains);
-  const int smem = sx_smem_bytes(*sp, nchains, nrep);
-  // A cooperative grid must be resident all at once.
-  int nsm = 0, occ = 0;
-  if ((err = sx_num_sms(&nsm)) != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &occ, sx_fused_fn(nchains), SX_THREADS, smem);
-  if (err != cudaSuccess) return err;
-  if (nblocks < 1 || nblocks > nsm * occ)
-    return cudaErrorCooperativeLaunchTooLarge;
   SxSpec spv = *sp;
   void* args[] = {(void*)&spv,      (void*)&nchains,  (void*)&samples,
                   (void*)&hist_init, (void*)&rb,      (void*)&nev,
                   (void*)&params0,  (void*)&nll0,     (void*)&width,
-                  (void*)&noise,    (void*)&log_u,    (void*)&nsteps,
-                  (void*)&debug,    (void*)&scratch,  (void*)&partials,
-                  (void*)&samples_out, (void*)&nlls_out, (void*)&acc_out,
-                  (void*)&nrep};
-  err = cudaLaunchCooperativeKernel(sx_fused_fn(nchains), dim3(nblocks),
-                                    dim3(SX_THREADS), args, smem, st);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+                  (void*)&noise,    (void*)&log_u,    (void*)&ncycles,
+                  (void*)&nsub,     (void*)&debug,    (void*)&scratch,
+                  (void*)&partials, (void*)&samples_out, (void*)&nlls_out,
+                  (void*)&acc_out,  (void*)&nrep};
+  return sx_cooperative(*sp, nchains, sx_blocked_fn(nchains), nblocks, args,
+                        sx_smem_bytes(*sp, nchains, nrep), st);
 }
 
 }  // extern "C"

@@ -1,12 +1,13 @@
 // Shared device code of the sxmc_tpu_torch kernels (Hopper, sm_90a).
 //
-// The phase functions below are used by both the segmented histogram
-// (kernel B1, single and batched) and the fused NLL / whole-segment
-// kernel (B3/B4, single and batched), the
+// The phase functions below are used by the segmented histogram (kernel
+// B1, single and batched), the fused NLL / whole-segment kernel (B3/B4,
+// single and batched) and the blocked whole-segment kernel (B5), the
 // way sxmc_tpu/ops/pallas_step.py::_phase_bodies shares its bodies
-// between pallas_fused_step and pallas_fused_segment: one copy of the
-// systematics and bin-id math, so a proposal is binned identically by
-// every kernel.
+// between pallas_fused_step, pallas_fused_segment and
+// pallas_fused_segment_blocked: one copy of the systematics and bin-id
+// math, the event sweep and the NLL finish, so a proposal is binned and
+// scored identically by every kernel.
 //
 // Arithmetic contract: every float operation is the JAX package's, in
 // its order, in float32, and the library is built with -fmad=false so
@@ -132,11 +133,15 @@ __device__ __forceinline__ void sx_load(const SxSpec& sp,
 // so that one ballot per chain and sample row counts the in-domain
 // samples.  The kernels are instantiated once per form (kChains), so
 // the single chain's registers and spills are not the chains' loop's.
-template <bool kChains>
+//
+// kOff (the blocked kernel B5): chain c's global histogram starts at
+// g_hist + choff[c] instead of g_hist + c * ndyn * total, so that each
+// chain can rebuild into whichever of its two buffers is not current.
+template <bool kChains, bool kOff = false>
 __device__ __forceinline__ void sx_accumulate(
     const SxSpec& sp, const float* __restrict__ samples, const float* par,
     int nchains, int pstride, unsigned* sh_hist, unsigned* sh_norm,
-    unsigned* g_hist, int nrep) {
+    unsigned* g_hist, int nrep, const int* choff = nullptr) {
   const long long n = sp.seg_off[sp.ndyn];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -148,6 +153,9 @@ __device__ __forceinline__ void sx_accumulate(
     if constexpr (!kChains) {
       unsigned cnt = 0;
       unsigned* row = mine + seg * sp.total;
+      if constexpr (kOff) {
+        if (!nrep) row = g_hist + choff[0] + seg * sp.total;
+      }
       for (long long i = sp.seg_off[seg] +
                          (long long)blockIdx.x * blockDim.x + threadIdx.x;
            i < end; i += stride) {
@@ -181,8 +189,15 @@ __device__ __forceinline__ void sx_accumulate(
               id = sx_bin_fields(sp, in, seg, par + c * pstride);
             }
           }
-          if (id >= 0)
-            atomicAdd(&mine[(c * sp.ndyn + seg) * sp.total + id], 1u);
+          if (id >= 0) {
+            if constexpr (kOff) {
+              atomicAdd(nrep ? &mine[(c * sp.ndyn + seg) * sp.total + id]
+                             : &g_hist[choff[c] + seg * sp.total + id],
+                        1u);
+            } else {
+              atomicAdd(&mine[(c * sp.ndyn + seg) * sp.total + id], 1u);
+            }
+          }
           const unsigned hit = __ballot_sync(0xffffffffu, id >= 0);
           if (lane == 0 && hit)
             atomicAdd(&sh_norm[c * sp.ndyn + seg], (unsigned)__popc(hit));
@@ -193,19 +208,172 @@ __device__ __forceinline__ void sx_accumulate(
 }
 
 // Add the block's shared replicas and in-domain counts of nchains
-// chains to global memory.
+// chains to global memory.  kOff: chain c's histogram goes to g_hist +
+// choff[c] and its in-domain counts right after it (g_norm unused).
+template <bool kOff = false>
 __device__ __forceinline__ void sx_flush(const SxSpec& sp, int nchains,
                                          const unsigned* sh_hist,
                                          const unsigned* sh_norm, int nrep,
-                                         unsigned* g_hist, unsigned* g_norm) {
-  const int nh = nchains * sp.ndyn * sp.total;
+                                         unsigned* g_hist, unsigned* g_norm,
+                                         const int* choff = nullptr) {
+  const int per = sp.ndyn * sp.total;  // one chain's histograms
+  const int nh = nchains * per;
   if (nrep) {
     for (int t = threadIdx.x; t < nh; t += blockDim.x) {
       unsigned v = 0;
       for (int r = 0; r < nrep; ++r) v += sh_hist[r * nh + t];
-      if (v) atomicAdd(&g_hist[t], v);
+      if constexpr (kOff) {
+        const int c = t / per;
+        if (v) atomicAdd(&g_hist[choff[c] + (t - c * per)], v);
+      } else {
+        if (v) atomicAdd(&g_hist[t], v);
+      }
     }
   }
-  for (int t = threadIdx.x; t < nchains * sp.ndyn; t += blockDim.x)
-    if (sh_norm[t]) atomicAdd(&g_norm[t], sh_norm[t]);
+  for (int t = threadIdx.x; t < nchains * sp.ndyn; t += blockDim.x) {
+    if constexpr (kOff) {
+      const int c = t / sp.ndyn;
+      if (sh_norm[t])
+        atomicAdd(&g_hist[choff[c] + per + (t - c * sp.ndyn)], sh_norm[t]);
+    } else {
+      if (sh_norm[t]) atomicAdd(&g_norm[t], sh_norm[t]);
+    }
+  }
+}
+
+// Norms and per-signal weights ((rate * nexpected) * norm) / n_mc of
+// nch chains at their proposals s_prop; entry t is signal t % nsig of
+// chain t / nsig.  A dynamic signal's norm is its in-domain count,
+// norm_of(c)[slot] (chain c's counts in global memory, complete after a
+// grid barrier); a static signal's is norm_init.
+template <class NormOf>
+__device__ __forceinline__ void sx_weights(const SxSpec& sp, int nch,
+                                           const float* s_prop,
+                                           NormOf norm_of, float* s_w,
+                                           float* s_norm) {
+  for (int t = threadIdx.x; t < nch * sp.nsig; t += blockDim.x) {
+    const int c = t / sp.nsig;
+    const int j = t - c * sp.nsig;
+    const int slot = sp.sig_slot[j];
+    const float norm =
+        slot >= 0 ? (float)__ldcg(&norm_of(c)[slot]) : sp.norm_init[j];
+    const float rate = s_prop[c * sp.npar + sp.source_id[j]];
+    s_norm[t] = norm;
+    s_w[t] = ((rate * sp.nexpected[j]) * norm) / sp.n_mc[j];
+  }
+}
+
+// One thread's share of a chain's event log-sum against its histograms
+// chist (ndyn, total): LUT gather with the -1/-2 sentinels (both give 0
+// here, as nll_pair's nan_to_num makes them), the mix in ascending
+// signal order, log where positive; f64 accumulation.
+__device__ __forceinline__ double sx_event_sum(
+    const SxSpec& sp, const unsigned* chist,
+    const float* __restrict__ hist_init, const int* __restrict__ rb,
+    int nev, const float* cw, const float* cn) {
+  const long long gtid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long gstride = (long long)gridDim.x * blockDim.x;
+  double acc = 0.0;
+  for (long long i = gtid; i < nev; i += gstride) {
+    float mix = 0.0f;
+    for (int j = 0; j < sp.nsig; ++j) {
+      const int b = rb[(long long)j * nev + i];
+      float val = 0.0f;
+      if (b >= 0) {
+        const int slot = sp.sig_slot[j];
+        const float cnt = slot >= 0
+                              ? (float)__ldcg(&chist[slot * sp.total + b])
+                              : hist_init[j * sp.total + b];
+        val = cnt / (cn[j] * sp.bin_volume);
+        if (!isfinite(val)) val = 0.0f;
+      }
+      const float term = cw[j] * val;
+      mix = (j == 0) ? term : mix + term;
+    }
+    if (mix > 0.0f) acc += (double)logf(mix);
+  }
+  return acc;
+}
+
+// The block's event sums of nch chains (chain c against hist_of(c)) into
+// the fixed slots partials[c * gridDim.x + blockIdx.x].  One chain
+// reduces through a shared tree (s_red, SX_THREADS doubles; measured
+// faster on an H100 than warp shuffles for one chain), lock-step chains
+// through warp shuffles into s_warp (nch * SX_THREADS / 32 doubles).
+// Starts and ends on __syncthreads' side: every thread must call it.
+template <bool kChains, class HistOf>
+__device__ __forceinline__ void sx_event_partials(
+    const SxSpec& sp, int nch, HistOf hist_of,
+    const float* __restrict__ hist_init, const int* __restrict__ rb,
+    int nev, const float* s_w, const float* s_norm, double* s_warp,
+    double* s_red, double* partials) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = SX_THREADS / 32;
+  for (int c = 0; c < nch; ++c) {
+    double acc = sx_event_sum(sp, hist_of(c), hist_init, rb, nev,
+                              s_w + c * sp.nsig, s_norm + c * sp.nsig);
+    if constexpr (kChains) {
+      for (int off = 16; off > 0; off >>= 1)
+        acc += __shfl_down_sync(0xffffffffu, acc, off);
+      if (lane == 0) s_warp[c * nwarps + warp] = acc;
+    } else {
+      s_red[tid] = acc;
+    }
+  }
+  __syncthreads();
+  if constexpr (kChains) {
+    for (int c = tid; c < nch; c += blockDim.x) {
+      double v = 0.0;
+      for (int w = 0; w < nwarps; ++w) v += s_warp[c * nwarps + w];
+      partials[(long long)c * gridDim.x + blockIdx.x] = v;
+    }
+  } else {
+    for (int h = SX_THREADS / 2; h > 0; h >>= 1) {
+      if (tid < h) s_red[tid] += s_red[tid + h];
+      __syncthreads();
+    }
+    if (tid == 0) partials[blockIdx.x] = s_red[0];
+  }
+}
+
+// A chain's NLL pair (hi, lo) at prop (npar,), after a grid barrier:
+// the warp sums the chain's gridDim.x partial slots cp in a fixed order,
+// and lane 0 finishes (the per-signal weights cw summed in f64, the
+// Gaussian constraints, the negative-rate and non-finite barrier at
+// f32(1e18)).  Every lane of the warp must call it; only lane 0's
+// result is the NLL.
+__device__ __forceinline__ void sx_finish(const SxSpec& sp, const double* cp,
+                                          const float* prop, const float* cw,
+                                          float* hi_out, float* lo_out) {
+  const int lane = threadIdx.x & 31;
+  double v = 0.0;
+  for (int b = lane; b < (int)gridDim.x; b += 32) v += __ldcg(&cp[b]);
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  if (lane != 0) return;
+  const float ev_hi = (float)v;
+  const float ev_lo = (float)(v - (double)ev_hi);
+  double wsum = 0.0;
+  for (int j = 0; j < sp.nsig; ++j) wsum += (double)cw[j];
+  double con = 0.0;
+  bool neg_rate = false;
+  for (int k = 0; k < sp.npar; ++k) {
+    if (sp.sigmas[k] > 0.0f) {
+      const float z = (prop[k] - sp.means[k]) / sp.sigmas[k];
+      con += (double)(z * z);
+    }
+    if (k < sp.nsources && prop[k] < 0.0f) neg_rate = true;
+  }
+  const double ev = (double)ev_hi + (double)ev_lo;
+  const double total = -ev + wsum + 0.5 * con;
+  float hi = (float)total;
+  float lo = (float)(total - (double)hi);
+  if (neg_rate || !isfinite(ev_hi)) {
+    hi = 1e18f;
+    lo = 0.0f;
+  }
+  *hi_out = hi;
+  *lo_out = lo;
 }

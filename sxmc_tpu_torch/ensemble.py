@@ -37,12 +37,6 @@ def check_slice(fc: FitConfig, sampler: str = "metropolis") -> None:
     todo = []
     if sampler != "metropolis":
         todo.append(f"sampler {sampler!r} (ROADMAP queue A, items 9-11)")
-    if fc.rate_substeps > 0:
-        todo.append("fit.rate_substeps > 0 (ROADMAP queue A, item 6, "
-                    "kernel B5)")
-    if fc.proposal != "diagonal":
-        todo.append(f"fit.proposal {fc.proposal!r} (ROADMAP queue A, "
-                    "item 6)")
     if fc.plots:
         todo.append("fit.plots (plots.py, ROADMAP queue A, item 7); set "
                     '"plots": false')
@@ -132,6 +126,7 @@ def run_ensemble(
             sw = Stopwatch()
             ls = mcmc(samples_data, fc.nsteps, fc.burnin_fraction,
                       debug_mode=fc.debug_mode, nchains=nchains,
+                      rate_substeps=fc.rate_substeps, proposal=fc.proposal,
                       generator=torch.Generator(device).manual_seed(
                           chain_seed),
                       presampler=(presampler_fn(i) if presampler_fn
@@ -213,14 +208,18 @@ def run_ensemble(
 def main_fit(config_file: str, output_path: str, device="cuda",
              resume: bool = False, data_root: Optional[str] = None,
              max_retries: int = 1,
-             binned: Optional[bool] = None) -> List[float]:
+             binned: Optional[bool] = None,
+             rate_substeps: Optional[int] = None) -> List[float]:
     """The whole fit from a config file (reference: sxmc.cpp:181-229);
-    ``binned``, when given, overrides ``fit.binned``."""
+    ``binned`` and ``rate_substeps``, when given, override
+    ``fit.binned`` and ``fit.rate_substeps``."""
     print("sxmc_tpu_torch: Loading configuration...")
     print(f"sxmc_tpu_torch: Configuration: {config_file}")
     fc = FitConfig.from_json_file(config_file, data_root=data_root)
     if binned is not None:
         fc.binned = binned
+    if rate_substeps is not None:
+        fc.rate_substeps = rate_substeps
     print(fc.print())
     print(f"sxmc_tpu_torch: Running ensemble on {device}...")
     limits = run_ensemble(fc, output_path, device=device, resume=resume,

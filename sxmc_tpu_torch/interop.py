@@ -3,7 +3,8 @@
 Takes the numpy arrays a ``sxmc_tpu`` run produced and builds the
 port's objects from them, so that both packages can compute on
 identical inputs: a chain state, the NLL constants, a dataset, and
-presampled noise streams (one chain's or lock-step chains').  Nothing
+presampled noise streams (one chain's or lock-step chains', joint or
+blocked).  Nothing
 here imports jax: the caller converts with ``np.asarray`` on its side.
 """
 
@@ -22,7 +23,9 @@ from sxmc_tpu_torch.utils import as_f32
 def chain_state(params, nll_pair, width, device="cpu"
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor],
                            torch.Tensor]:
-    """``(params, (hi, lo), width)`` float32 tensors on ``device``."""
+    """``(params, (hi, lo), width)`` float32 tensors on ``device``;
+    ``width`` may be a full_cov chain's tril ``([nchains,] npar,
+    npar)``."""
     hi, lo = (as_f32(np.asarray(x).reshape(()), device) for x in nll_pair)
     return as_f32(params, device), (hi, lo), as_f32(width, device)
 
@@ -47,22 +50,30 @@ def dataset(data) -> np.ndarray:
 
 
 def stream(noise, u, device="cpu") -> Tuple[torch.Tensor, torch.Tensor]:
-    """A phase's ``(noise, u)`` float32 streams from the JAX package's.
+    """A phase's ``(noise, u)`` float32 streams from the JAX package's,
+    in the port's layout (``metropolis.presample``).
 
-    One chain: ``_presample(keys, npar, 0)`` gives ``(noise (n, 1,
-    npar), u (n, 1))`` -> ``(n, npar)``, ``(n,)``.  Lock-step chains:
-    ``_run_chains_batched``'s ``phase_xs(ks, n)`` gives ``(noise (n,
-    nchains, 1, npar), u (n, nchains, 1))`` -> ``(n, nchains, npar)``,
-    ``(n, nchains)``.  The port's routes take what they need from
-    ``u``: the stepper ``u`` itself, the fused kernels ``log(u)``.
+    One chain: ``_presample(keys, npar, m)`` gives ``(noise (n, m + 1,
+    npar), u (n, m + 1))``; with m = 0 (the joint step) that becomes
+    ``(n, npar)``, ``(n,)``, and blocked (m > 0) it stays as it is.
+    Lock-step chains: ``_run_chains_batched``'s ``phase_xs(ks, n)``
+    gives ``(noise (n, nchains, m + 1, npar), u (n, nchains, m + 1))``:
+    ``(n, nchains, npar)``, ``(n, nchains)`` for m = 0, and B5's ``(n, m
+    + 1, nchains, npar)``, ``(n, m + 1, nchains)`` blocked.  The port's
+    routes take what they need from ``u``: the stepper ``u`` itself,
+    the fused kernels ``log(u)``.
     """
     noise = np.asarray(noise, np.float32)
     u = np.asarray(u, np.float32)
-    if noise.ndim not in (3, 4) or noise.shape[-2] != 1 \
-            or u.shape != noise.shape[:-1]:
-        raise ValueError(f"not a joint-step stream: noise {noise.shape}, "
-                         f"u {u.shape}")
-    return as_f32(noise[..., 0, :], device), as_f32(u[..., 0], device)
+    if noise.ndim not in (3, 4) or u.shape != noise.shape[:-1]:
+        raise ValueError(f"not a _presample / phase_xs stream: noise "
+                         f"{noise.shape}, u {u.shape}")
+    if noise.shape[-2] == 1:  # joint steps
+        noise, u = noise[..., 0, :], u[..., 0]
+    elif noise.ndim == 4:  # blocked lock-step chains: m + 1 before chains
+        noise = np.ascontiguousarray(np.moveaxis(noise, 1, 2))
+        u = np.ascontiguousarray(np.moveaxis(u, 1, 2))
+    return as_f32(noise, device), as_f32(u, device)
 
 
 def presampler(phases: Sequence[Tuple[np.ndarray, np.ndarray]],

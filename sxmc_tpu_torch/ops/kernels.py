@@ -1,6 +1,6 @@
 """The hand-written Hopper kernels: build, bind, wrap, count.
 
-Four kernels carry the Metropolis fits (sources and notes in
+Five kernels carry the Metropolis fits (sources and notes in
 ``sxmc_tpu_torch/csrc/``):
 
   B1 :func:`segmented_histogram`  <- sxmc_tpu/ops/pallas_hist.py::
@@ -15,15 +15,20 @@ Four kernels carry the Metropolis fits (sources and notes in
      for ``(nchains, npar)`` params
   B4 :func:`fused_segment`        <- sxmc_tpu/ops/pallas_step.py::
      pallas_fused_segment (one whole fixed-width Metropolis phase);
-     :func:`fused_segment_batched` for lock-step chains
+     :func:`fused_segment_batched` for lock-step chains;
+     :func:`fused_segment_tril` and :func:`fused_segment_tril_batched`
+     for full-covariance proposals ``cur + L @ z``
+  B5 :func:`blocked_segment`      <- sxmc_tpu/ops/pallas_step.py::
+     pallas_fused_segment_blocked (one whole blocked Metropolis-within-
+     Gibbs phase); :func:`blocked_segment_batched` for lock-step chains
 
 Each form takes one shape and counts its launches under its own name,
 so that a run shows which form ran.  Each wrapper checks its inputs,
-and then takes one of two routes decided only by where the tensors lie: on the CPU it runs the
-plain PyTorch version beside it (``*_plain``), on a CUDA device it
-launches the kernel or raises.  There is no fallback from the card to
-the plain version.  Every launch adds one to the wrapper's
-``launches`` count.
+and then takes one of two routes decided only by where the tensors
+lie: on the CPU it runs the plain PyTorch version beside it
+(``*_plain``), on a CUDA device it launches the kernel or raises.
+There is no fallback from the card to the plain version.  Every launch
+adds one to the wrapper's ``launches`` count.
 
 The library is compiled with nvcc at first use, into
 ``build/sxmc_kernels/<hash of the sources>/`` beside the package, and
@@ -299,9 +304,14 @@ def _library() -> ctypes.CDLL:
     lib.sx_eval_lut.restype = _I
     lib.sx_fused_grid.argtypes = [_P, _I, _P]
     lib.sx_fused_grid.restype = _I
-    lib.sx_fused.argtypes = [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
-                             _I, _P, _P, _I, _P, _P, _P, _P]
-    lib.sx_fused.restype = _I
+    segment = [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+               _I, _P, _P, _P, _P]
+    for fn in (lib.sx_fused, lib.sx_fused_tril):
+        fn.argtypes, fn.restype = segment, _I
+    lib.sx_blocked_grid.argtypes = [_P, _I, _P]
+    lib.sx_blocked_grid.restype = _I
+    lib.sx_blocked.argtypes = segment[:12] + [_I] + segment[12:]
+    lib.sx_blocked.restype = _I
     if lib.sx_spec_size() != ctypes.sizeof(_CSpec):
         raise RuntimeError(
             f"SxSpec is {lib.sx_spec_size()} bytes in C but "
@@ -426,42 +436,123 @@ def assemble(ns: NLLSpec, hist_init: torch.Tensor,
     return hists, norms
 
 
-def fused_nll_plain(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
-                    hist_init: torch.Tensor, rb: torch.Tensor,
-                    params: torch.Tensor):
-    """Plain version of B3 (single and batched): rebuild, LUT,
-    ``nll_pair``."""
+def _state_plain(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
+                 hist_init: torch.Tensor, params: torch.Tensor):
+    """The full histograms and norms at ``params`` (``(npar,)`` or
+    ``(nchains, npar)``): the rebuild of the fused kernels."""
     counts = _dyn_counts_plain(hs, samples, params, int(ns.st.nsources))
-    hists, norms = assemble(ns, hist_init, counts)
+    return assemble(ns, hist_init, counts)
+
+
+def _nll_from_state_plain(hs: HistSpec, ns: NLLSpec, rb: torch.Tensor,
+                          params: torch.Tensor, hists: torch.Tensor,
+                          norms: torch.Tensor):
+    """LUT from the histograms, then ``nll_pair``."""
     lut = lut_eval_plain(hists.reshape(-1, hs.total), norms.reshape(-1),
                          rb, ns.bin_volume)
     lut = lut.reshape(*hists.shape[:-1], rb.shape[1])
     return nll_pair(params, lut, norms, ns.consts)
 
 
+def fused_nll_plain(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
+                    hist_init: torch.Tensor, rb: torch.Tensor,
+                    params: torch.Tensor):
+    """Plain version of B3 (single and batched): rebuild, LUT,
+    ``nll_pair``."""
+    hists, norms = _state_plain(hs, ns, samples, hist_init, params)
+    return _nll_from_state_plain(hs, ns, rb, params, hists, norms)
+
+
+def tril_propose_plain(cur: torch.Tensor, tril: torch.Tensor,
+                       z: torch.Tensor) -> torch.Tensor:
+    """``cur + L @ z`` in the kernels' order: row k sums ``L[k, j] *
+    z[j]`` for j = 0..k from 0.0 in ascending j, one rounded add per
+    term (a matmul would reorder the sum).  ``cur`` and ``z`` ``(...,
+    npar)``, ``tril`` ``(..., npar, npar)``."""
+    npar = cur.shape[-1]
+    k = torch.arange(npar, device=cur.device)
+    acc = torch.zeros_like(cur)
+    for j in range(npar):
+        acc = torch.where(k >= j, acc + tril[..., j] * z[..., j:j + 1], acc)
+    return cur + acc
+
+
+def _accept_plain(cur_hi, cur_lo, hi, lo, log_u, debug_mode: bool):
+    """df_diff's op order, then the kernels' log-space accept ``delta > 0
+    or log(u) <= delta``."""
+    delta = df_diff(cur_hi, cur_lo, hi, lo)
+    acc = (delta > 0) | (log_u <= delta)
+    return torch.ones_like(acc) if debug_mode else acc
+
+
 def fused_segment_plain(hs, ns, samples, hist_init, rb, params0, nll0,
                         width, noise, log_u, debug_mode: bool = False):
-    """Plain version of B4 (single and batched): the step loop, one
-    :func:`fused_nll_plain` per proposal, the log-space accept.  Stays
-    on the device (no host synchronisation per step)."""
+    """Plain version of B4 (single and batched, diagonal or tril): the
+    step loop, one :func:`fused_nll_plain` per proposal, the log-space
+    accept.  ``width`` one dimension longer than ``params0`` is the tril
+    (:func:`tril_propose_plain`).  Stays on the device (no host
+    synchronisation per step)."""
     cur = params0.clone()
     cur_hi, cur_lo = nll0[..., 0].clone(), nll0[..., 1].clone()
-    zero = torch.zeros((), dtype=torch.float32, device=params0.device)
+    tril = width.dim() == params0.dim() + 1
     wpos = torch.clamp_min(width, 0.0)
     out_s, out_n, out_a = [], [], []
     for s in range(noise.shape[0]):
-        prop = torch.where(width > 0, cur + noise[s] * wpos, cur)
+        if tril:
+            prop = tril_propose_plain(cur, width, noise[s])
+        else:
+            prop = torch.where(width > 0, cur + noise[s] * wpos, cur)
         hi, lo = fused_nll_plain(hs, ns, samples, hist_init, rb, prop)
-        delta = df_diff(cur_hi, cur_lo, hi, lo)
-        acc = (delta > zero) | (log_u[s] <= delta)
-        if debug_mode:
-            acc = torch.ones_like(acc)
+        acc = _accept_plain(cur_hi, cur_lo, hi, lo, log_u[s], debug_mode)
         cur = torch.where(acc[..., None], prop, cur)
         cur_hi = torch.where(acc, hi, cur_hi)
         cur_lo = torch.where(acc, lo, cur_lo)
         out_s.append(cur)
         out_n.append(torch.stack([cur_hi, cur_lo], dim=-1))
         out_a.append(acc.to(torch.float32))
+    return torch.stack(out_s), torch.stack(out_n), torch.stack(out_a)
+
+
+def blocked_segment_plain(hs, ns, samples, hist_init, rb, params0, nll0,
+                          width, noise, log_u, debug_mode: bool = False):
+    """Plain version of B5 (single and batched): per cycle one
+    systematic-block move (every parameter but the rates, rebuilt and
+    scored as :func:`fused_nll_plain` does) and ``M = noise.shape[1] -
+    1`` rate-block moves scored against the carried current histograms
+    and norms (``lut_eval_plain`` + ``nll_pair``), each decided with the
+    log-space accept.  ``noise`` ``(n, M + 1[, nchains], npar)``,
+    ``log_u`` ``(n, M + 1[, nchains])``; returns the per-cycle histories
+    and accepted fractions."""
+    nsub = noise.shape[1]
+    cur = params0.clone()
+    cur_hi, cur_lo = nll0[..., 0].clone(), nll0[..., 1].clone()
+    rate = torch.arange(params0.shape[-1],
+                        device=params0.device) < int(ns.st.nsources)
+    wpos = torch.clamp_min(width, 0.0)
+    hist_cur, norms_cur = _state_plain(hs, ns, samples, hist_init, cur)
+    out_s, out_n, out_a = [], [], []
+    for s in range(noise.shape[0]):
+        accn = torch.zeros_like(cur_hi)
+        for sub in range(nsub):
+            move = (width > 0) & (rate if sub else ~rate)
+            prop = torch.where(move, cur + noise[s, sub] * wpos, cur)
+            if sub == 0:
+                hists, norms = _state_plain(hs, ns, samples, hist_init, prop)
+            else:
+                hists, norms = hist_cur, norms_cur
+            hi, lo = _nll_from_state_plain(hs, ns, rb, prop, hists, norms)
+            acc = _accept_plain(cur_hi, cur_lo, hi, lo, log_u[s, sub],
+                                debug_mode)
+            cur = torch.where(acc[..., None], prop, cur)
+            cur_hi = torch.where(acc, hi, cur_hi)
+            cur_lo = torch.where(acc, lo, cur_lo)
+            if sub == 0:
+                hist_cur = torch.where(acc[..., None, None], hists, hist_cur)
+                norms_cur = torch.where(acc[..., None], norms, norms_cur)
+            accn = accn + acc.to(torch.float32)
+        out_s.append(cur)
+        out_n.append(torch.stack([cur_hi, cur_lo], dim=-1))
+        out_a.append(accn / nsub)
     return torch.stack(out_s), torch.stack(out_n), torch.stack(out_a)
 
 
@@ -611,23 +702,32 @@ def _check_fused(hs, ns, samples, hist_init, rb, params, nch):
 
 def _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
                   noise, log_u, nsteps, debug, samples_out, nlls_out,
-                  acc_out, nch, what):
+                  acc_out, nch, what, kind="fused", nsub=0):
+    """Launch B3/B4 (``kind`` "fused", or "fused_tril" for the tril
+    proposals) or B5 ("blocked", ``nsub`` decisions per cycle) on the
+    grid that the library's rule picks."""
     dev = samples.device
     lib = _library()
     cs = _c_spec(hs, ns, int(ns.st.nsources))
     nblocks = ctypes.c_int(0)
-    _check_cuda(lib, lib.sx_fused_grid(ctypes.byref(cs), nch,
-                                       ctypes.byref(nblocks)), what)
-    partials = torch.empty(nch * nblocks.value, dtype=torch.float64,
-                           device=dev)
+    grid = lib.sx_blocked_grid if kind == "blocked" else lib.sx_fused_grid
+    _check_cuda(lib, grid(ctypes.byref(cs), nch, ctypes.byref(nblocks)),
+                what)
+    # B5 double-buffers its partials by decision parity.
+    nslots = nch * nblocks.value * (2 if kind == "blocked" else 1)
+    partials = torch.empty(nslots, dtype=torch.float64, device=dev)
     scratch = torch.empty(2 * nch * (hs.ndyn * hs.total + hs.ndyn),
                           dtype=torch.int32, device=dev)
-    err = lib.sx_fused(
-        ctypes.byref(cs), nch, _ptr(samples), _ptr(hist_init), _ptr(rb),
-        rb.shape[1], _ptr(params0), _ptr(nll0), _ptr(width), _ptr(noise),
-        _ptr(log_u), nsteps, int(debug), _ptr(scratch), _ptr(partials),
-        nblocks.value, _ptr(samples_out), _ptr(nlls_out), _ptr(acc_out),
-        _stream(dev))
+    head = (ctypes.byref(cs), nch, _ptr(samples), _ptr(hist_init), _ptr(rb),
+            rb.shape[1], _ptr(params0), _ptr(nll0), _ptr(width), _ptr(noise),
+            _ptr(log_u), nsteps)
+    tail = (int(debug), _ptr(scratch), _ptr(partials), nblocks.value,
+            _ptr(samples_out), _ptr(nlls_out), _ptr(acc_out), _stream(dev))
+    if kind == "blocked":
+        err = lib.sx_blocked(*head, nsub, *tail)
+    else:
+        fn = lib.sx_fused_tril if kind == "fused_tril" else lib.sx_fused
+        err = fn(*head, *tail)
     _check_cuda(lib, err, what)
 
 
@@ -669,17 +769,36 @@ def fused_nll_batched(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
 fused_nll_batched.launches = 0
 
 
-def _check_segment(ns, params0, nll0, width, noise, log_u, nch):
+def _check_segment(ns, params0, nll0, width, noise, log_u, nch,
+                   tril=False, blocked=False):
+    """Shapes of a segment's inputs: ``width`` ``([nch,] npar)``, or
+    ``([nch,] npar, npar)`` with ``tril``; ``noise`` ``(n, [nsub,] [nch,]
+    npar)`` and ``log_u`` ``(n, [nsub,] [nch])``, the ``nsub`` axis of
+    decisions per cycle when ``blocked`` (B5).  Returns ``(n, nsub)``."""
     dev = params0.device
     lead = () if nch is None else (nch,)
-    n = noise.shape[0] if noise.dim() == 2 + len(lead) else -1
+    sub = (noise.shape[1] if noise.dim() > 1 else -1,) if blocked else ()
+    n = noise.shape[0] if noise.dim() == 2 + len(sub + lead) else -1
     _expect(nll0, "nll0", lead + (2,), torch.float32, dev)
-    _expect(width, "width", lead + (ns.npar,), torch.float32, dev)
-    _expect(noise, "noise", (n,) + lead + (ns.npar,), torch.float32, dev)
-    _expect(log_u, "log_u", (n,) + lead, torch.float32, dev)
+    _expect(width, "width", lead + (ns.npar,) * (2 if tril else 1),
+            torch.float32, dev)
+    _expect(noise, "noise", (n,) + sub + lead + (ns.npar,), torch.float32,
+            dev)
+    _expect(log_u, "log_u", (n,) + sub + lead, torch.float32, dev)
     if n < 1:
         raise ValueError("a segment needs at least one step")
-    return n
+    if sub and sub[0] < 2:
+        raise ValueError("a blocked cycle needs at least one rate move "
+                         f"(noise has {sub[0]} decisions per cycle)")
+    return n, (sub[0] if sub else None)
+
+
+def _segment_out(n, lead, npar, dev):
+    """A segment's empty histories: samples, NLL pairs, accepts."""
+    return (torch.empty((n,) + lead + (npar,), dtype=torch.float32,
+                        device=dev),
+            torch.empty((n,) + lead + (2,), dtype=torch.float32, device=dev),
+            torch.empty((n,) + lead, dtype=torch.float32, device=dev))
 
 
 def fused_segment(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
@@ -696,18 +815,15 @@ def fused_segment(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
     """
     dev = samples.device
     _check_fused(hs, ns, samples, hist_init, rb, params0, None)
-    n = _check_segment(ns, params0, nll0, width, noise, log_u, None)
+    n, _ = _check_segment(ns, params0, nll0, width, noise, log_u, None)
     if dev.type == "cpu":
         return fused_segment_plain(hs, ns, samples, hist_init, rb, params0,
                                    nll0, width, noise, log_u, debug_mode)
-    samples_out = torch.empty((n, ns.npar), dtype=torch.float32, device=dev)
-    nlls_out = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    acc_out = torch.empty(n, dtype=torch.float32, device=dev)
+    out = _segment_out(n, (), ns.npar, dev)
     _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
-                  noise, log_u, n, debug_mode, samples_out, nlls_out,
-                  acc_out, 1, "fused_segment")
+                  noise, log_u, n, debug_mode, *out, 1, "fused_segment")
     fused_segment.launches += 1
-    return samples_out, nlls_out, acc_out
+    return out
 
 
 fused_segment.launches = 0
@@ -726,26 +842,146 @@ def fused_segment_batched(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
     dev = samples.device
     nch = params0.shape[0]
     _check_fused(hs, ns, samples, hist_init, rb, params0, nch)
-    n = _check_segment(ns, params0, nll0, width, noise, log_u, nch)
+    n, _ = _check_segment(ns, params0, nll0, width, noise, log_u, nch)
     if dev.type == "cpu":
         return fused_segment_plain(hs, ns, samples, hist_init, rb, params0,
                                    nll0, width, noise, log_u, debug_mode)
-    samples_out = torch.empty((n, nch, ns.npar), dtype=torch.float32,
-                              device=dev)
-    nlls_out = torch.empty((n, nch, 2), dtype=torch.float32, device=dev)
-    acc_out = torch.empty((n, nch), dtype=torch.float32, device=dev)
+    out = _segment_out(n, (nch,), ns.npar, dev)
     _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
-                  noise, log_u, n, debug_mode, samples_out, nlls_out,
-                  acc_out, nch, "fused_segment_batched")
+                  noise, log_u, n, debug_mode, *out, nch,
+                  "fused_segment_batched")
     fused_segment_batched.launches += 1
-    return samples_out, nlls_out, acc_out
+    return out
 
 
 fused_segment_batched.launches = 0
 
+
+def fused_segment_tril(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
+                       hist_init: torch.Tensor, rb: torch.Tensor,
+                       params0: torch.Tensor, nll0: torch.Tensor,
+                       tril: torch.Tensor, noise: torch.Tensor,
+                       log_u: torch.Tensor, debug_mode: bool = False):
+    """B4 with full-covariance proposals: as :func:`fused_segment`, each
+    step proposing ``cur + L @ z`` with the lower-triangular ``tril``
+    ``(npar, npar)`` (only ``j <= k`` is read; zero rows pin a
+    parameter), summed in the order of :func:`tril_propose_plain`."""
+    dev = samples.device
+    _check_fused(hs, ns, samples, hist_init, rb, params0, None)
+    n, _ = _check_segment(ns, params0, nll0, tril, noise, log_u, None,
+                          tril=True)
+    if dev.type == "cpu":
+        return fused_segment_plain(hs, ns, samples, hist_init, rb, params0,
+                                   nll0, tril, noise, log_u, debug_mode)
+    out = _segment_out(n, (), ns.npar, dev)
+    _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, tril,
+                  noise, log_u, n, debug_mode, *out, 1,
+                  "fused_segment_tril", kind="fused_tril")
+    fused_segment_tril.launches += 1
+    return out
+
+
+fused_segment_tril.launches = 0
+
+
+def fused_segment_tril_batched(hs: HistSpec, ns: NLLSpec,
+                               samples: torch.Tensor,
+                               hist_init: torch.Tensor, rb: torch.Tensor,
+                               params0: torch.Tensor, nll0: torch.Tensor,
+                               tril: torch.Tensor, noise: torch.Tensor,
+                               log_u: torch.Tensor,
+                               debug_mode: bool = False):
+    """:func:`fused_segment_tril` for lock-step chains: ``tril``
+    ``(nchains, npar, npar)``, one per chain, the rest as
+    :func:`fused_segment_batched`."""
+    dev = samples.device
+    nch = params0.shape[0]
+    _check_fused(hs, ns, samples, hist_init, rb, params0, nch)
+    n, _ = _check_segment(ns, params0, nll0, tril, noise, log_u, nch,
+                          tril=True)
+    if dev.type == "cpu":
+        return fused_segment_plain(hs, ns, samples, hist_init, rb, params0,
+                                   nll0, tril, noise, log_u, debug_mode)
+    out = _segment_out(n, (nch,), ns.npar, dev)
+    _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, tril,
+                  noise, log_u, n, debug_mode, *out, nch,
+                  "fused_segment_tril_batched", kind="fused_tril")
+    fused_segment_tril_batched.launches += 1
+    return out
+
+
+fused_segment_tril_batched.launches = 0
+
+
+def blocked_segment(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
+                    hist_init: torch.Tensor, rb: torch.Tensor,
+                    params0: torch.Tensor, nll0: torch.Tensor,
+                    width: torch.Tensor, noise: torch.Tensor,
+                    log_u: torch.Tensor, debug_mode: bool = False):
+    """B5: a whole blocked Metropolis-within-Gibbs segment of one chain
+    in one launch.
+
+    ``noise`` ``(n, M + 1, npar)`` and ``log_u`` ``(n, M + 1)``, M >= 1:
+    per cycle, row 0 drives the systematic-block move (every parameter
+    but the rates; a rebuild), rows 1..M the rate-block moves, scored
+    against the carried current histogram.  Accept where ``delta > 0``
+    or ``log_u <= delta``.  Returns ``(samples (n, npar), nlls (n, 2),
+    accepted fraction (n,))`` per cycle.
+    """
+    dev = samples.device
+    _check_fused(hs, ns, samples, hist_init, rb, params0, None)
+    n, nsub = _check_segment(ns, params0, nll0, width, noise, log_u, None,
+                             blocked=True)
+    if dev.type == "cpu":
+        return blocked_segment_plain(hs, ns, samples, hist_init, rb,
+                                     params0, nll0, width, noise, log_u,
+                                     debug_mode)
+    out = _segment_out(n, (), ns.npar, dev)
+    _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
+                  noise, log_u, n, debug_mode, *out, 1, "blocked_segment",
+                  kind="blocked", nsub=nsub)
+    blocked_segment.launches += 1
+    return out
+
+
+blocked_segment.launches = 0
+
+
+def blocked_segment_batched(hs: HistSpec, ns: NLLSpec,
+                            samples: torch.Tensor, hist_init: torch.Tensor,
+                            rb: torch.Tensor, params0: torch.Tensor,
+                            nll0: torch.Tensor, width: torch.Tensor,
+                            noise: torch.Tensor, log_u: torch.Tensor,
+                            debug_mode: bool = False):
+    """B5, lock-step chains: ``params0`` and ``width`` ``(nchains,
+    npar)``, ``nll0`` ``(nchains, 2)``, ``noise`` ``(n, M + 1, nchains,
+    npar)``, ``log_u`` ``(n, M + 1, nchains)`` (pallas_step.py:1287-1292)
+    -> histories ``(n, nchains, ...)``.  Each chain decides as
+    :func:`blocked_segment` would alone."""
+    dev = samples.device
+    nch = params0.shape[0]
+    _check_fused(hs, ns, samples, hist_init, rb, params0, nch)
+    n, nsub = _check_segment(ns, params0, nll0, width, noise, log_u, nch,
+                             blocked=True)
+    if dev.type == "cpu":
+        return blocked_segment_plain(hs, ns, samples, hist_init, rb,
+                                     params0, nll0, width, noise, log_u,
+                                     debug_mode)
+    out = _segment_out(n, (nch,), ns.npar, dev)
+    _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
+                  noise, log_u, n, debug_mode, *out, nch,
+                  "blocked_segment_batched", kind="blocked", nsub=nsub)
+    blocked_segment_batched.launches += 1
+    return out
+
+
+blocked_segment_batched.launches = 0
+
 KERNELS = (segmented_histogram, segmented_histogram_batched, lut_eval,
            fused_nll, fused_nll_batched, fused_segment,
-           fused_segment_batched)
+           fused_segment_batched, fused_segment_tril,
+           fused_segment_tril_batched, blocked_segment,
+           blocked_segment_batched)
 
 
 def launch_counts() -> dict:

@@ -29,6 +29,7 @@ import torch
 
 from sxmc_tpu_torch.ops import histogram as hist_ops
 from sxmc_tpu_torch.ops import transforms
+from sxmc_tpu_torch.utils import resolve_device
 
 
 class PdfError(ValueError):
@@ -39,7 +40,8 @@ class EvalHist:
     """N-dimensional histogram PDF with on-the-fly systematics.
 
     The samples stay on the host until the first evaluation, which
-    copies them to ``device`` once.
+    copies them to ``device`` once: the card unless the caller says
+    otherwise (without CUDA that raises).
     """
 
     def __init__(
@@ -52,7 +54,7 @@ class EvalHist:
         nbins: Sequence[int],
         dataset: int = 0,
         weights=None,
-        device="cpu",
+        device="cuda",
     ):
         if weights is not None:
             raise NotImplementedError(
@@ -98,7 +100,7 @@ class EvalHist:
         self.total_nbins = hist_ops.total_bins(self.nbins)
         self.bin_volume = hist_ops.bin_volume(lower, upper, self.nbins)
         self.systematics: Tuple[transforms.SystematicDesc, ...] = ()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self._samples_t = None  # field-major device copy, made lazily
 
     @property

@@ -15,7 +15,10 @@ Entry points: :meth:`histograms` (kernel B1) and
 :meth:`evaluate_batch` (B1, then the LUT gather B2), the split path of
 fits whose systematics are fixed or absent; :meth:`fused_nll_pair`
 (B3) and :meth:`fused_segment` (B4), with :meth:`fused_nll_pair_batch`
-and :meth:`fused_segment_batch` for lock-step chains; and the binned likelihood's data counts
+and :meth:`fused_segment_batch` for lock-step chains, and
+:meth:`fused_segment_tril` / :meth:`fused_segment_tril_batch` for
+full-covariance proposals; :meth:`blocked_segment` and
+:meth:`blocked_segment_batch` (B5); and the binned likelihood's data counts
 (:meth:`data_bin_counts`, :meth:`counts_from_read_bins`).  KDE and
 weighted signals are not ported yet and raise.
 """
@@ -33,7 +36,7 @@ from sxmc_tpu_torch.ops.nll import NLLStatic, device_consts
 from sxmc_tpu_torch.ops.transforms import SystematicDesc
 from sxmc_tpu_torch.pdf.evalhist import EvalHist, read_bins_for
 from sxmc_tpu_torch.signal import Observable, Signal, Systematic
-from sxmc_tpu_torch.utils import as_f32
+from sxmc_tpu_torch.utils import as_f32, resolve_device
 
 
 def _host_histogram(samples, lower, upper, nbins) -> np.ndarray:
@@ -58,12 +61,13 @@ def _host_histogram(samples, lower, upper, nbins) -> np.ndarray:
 
 
 class PdfStack:
-    """Batched evaluator for all PDFs in a fit, on one device."""
+    """Batched evaluator for all PDFs in a fit, on one device (the card
+    unless ``device`` says otherwise; without CUDA that raises)."""
 
     def __init__(self, signals: Sequence[Signal],
                  observables: Sequence[Observable],
-                 systematics: Sequence[Systematic], device="cpu"):
-        self.device = torch.device(device)
+                 systematics: Sequence[Systematic], device="cuda"):
+        self.device = resolve_device(device)
         self.nsignals = len(signals)
         self.nobservables = len(observables)
         for s in signals:
@@ -74,6 +78,9 @@ class PdfStack:
             if s.histogram.weights is not None:
                 raise NotImplementedError(
                     f"signal {s.name}: weighted MC is not ported yet")
+        # Weighted MC raises above; the blocked kernel B5 relies on it
+        # (its rate moves reuse integer in-domain counts as the norms).
+        self.has_weights = False
 
         nobs = self.nobservables
         lower, upper, nbins = [0.0] * nobs, [1.0] * nobs, [1] * nobs
@@ -301,6 +308,50 @@ class PdfStack:
         lock-step histories ``(n, nchains, ...)`` (B4's batched form)."""
         self._require_fused()
         return kernels.fused_segment_batched(
+            self.hist_spec, ns, self.samples, self.hist_init, read_bins,
+            params0, nll0, width, noise, log_u, debug_mode)
+
+    def fused_segment_tril(self, params0, nll0, tril, read_bins, noise,
+                           log_u, ns: kernels.NLLSpec,
+                           debug_mode: bool = False):
+        """:meth:`fused_segment` with full-covariance proposals ``cur +
+        L @ z``, ``tril`` ``(npar, npar)`` (B4's tril form)."""
+        self._require_fused()
+        return kernels.fused_segment_tril(
+            self.hist_spec, ns, self.samples, self.hist_init, read_bins,
+            params0, nll0, tril, noise, log_u, debug_mode)
+
+    def fused_segment_tril_batch(self, params0, nll0, tril, read_bins,
+                                 noise, log_u, ns: kernels.NLLSpec,
+                                 debug_mode: bool = False):
+        """:meth:`fused_segment_tril` for lock-step chains, ``tril``
+        ``(nchains, npar, npar)`` (B4's batched tril form)."""
+        self._require_fused()
+        return kernels.fused_segment_tril_batched(
+            self.hist_spec, ns, self.samples, self.hist_init, read_bins,
+            params0, nll0, tril, noise, log_u, debug_mode)
+
+    def blocked_segment(self, params0, nll0, width, read_bins, noise, log_u,
+                        ns: kernels.NLLSpec, debug_mode: bool = False):
+        """A whole blocked Metropolis-within-Gibbs segment of one chain
+        (kernel B5): ``noise`` ``(n, M + 1, npar)``, ``log_u`` ``(n, M +
+        1)``; returns per-cycle ``(samples (n, npar), nlls (n, 2),
+        accepted fractions (n,))``."""
+        self._require_fused()
+        assert not self.has_weights
+        return kernels.blocked_segment(
+            self.hist_spec, ns, self.samples, self.hist_init, read_bins,
+            params0, nll0, width, noise, log_u, debug_mode)
+
+    def blocked_segment_batch(self, params0, nll0, width, read_bins, noise,
+                              log_u, ns: kernels.NLLSpec,
+                              debug_mode: bool = False):
+        """:meth:`blocked_segment` for ``(nchains, npar)`` params:
+        ``noise`` ``(n, M + 1, nchains, npar)``, histories ``(n, nchains,
+        ...)`` (B5's batched form)."""
+        self._require_fused()
+        assert not self.has_weights
+        return kernels.blocked_segment_batched(
             self.hist_spec, ns, self.samples, self.hist_init, read_bins,
             params0, nll0, width, noise, log_u, debug_mode)
 

@@ -281,8 +281,10 @@ def build_pdf(
 
     if kde:
         _kde_not_ported()
+    # A host-side container: the fit's PdfStack copies the samples to
+    # its device, so parsing a configuration touches no device.
     hist = EvalHist(samples, len(sample_fields), nobs, lower, upper,
-                    nbins, dataset=dataset)
+                    nbins, dataset=dataset, device="cpu")
     for syst in systematics:
         hist.add_systematic(transforms.SystematicDesc(
             type=syst.type,

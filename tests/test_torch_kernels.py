@@ -1,6 +1,6 @@
 """Kernels B1/B3/B4: plain versions against the JAX Pallas kernels, and
-(on a card) the CUDA kernels B1, B2, B3 and B4, single and batched,
-against their plain versions.
+(on a card) the CUDA kernels B1, B2, B3, B4 (diagonal and tril) and B5,
+single and batched, against their plain versions.
 
 The JAX side runs as its own CPU tests run it: a PdfStack built under
 ``force_pallas_interpret`` takes the per-segment Pallas path, kernels
@@ -285,3 +285,69 @@ def test_cuda_segment_batched_matches_plain(cuda_pair):
     assert s.shape == (100, nch, mcmc.nparameters)
     assert torch.equal(a, pa) and torch.equal(s, ps)
     assert (n.double().sum(-1) - pn.double().sum(-1)).abs().max() <= NLL_TOL
+
+
+def _chains_inputs(mcmc, nch, n, sub=()):
+    """A chain start for 1 or nch chains and streams of n steps (with
+    the blocked ``(M + 1,)`` axis ``sub``) on the card."""
+    dev = mcmc.device
+    params, nll0, width = initial_state(mcmc, mcmc.stack.read_bins,
+                                        nchains=nch)
+    lead = (nch,) if nch > 1 else ()
+    rng = np.random.default_rng(29 + nch)
+    noise = torch.as_tensor(rng.normal(0, 1, (n,) + sub + lead + (
+        mcmc.nparameters,)).astype(np.float32), device=dev)
+    log_u = torch.as_tensor(np.log(rng.uniform(0, 1, (n,) + sub + lead))
+                            .astype(np.float32), device=dev)
+    return params, torch.stack(nll0, dim=-1), width, noise, log_u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch", [1, 4])
+def test_cuda_segment_tril_matches_plain(cuda_pair, nch):
+    mcmc, dev = cuda_pair
+    st = mcmc.stack
+    params, nll0, width, noise, log_u = _chains_inputs(mcmc, nch, 100)
+    # Correlated scales with a zero row: source c stays pinned.
+    low = torch.tril(torch.full(width.shape[-1:] * 2, 0.3, device=dev), -1)
+    tril = torch.diag_embed(width.clamp_min(0)) + low * width.clamp_min(
+        0)[..., :, None]
+    tril[..., 2, :] = 0.0
+    tril = tril.contiguous()
+    args = (st.hist_spec, mcmc.nll_spec, st.samples, st.hist_init,
+            st.read_bins, params, nll0, tril, noise, log_u)
+    kern = (kernels.fused_segment_tril_batched if nch > 1
+            else kernels.fused_segment_tril)
+    before = kern.launches
+    s, n, a = kern(*args)
+    ps, pn, pa = kernels.fused_segment_plain(*args)
+    assert kern.launches == before + 1
+    assert torch.equal(a, pa) and torch.equal(s, ps)
+    assert (n.double().sum(-1) - pn.double().sum(-1)).abs().max() <= NLL_TOL
+    assert 0 < float(a.sum()) < a.numel()
+    assert bool((s[..., 2] == params[..., 2]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch", [1, 4])
+def test_cuda_blocked_segment_matches_plain(cuda_pair, nch):
+    mcmc, dev = cuda_pair
+    st = mcmc.stack
+    params, nll0, width, noise, log_u = _chains_inputs(mcmc, nch, 60,
+                                                       sub=(4,))
+    args = (st.hist_spec, mcmc.nll_spec, st.samples, st.hist_init,
+            st.read_bins, params, nll0, width, noise, log_u)
+    kern = (kernels.blocked_segment_batched if nch > 1
+            else kernels.blocked_segment)
+    before = kern.launches
+    s, n, a = kern(*args)
+    ps, pn, pa = kernels.blocked_segment_plain(*args)
+    assert kern.launches == before + 1
+    assert a.shape == ((60, nch) if nch > 1 else (60,))
+    assert torch.equal(a, pa) and torch.equal(s, ps)
+    assert (n.double().sum(-1) - pn.double().sum(-1)).abs().max() <= NLL_TOL
+    assert 0 < float(a.sum()) < a.numel()
+    # Debug mode takes every one of the M + 1 moves.
+    s, n, a = kern(*args, debug_mode=True)
+    ps, pn, pa = kernels.blocked_segment_plain(*args, debug_mode=True)
+    assert bool((a == 1).all()) and torch.equal(s, ps)

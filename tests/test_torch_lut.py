@@ -81,7 +81,7 @@ def test_evalhist_eval_matches_jax():
                    axis=1).astype(np.float32)
     from sxmc_tpu_torch.pdf.evalhist import EvalHist
 
-    t = EvalHist(mc, 2, 1, [5.0], [15.0], [25])
+    t = EvalHist(mc, 2, 1, [5.0], [15.0], [25], device="cpu")
     j = JaxEvalHist(mc, 2, 1, [5.0], [15.0], [25])
     t.add_systematic(SystematicDesc(type=SCALE, obs=0, par_indices=(0,)))
     j.add_systematic(JaxDesc(type=SCALE, obs=0, par_indices=(0,)))

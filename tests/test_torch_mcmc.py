@@ -118,18 +118,16 @@ def test_presample_shapes_and_determinism():
 @pytest.mark.parametrize("kw", [dict(nchains=2), dict(rate_substeps=1),
                                 dict(proposal="full_cov")])
 def test_out_of_slice_options_raise(chains, kw):
-    """Options off the port raise; nchains > 1, ported since, pools two
-    lock-step chains chain-major."""
+    """Options once off the port, each ported since, now run: nchains > 1
+    pools two lock-step chains chain-major, rate_substeps takes blocked
+    cycles (nsteps counts cycles), full_cov Haario proposals."""
     _, tmc = chains
-    if kw.get("nchains", 1) > 1:
-        ls = tmc(make_data(), 100, 0.2, generator=torch.Generator(), **kw)
-        assert ls.samples.shape == (2 * 60, tmc.nparameters)
-        assert np.isfinite(ls.samples).all()
-        assert np.isfinite(ls.nll_values).all()
-        assert 0.0 < tmc.last_accept_rate < 1.0
-        return
-    with pytest.raises(NotImplementedError):
-        tmc(make_data(), 100, 0.2, generator=torch.Generator(), **kw)
+    nch = kw.get("nchains", 1)
+    ls = tmc(make_data(), 100, 0.2, generator=torch.Generator(), **kw)
+    assert ls.samples.shape == (nch * 60, tmc.nparameters)
+    assert np.isfinite(ls.samples).all()
+    assert np.isfinite(ls.nll_values).all()
+    assert 0.0 < tmc.last_accept_rate < 1.0
 
 
 def test_fixed_systematics_raise():

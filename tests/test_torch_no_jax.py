@@ -73,11 +73,12 @@ def test_imports_with_jax_blocked_and_cuda_is_explicit(tmp_path):
                                   ["--rate-substeps", "2"], ["--binned"],
                                   ["--sampler", "hmc"]])
 def test_out_of_slice_cli_flags_raise(tmp_path, flag):
-    """Flags off the port raise naming their ROADMAP item; --binned,
-    ported since, runs a binned fit of the golden configuration."""
+    """Flags off the port raise naming their ROADMAP item; --binned and
+    --rate-substeps, ported since, run a binned or a blocked fit of the
+    golden configuration."""
     from sxmc_tpu_torch.cli import main
 
-    if flag == ["--binned"]:
+    if flag in (["--binned"], ["--rate-substeps", "2"]):
         cfg = json.loads((REPO / "tests" / "data" / "golden" /
                           "config.json").read_text())
         cfg["fit"].update(nexperiments=1, nsteps=200, output_format="npz")
@@ -95,3 +96,27 @@ def test_out_of_slice_cli_flags_raise(tmp_path, flag):
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["config.json", str(tmp_path), "--device", "cpu"] + flag)
+
+
+@pytest.mark.parametrize("entry", ["MCMC", "PdfStack", "EvalHist"])
+def test_entry_points_default_to_the_card(entry):
+    """MCMC, PdfStack and EvalHist take the card unless the caller asks
+    for the CPU: without CUDA, constructing one with no device raises
+    (naming --device cpu) instead of quietly running on the CPU."""
+    import torch
+
+    from sxmc_tpu_torch.mcmc.metropolis import MCMC
+    from sxmc_tpu_torch.pdf.evalhist import EvalHist
+    from sxmc_tpu_torch.pdf.stack import PdfStack
+    from test_torch_pdf import make_stack_inputs
+
+    srcs, sigs, systs, obs = make_stack_inputs("sxmc_tpu_torch", n_mc=200)
+    build = {"MCMC": lambda: MCMC(srcs, sigs, systs, obs),
+             "PdfStack": lambda: PdfStack(sigs, obs, systs),
+             "EvalHist": lambda: EvalHist(
+                 np.zeros((4, 1), np.float32), 1, 1, [0.0], [1.0], [2])}
+    if torch.cuda.is_available():
+        assert build[entry]().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        build[entry]()

@@ -72,7 +72,7 @@ def make_data(seed: int = 9, nev: int = 400):
 
 class TestEvalHistGolden:
     def test_evaluation(self):
-        ev = EvalHist(SAMPLES, 1, 1, [0.0], [1.0], [2])
+        ev = EvalHist(SAMPLES, 1, 1, [0.0], [1.0], [2], device="cpu")
         values, norm = ev.eval_points(EVAL_POINTS)
         assert float(norm) == 5.0
         values = values.numpy()
@@ -81,7 +81,8 @@ class TestEvalHistGolden:
                                    rtol=1e-6)
 
     def test_dataset_mismatch_gives_zero(self):
-        ev = EvalHist(SAMPLES, 1, 1, [0.0], [1.0], [2], dataset=1)
+        ev = EvalHist(SAMPLES, 1, 1, [0.0], [1.0], [2], dataset=1,
+                      device="cpu")
         values = ev.eval_points(EVAL_POINTS)[0].numpy()
         assert np.isnan(values[0]) and np.isnan(values[5])
         np.testing.assert_array_equal(values[1:5], 0.0)
@@ -89,7 +90,8 @@ class TestEvalHistGolden:
     def test_row_major_2d(self):
         samples = np.array([[0.1, 0.1], [0.2, 0.7], [0.3, 0.7], [0.6, 1.5],
                             [0.7, 1.5], [0.8, 1.5], [1.5, 0.5]], np.float32)
-        ev = EvalHist(samples, 2, 2, [0.0, 0.0], [1.0, 2.0], [2, 3])
+        ev = EvalHist(samples, 2, 2, [0.0, 0.0], [1.0, 2.0], [2, 3],
+                      device="cpu")
         bins, norm = ev.histogram()
         assert float(norm) == 6.0
         np.testing.assert_array_equal(bins.numpy().reshape(2, 3),
@@ -98,7 +100,7 @@ class TestEvalHistGolden:
     def test_systematic_moves_samples(self):
         from sxmc_tpu_torch.ops.transforms import SHIFT, SystematicDesc
 
-        ev = EvalHist(SAMPLES, 1, 1, [0.0], [1.0], [2])
+        ev = EvalHist(SAMPLES, 1, 1, [0.0], [1.0], [2], device="cpu")
         ev.add_systematic(SystematicDesc(type=SHIFT, obs=0,
                                          par_indices=(0,)))
         bins, norm = ev.histogram([0.2])
@@ -111,7 +113,7 @@ class TestEvalHistGolden:
                                     dict(nbins=[0])])
     def test_validation(self, kw):
         args = dict(samples=SAMPLES, nfields=1, nobservables=1,
-                    lower=[0.0], upper=[1.0], nbins=[2])
+                    lower=[0.0], upper=[1.0], nbins=[2], device="cpu")
         args.update(kw)
         with pytest.raises(PdfError):
             EvalHist(**args)

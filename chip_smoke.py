@@ -33,27 +33,44 @@ from the root of a checkout, on a machine with one Hopper card.  It
           B5 at M = 1 beside it, which prices a rate move against a
           rebuild step;
        B1 through EvalHist.histogram on signal1's 500k rows;
+       B4 fused_segment_tempered: a 500-step segment of an 8-replica
+          ladder (beta from 1 to 1/32), the same checks;
+       the weighted forms, on the example with a log-normal (sigma 0.3)
+          weight per MC row: B1 (and at 10M samples x 1000 bins), B1-
+          batched, B1a (EvalHist.histogram), B3 one chain and 8, B4 one
+          chain and 8, diagonal, tril and tempered: bins equal but where
+          a float64 sum sits on a float32 rounding tie (such bins are
+          counted and printed, at most an ulp apart), decisions and
+          parameters identical (else the first diverging step is
+          printed), |dNLL| <= NLL_TOL;
   4. runs the port's CLI (--device cuda) on the reference example
      (examples/reference_example.json: 2 signals x 500k rows, 10 energy
      bins, a radius cut, scale and resolution systematics) ten times:
      the default fit; "nchains": 8; both systematics fixed; --binned with
      "nchains": 8; "proposal": "full_cov", alone and with 8 chains;
      "rate_substeps": 4, alone and with 8 chains; "rate_substeps": 4
-     with --binned; "proposal": "full_cov" with fixed systematics.
-     Every launch counter is reset just before each run and read just
-     after; each run must launch exactly its path's kernels, end with a
-     finite limit and no failed experiment, and fit sanely.  The runs on
-     the stepper loop (fixed, binned) take fewer steps, printed as a cut;
-     blocked runs also print parameter updates/s;
+     with --binned; "proposal": "full_cov" with fixed systematics; then
+     --sampler tempered (the JAX defaults: 8 replicas up to T = 32, a
+     swap every 10 steps), alone and with fixed systematics; and,
+     through run_ensemble with both signals weighted (the config has no
+     weights key), a weighted fit alone, with 8 chains, with full_cov,
+     with full_cov and 8 chains, and tempered.  Every launch counter is
+     reset just before each run and read just after; each run must
+     launch exactly its path's kernels, end with a finite limit and no
+     failed experiment, and fit sanely.  The runs on the stepper loop
+     (fixed, binned) take fewer steps, printed as a cut; blocked runs
+     also print parameter updates/s; a profiled tempered fit splits its
+     wall into kernel and host time;
   5. prints the kernels' JSON line (every kernel and form: launches on
-     the ten paths, error, times, bound, library time), the card line,
-     and as its last line {"ok": true, "device": {...}}.
+     the paths, error, times, bound, library time), the card line, and
+     as its last line {"ok": true, "device": {...}}.
 
 It exits non-zero, printing no result, when CUDA is unavailable, when
 the package is missing (run from the checkout's root), or when any
 check fails.  It imports nothing of JAX.
 """
 
+import ctypes
 import json
 import math
 import os
@@ -74,6 +91,9 @@ FULL_STEPS = 100_000   # the example's nsteps
 LOOP_STEPS = 20_000    # the stepper-loop paths' cut
 SHORT_STEPS = 2_000    # the cut of the new options' stepper-loop paths
 RATE_SUBSTEPS = 4      # M of the blocked runs (README, bench.py)
+SPLIT_STEPS = 20_000   # the profiled tempered fit (2,000 swap intervals)
+NTEMPS, TMAX, SWAP_EVERY = 8, 32.0, 10  # the tempered sampler's defaults
+WEIGHT_SIGMA = 0.3     # log-normal per-row MC weights of the weighted runs
 
 # The H100 SXM's published peaks: HBM bytes/s
 # and float32 operations/s outside the tensor cores, at 700 W.
@@ -92,7 +112,13 @@ REPLACES = {
     "fused_segment_tril_batched": "sxmc_tpu/ops/pallas_step.py:808",
     "blocked_segment": "sxmc_tpu/ops/pallas_step.py:1239",
     "blocked_segment_batched": "sxmc_tpu/ops/pallas_step.py:1239",
+    "fused_segment_tempered": "sxmc_tpu/ops/pallas_step.py:808",
 }
+# Each weighted form replaces its unweighted form's TPU kernel (the
+# has_weights / has_wrow branches of the same pallas_call).
+REPLACES.update({f"{k}_weighted": v for k, v in list(REPLACES.items())
+                 if k not in ("lut_eval", "blocked_segment",
+                              "blocked_segment_batched")})
 
 
 def fail(msg: str) -> None:
@@ -181,6 +207,12 @@ def binning_ops(hs, nchains: int = 1) -> float:
     return ops * nchains
 
 
+def weight_ops(hs, nchains: int = 1) -> float:
+    """A weighted rebuild's extra operation per binning: the weight is
+    added to the in-domain norm as well as to the bin."""
+    return float(hs.n * nchains) if hs.weighted else 0.0
+
+
 def event_ops(nsig: int, nev: int) -> float:
     """Per event: a multiply, a divide and an add per signal, one log."""
     return nev * (3 * nsig + 1)
@@ -195,6 +227,49 @@ def lut_equal(torch, got, want) -> float:
     err = float((a - b).abs().max()) if a.numel() else 0.0
     check(torch.equal(a, b), f"LUT values differ (max {err})")
     return err
+
+
+def equal_but_ties(torch, got, want, what: str) -> int:
+    """Weighted bins and norms: float64 sums rounded once to float32, so
+    the kernel equals its plain version except where the float64 sum
+    sits on a float32 rounding tie (the two float64 sums, added in
+    another order, fall on either side): such values may be one ulp
+    apart.  Fails on anything else; returns how many differ."""
+    diff = got != want
+    ulp = torch.abs(torch.nextafter(want, torch.full_like(want, math.inf))
+                    - want)
+    check(bool((torch.abs(got - want)[diff] <= ulp[diff]).all()),
+          f"{what}: values differ by more than an ulp")
+    return int(diff.sum())
+
+
+def same_walk(torch, name, got, want):
+    """Identical accept decisions and parameters, |dNLL| <= NLL_TOL;
+    prints and fails at the first diverging step."""
+    s, nl, a = got
+    ps, pnl, pa = want
+    n = s.shape[0]
+    same = ((s == ps).reshape(n, -1).all(1)
+            & (a == pa).reshape(n, -1).all(1))
+    if not bool(same.all()):
+        first = int((~same).nonzero()[0])
+        fail(f"{name}: decisions or parameters diverge at step {first}")
+    err = float((nl.double().sum(-1) - pnl.double().sum(-1)).abs().max())
+    check(err <= NLL_TOL, f"{name}: NLL history differs by {err}")
+    return err
+
+
+def weighted_fit(config_path: str, workdir: str):
+    """The example's fit with both signals weighted: log-normal
+    (sigma WEIGHT_SIGMA) float32 weights per MC row, drawn from a seed."""
+    from sxmc_tpu_torch.fitconfig import FitConfig
+
+    fc = FitConfig.from_json_file(config_path, data_root=workdir)
+    rng = np.random.default_rng(23)
+    for sig in fc.signals:
+        sig.histogram.weights = rng.lognormal(
+            0.0, WEIGHT_SIGMA, sig.n_mc).astype(np.float32)
+    return fc
 
 
 def write_example(workdir: str, nevents: int = 500_000) -> str:
@@ -644,9 +719,250 @@ def check_kernels(torch, kernels, config_path: str, workdir: str):
                      **bound(seg_bytes, SEGMENT_STEPS * nch * (
                          binning_ops(hs) + nsub * event_ops(nsig, nev)))}
     out["lut_eval"] = b2
+
+    # B4-tempered: a ladder of NTEMPS replicas, widened by 1/sqrt(beta).
+    from sxmc_tpu_torch.mcmc.tempered import temperature_ladder
+
+    beta = torch.as_tensor(temperature_ladder(NTEMPS, TMAX), device=dev)
+    params, nll0, width = initial_state(mcmc, rb, NTEMPS)
+    gen = torch.Generator(dev).manual_seed(19)
+    noise = torch.randn((SEGMENT_STEPS, NTEMPS, npar), generator=gen,
+                        device=dev)
+    log_u = torch.log(torch.rand((SEGMENT_STEPS, NTEMPS), generator=gen,
+                                 device=dev))
+    t_args = (params, torch.stack(nll0, dim=-1),
+              width / torch.sqrt(beta)[:, None])
+    out["fused_segment_tempered"] = check_tempered(
+        torch, kernels, "fused_segment_tempered", hs, ns, st, rb, t_args,
+        beta, noise, log_u, sample_bytes, nsig, nev)
+
+    check_weighted(torch, kernels, config_path, workdir, data, out, beta,
+                   noise, log_u)
     for v in out.values():
         v.setdefault("library_ms", None)
     return out
+
+
+def check_tempered(torch, kernels, name, hs, ns, st, rb, t_args, beta,
+                   noise, log_u, sample_bytes, nsig, nev):
+    """B4-tempered (``name``: its unweighted or weighted form) against
+    its plain version, timed."""
+    f4 = 4.0
+    args = (hs, ns, st.samples, st.hist_init, rb) + t_args + (beta, noise,
+                                                              log_u)
+    got = kernels.fused_segment_tempered(*args)
+    want = kernels.fused_segment_plain(*args[:8], noise, log_u, beta=beta)
+    torch.cuda.synchronize()
+    err = same_walk(torch, name, got, want)
+    a = got[2]
+    check(0 < float(a.sum()) < a.numel(), f"{name}: no walk")
+    ms, plain_ms = in_turns(
+        torch, lambda: kernels.fused_segment_plain(*args[:8], noise, log_u,
+                                                   beta=beta),
+        lambda: kernels.fused_segment_tempered(*args), 1, 10)
+    nch, npar = t_args[0].shape
+    seg_bytes = (sample_bytes + f4 * (nsig * hs.total + nsig * nev)
+                 + f4 * nch + f4 * SEGMENT_STEPS * nch * (2 * npar + 4))
+    print(f"B4 {name}, {nch} replicas x {SEGMENT_STEPS} steps: "
+          f"trajectories identical (accept rate by replica "
+          f"{[round(x, 3) for x in a.mean(0).tolist()]}), |dNLL| "
+          f"{err:.3g}; kernel {ms:.4f} ms ({ms / SEGMENT_STEPS * 1e3:.2f} "
+          f"us/step), plain {plain_ms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(seg_bytes, SEGMENT_STEPS * nch * (
+                binning_ops(hs) + weight_ops(hs) + event_ops(nsig, nev)
+                + 1))}
+
+
+def check_weighted(torch, kernels, config_path, workdir, data, out, beta,
+                   noise_t, log_u_t):
+    """Phase 3, weighted: every weighted form against its plain version
+    on the example with weighted signals."""
+    from sxmc_tpu_torch.mcmc.metropolis import MCMC, initial_state
+    from sxmc_tpu_torch.ops.transforms import SHIFT, SystematicDesc
+    from sxmc_tpu_torch.pdf.evalhist import EvalHist
+    from sxmc_tpu_torch.signal import nominal_params
+
+    dev = torch.device("cuda")
+    f4 = 4.0
+    fc = weighted_fit(config_path, workdir)
+    mcmc = MCMC(fc.sources, fc.signals, fc.systematics, fc.observables,
+                device=dev)
+    st = mcmc.stack
+    hs, ns = st.hist_spec, mcmc.nll_spec
+    check(hs.weighted, "the weighted stack's samples carry no weights")
+    st.set_data(data)
+    rb = st.read_bins
+    nsig, nev = rb.shape
+    npar = mcmc.nparameters
+    sample_bytes = f4 * hs.nrows * hs.n
+    hist_names = ("sx_hist_kernel", "sx_to_float")
+    theta = torch.as_tensor(nominal_params(fc.systematics), device=dev)
+    # The grid rule's blocks per SM with float64 replicas in shared
+    # memory (twice the unsigned counts' bytes), beside the unweighted.
+    lib = kernels._library()
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for nch in (1, NCHAINS):
+        grids = []
+        for weighted in (0, 1):
+            nb = ctypes.c_int(0)
+            cs = kernels._c_spec(hs, ns, int(ns.st.nsources))
+            kernels._check_cuda(lib, lib.sx_fused_grid(
+                ctypes.byref(cs), nch, weighted, ctypes.byref(nb)),
+                "sx_fused_grid")
+            grids.append(nb.value // nsm)
+        print(f"B4 grid rule, {nch} chain(s): {grids[0]} blocks per SM "
+              f"unweighted, {grids[1]} weighted")
+
+    def b1_check(name, hs_, x, th, nch, reps):
+        fn = getattr(kernels, name)
+        got = fn(hs_, x, th)
+        want = kernels.segmented_histogram_plain(hs_, x, th)
+        torch.cuda.synchronize()
+        ties = (equal_but_ties(torch, got[0], want[0], f"{name} bins")
+                + equal_but_ties(torch, got[1], want[1], f"{name} norms"))
+        rel = float(((got[0] - want[0]).abs()
+                     / want[0].abs().clamp_min(1e-30)).max())
+        ms, plain_ms = in_turns(
+            torch, lambda: kernels.segmented_histogram_plain(hs_, x, th),
+            lambda: fn(hs_, x, th), 3, reps)
+        dms = device_ms(torch, lambda: fn(hs_, x, th), reps, hist_names)
+        print(f"B1 {name}_weighted, {nch} chain(s), {hs_.ndyn} x "
+              f"{hs_.n // hs_.ndyn} samples, {hs_.total} bins: {ties} "
+              f"bins or norms differ (rounding ties), max relative "
+              f"difference {rel:.3g}; kernel {ms:.4f} ms (on the card "
+              f"{dms} ms), plain {plain_ms:.4f} ms")
+        return {"max_abs_err": float((got[0] - want[0]).abs().max()),
+                "tie_bins": ties, "ms": ms, "plain_ms": plain_ms,
+                "device_ms": dms,
+                **bound(f4 * hs_.nrows * hs_.n
+                        + f4 * nch * hs_.ndyn * (hs_.total + 1),
+                        binning_ops(hs_, nch) + weight_ops(hs_, nch))}
+
+    w1 = b1_check("segmented_histogram", hs, st.samples, theta, 1, 50)
+    # B1 weighted at 10M samples, 1000 bins, one shift systematic.
+    n = 10_000_000
+    gen = torch.Generator(dev).manual_seed(29)
+    x = torch.cat([torch.rand((1, n), generator=gen, device=dev) * 12.0
+                   + 4.0, torch.exp(WEIGHT_SIGMA * torch.randn(
+                       (1, n), generator=gen, device=dev))])
+    hs10 = kernels.HistSpec.build(
+        1, [5.0], [15.0], [1000],
+        [(SystematicDesc(type=SHIFT, obs=0, par_indices=(0,)), (True,))],
+        [0, n], weighted=True)
+    w10 = b1_check("segmented_histogram", hs10, x, torch.as_tensor(
+        [0.0137], device=dev), 1, 20)
+    w1.update(headline_ms=w10["ms"], headline_plain_ms=w10["plain_ms"],
+              headline_device_ms=w10["device_ms"],
+              headline_bound_ms=w10["bound_ms"],
+              headline_tie_bins=w10["tie_bins"])
+    out["segmented_histogram_weighted"] = w1
+    del x
+    gen = torch.Generator(dev).manual_seed(31)
+    thetas = theta + 0.01 * torch.randn((NCHAINS, theta.shape[0]),
+                                        generator=gen, device=dev)
+    out["segmented_histogram_batched_weighted"] = b1_check(
+        "segmented_histogram_batched", hs, st.samples, thetas, NCHAINS, 50)
+
+    # B1a weighted: EvalHist.histogram on signal1's weighted rows.
+    sig = fc.signals[0].histogram
+    ev = EvalHist(sig.samples_host, sig.nfields, sig.nobservables,
+                  sig.lower_host, sig.upper_host, sig.nbins,
+                  dataset=sig.dataset, weights=sig.weights, device=dev)
+    for d in sig.systematics:
+        ev.add_systematic(d)
+    ev_theta = [0.004, -0.0007]
+    ev_hs = ev.hist_spec()
+    got = ev.histogram(ev_theta)
+    want = kernels.segmented_histogram_plain(
+        ev_hs, ev.device_samples(), torch.as_tensor(ev_theta, device=dev))
+    torch.cuda.synchronize()
+    ties = (equal_but_ties(torch, got[0], want[0][0], "B1a weighted bins")
+            + equal_but_ties(torch, got[1], want[1][0], "B1a weighted norm"))
+    ms, plain_ms = in_turns(
+        torch, lambda: kernels.segmented_histogram_plain(
+            ev_hs, ev.device_samples(), torch.as_tensor(ev_theta,
+                                                        device=dev)),
+        lambda: ev.histogram(ev_theta), 5, 50)
+    dms = device_ms(torch, lambda: ev.histogram(ev_theta), 50, hist_names)
+    b1a = bound(f4 * ev_hs.nrows * ev_hs.n + f4 * (ev_hs.total + 1),
+                binning_ops(ev_hs) + weight_ops(ev_hs))
+    print(f"B1a EvalHist.histogram, weighted, {ev_hs.n} rows: {ties} bins "
+          f"or norms differ (rounding ties); kernel {ms:.4f} ms (on the "
+          f"card {dms} ms), plain {plain_ms:.4f} ms, bound "
+          f"{b1a['bound_ms']:.4f} ms ({b1a['bound_by']})")
+
+    # B3 weighted, one chain and 8.
+    p0 = torch.as_tensor(mcmc.parameter_means, device=dev)
+    gen = torch.Generator(dev).manual_seed(37)
+    pc = p0 + 0.02 * torch.randn((NCHAINS, npar), generator=gen,
+                                 device=dev) * torch.as_tensor(
+        [1.0, 1.0, 0.1, 0.01], device=dev)
+    b3_bytes = sample_bytes + f4 * (nsig * hs.total + nsig * nev)
+    for name, p, nch in (("fused_nll", pc[0].contiguous(), 1),
+                         ("fused_nll_batched", pc, NCHAINS)):
+        fn = getattr(kernels, name)
+        args = (hs, ns, st.samples, st.hist_init, rb, p)
+        hi, lo = fn(*args)
+        phi, plo = kernels.fused_nll_plain(*args)
+        torch.cuda.synchronize()
+        err = float((hi.double() + lo.double() - phi.double()
+                     - plo.double()).abs().max())
+        check(err <= NLL_TOL, f"{name}_weighted: NLL differs by {err}")
+        ms, plain_ms = in_turns(torch, lambda: kernels.fused_nll_plain(*args),
+                                lambda: fn(*args), 3, 50)
+        print(f"B3 {name}_weighted, {nch} chain(s): |dNLL| {err:.3g}; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        out[f"{name}_weighted"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(b3_bytes, nch * (binning_ops(hs) + weight_ops(hs)
+                                     + event_ops(nsig, nev)))}
+
+    # B4 weighted: diagonal and tril, one chain and 8, then tempered.
+    for name, nch in (("fused_segment", 1), ("fused_segment_batched",
+                                             NCHAINS),
+                      ("fused_segment_tril", 1),
+                      ("fused_segment_tril_batched", NCHAINS)):
+        params, nll0, width = initial_state(mcmc, rb, nch)
+        nll0 = torch.stack(nll0, dim=-1)
+        if "tril" in name:
+            w = width.clamp_min(0.0)
+            width = (torch.diag_embed(w) + 0.3 * torch.tril(
+                torch.ones((npar, npar), device=dev), -1)
+                * w[..., :, None]).contiguous()
+        gen = torch.Generator(dev).manual_seed(41)
+        lead = (SEGMENT_STEPS,) if nch == 1 else (SEGMENT_STEPS, nch)
+        noise = torch.randn(lead + (npar,), generator=gen, device=dev)
+        log_u = torch.log(torch.rand(lead, generator=gen, device=dev))
+        args = (hs, ns, st.samples, st.hist_init, rb, params, nll0, width,
+                noise, log_u)
+        fn = getattr(kernels, name)
+        got = fn(*args)
+        want = kernels.fused_segment_plain(*args)
+        torch.cuda.synchronize()
+        err = same_walk(torch, f"{name}_weighted", got, want)
+        ms, plain_ms = in_turns(
+            torch, lambda: kernels.fused_segment_plain(*args),
+            lambda: fn(*args), 1, 10)
+        seg_bytes = (sample_bytes + f4 * (nsig * hs.total + nsig * nev)
+                     + f4 * SEGMENT_STEPS * nch * (2 * npar + 4))
+        print(f"B4 {name}_weighted, {nch} chain(s) x {SEGMENT_STEPS} "
+              f"steps: trajectories identical (accept rate "
+              f"{float(got[2].mean()):.3f}), |dNLL| {err:.3g}; kernel "
+              f"{ms:.4f} ms ({ms / SEGMENT_STEPS * 1e3:.2f} us/step), plain "
+              f"{plain_ms:.4f} ms")
+        tril_ops = npar * (npar + 1) if "tril" in name else 0
+        out[f"{name}_weighted"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(seg_bytes, SEGMENT_STEPS * nch * (
+                binning_ops(hs) + weight_ops(hs) + event_ops(nsig, nev)
+                + tril_ops))}
+    params, nll0, width = initial_state(mcmc, rb, NTEMPS)
+    out["fused_segment_tempered_weighted"] = check_tempered(
+        torch, kernels, "fused_segment_tempered_weighted", hs, ns, st, rb,
+        (params, torch.stack(nll0, dim=-1),
+         width / torch.sqrt(beta)[:, None]), beta, noise_t, log_u_t,
+        sample_bytes, nsig, nev)
 
 
 # Per path: the fit's edits, the CLI flags, its step count, and the exact
@@ -684,6 +1000,51 @@ PATHS = [
 ]
 
 
+def tempered_launches(nsteps: int) -> int:
+    """B4-tempered launches of a tempered fit: per phase one per full
+    swap interval and one for the remainder."""
+    nburn = int(nsteps * 0.2)
+    return sum(n // SWAP_EVERY + (n % SWAP_EVERY > 0)
+               for n in (nburn, nburn, nsteps - 2 * nburn) if n)
+
+
+# The paths of the tempered sampler and of weighted MC.  Tempered: B1
+# for the fake data, the initial ladder NLL through B1-batched + B2 (the
+# JAX package's _chain_nll_batch without allow_fused), then one B4-
+# tempered launch per swap interval; with fixed systematics the stepper
+# (B1 + B2 once).  Weighted: run through run_ensemble (the config has no
+# weights key), every kernel in its weighted form.
+TEMPERED = {"sampler": "tempered"}
+WEIGHTED = {"weighted": True}
+PATHS += [
+    ("tempered", TEMPERED, ["--sampler", "tempered"], FULL_STEPS,
+     {"segmented_histogram": 1, "segmented_histogram_batched": 1,
+      "lut_eval": 1, "fused_segment_tempered": tempered_launches(
+          FULL_STEPS)}),
+    ("tempered, fixed systematics", dict(TEMPERED, fixed=True),
+     ["--sampler", "tempered"], SHORT_STEPS,
+     {"segmented_histogram": 2, "lut_eval": 1}),
+    ("weighted", WEIGHTED, [], FULL_STEPS,
+     {"segmented_histogram_weighted": 1, "fused_nll_weighted": 1,
+      "fused_segment_weighted": 3}),
+    ("weighted, nchains=8", dict(WEIGHTED, nchains=NCHAINS), [], FULL_STEPS,
+     {"segmented_histogram_weighted": 1, "fused_nll_batched_weighted": 1,
+      "fused_segment_batched_weighted": 3}),
+    ("weighted, full_cov", dict(WEIGHTED, proposal="full_cov"), [],
+     FULL_STEPS,
+     {"segmented_histogram_weighted": 1, "fused_nll_weighted": 1,
+      "fused_segment_tril_weighted": 3}),
+    ("weighted, full_cov, nchains=8",
+     dict(WEIGHTED, proposal="full_cov", nchains=NCHAINS), [], FULL_STEPS,
+     {"segmented_histogram_weighted": 1, "fused_nll_batched_weighted": 1,
+      "fused_segment_tril_batched_weighted": 3}),
+    ("weighted, tempered", dict(WEIGHTED, **TEMPERED), [], FULL_STEPS,
+     {"segmented_histogram_weighted": 1,
+      "segmented_histogram_batched_weighted": 1, "lut_eval": 1,
+      "fused_segment_tempered_weighted": tempered_launches(FULL_STEPS)}),
+]
+
+
 def path_config(config_path: str, workdir: str, tag: str, edits: dict,
                 nsteps: int) -> str:
     with open(config_path) as f:
@@ -703,22 +1064,32 @@ def path_config(config_path: str, workdir: str, tag: str, edits: dict,
 
 
 def main_paths(torch, kernels, config_path: str, workdir: str):
-    """Phase 4: the ten paths through the CLI, counters around each."""
+    """Phase 4: the paths through the CLI (weighted ones through
+    run_ensemble), counters around each."""
     from sxmc_tpu_torch.cli import main as cli_main
+    from sxmc_tpu_torch.ensemble import run_ensemble
     from sxmc_tpu_torch.stats.likelihood import LikelihoodSpace
 
+    dev = torch.device("cuda")
     results = []
     for tag, edits, flags, nsteps, expect in PATHS:
         if nsteps != FULL_STEPS:
             print(f"{tag}: cut to {nsteps} steps (the example has "
                   f"{FULL_STEPS}): the stepper loop is host-bound")
         m = edits.get("rate_substeps", 0)
+        sampler = edits.get("sampler", "metropolis")
         cfg = path_config(config_path, workdir, tag, edits, nsteps)
         out = os.path.join(workdir, "out_" + os.path.basename(cfg)[:-5])
+        fc = weighted_fit(cfg, workdir) if edits.get("weighted") else None
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        rc = cli_main([cfg, out, "--data-root", workdir, "--device", "cuda",
-                       "--max-retries", "0"] + flags)
+        if fc is None:
+            rc = cli_main([cfg, out, "--data-root", workdir, "--device",
+                           "cuda", "--max-retries", "0"] + flags)
+        else:
+            limits = run_ensemble(fc, out, device=dev, sampler=sampler,
+                                  max_retries=0, verbose=False)
+            rc = 0 if len(limits) == 1 else 1
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
@@ -744,7 +1115,8 @@ def main_paths(torch, kernels, config_path: str, workdir: str):
         # rate sits near 1 (about 1000 expected events, ~5% statistical).
         check(0.7 < best["signal1"] < 1.3,
               f"{tag}: best-fit signal1 {best['signal1']}")
-        nch = edits.get("nchains", 1)
+        # The tempered sampler returns its cold chain alone.
+        nch = edits.get("nchains", 1) if sampler == "metropolis" else 1
         nkeep = nsteps - 2 * int(nsteps * 0.2)
         ls = LikelihoodSpace.load(os.path.join(out, "example_0.npz"))
         check(ls.samples.shape == (nch * nkeep, 4)
@@ -757,21 +1129,76 @@ def main_paths(torch, kernels, config_path: str, workdir: str):
         # bench.py's mcmc_updates_per_sec_blocked: every decision of a
         # blocked cycle updates a block of parameters.
         updates = fit["steps_per_sec"] * (m + 1) if m else None
+        # A ladder step advances every replica.
+        replica = (fit["steps_per_sec"] * NTEMPS if sampler == "tempered"
+                   else None)
         print(f"path {tag}: limit {limits[0]:.6g}, best fit {best}, accept "
               f"rate {fit['accept_rate']:.4f}, {nsteps} "
               f"{'cycles' if m else 'steps'} x {nch} chain(s) in "
               f"{fit['wall_seconds']:.3f} s = {fit['steps_per_sec']!r} "
               f"chain-{'cycles' if m else 'steps'}/s"
               + (f" ({updates!r} parameter updates/s)" if m else "")
-              + f", whole CLI run {wall:.2f} s; launches {counts}")
+              + (f" ({replica!r} replica-steps/s)" if replica else "")
+              + f", whole run {wall:.2f} s; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
         results.append({"path": tag, "nsteps": nsteps, "nchains": nch,
                         "steps_per_sec": fit["steps_per_sec"],
                         "updates_per_sec": updates,
+                        "replica_steps_per_sec": replica,
                         "wall_seconds": fit["wall_seconds"],
                         "cli_seconds": wall, "limit": limits[0],
                         "accept_rate": fit["accept_rate"],
                         "launches": counts})
     return results
+
+
+def tempered_split(torch, config_path: str, workdir: str) -> dict:
+    """The tempered fit's wall against its device time: the example at
+    its full width through TemperedMCMC (SPLIT_STEPS steps), once on the
+    host clock alone and once under torch.profiler (kernel times only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sxmc_tpu_torch.fitconfig import FitConfig
+    from sxmc_tpu_torch.generator import make_fake_dataset
+    from sxmc_tpu_torch.mcmc.tempered import TemperedMCMC
+
+    dev = torch.device("cuda")
+    fc = FitConfig.from_json_file(config_path, data_root=workdir)
+    tmc = TemperedMCMC(fc.sources, fc.signals, fc.systematics,
+                       fc.observables, ntemps=NTEMPS, tmax=TMAX,
+                       swap_every=SWAP_EVERY, device=dev)
+    data = make_fake_dataset(torch.Generator().manual_seed(3), fc.signals,
+                             fc.systematics, fc.observables, stack=tmc.stack)
+
+    def fit():
+        tmc(data, SPLIT_STEPS, 0.2,
+            generator=torch.Generator(dev).manual_seed(5))
+        torch.cuda.synchronize()
+
+    fit()  # warm
+    t0 = time.perf_counter()
+    fit()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fit()
+    kern = other = 0.0
+    for ev in prof.key_averages():
+        us = (getattr(ev, "device_time_total", None)
+              or getattr(ev, "cuda_time_total", 0.0))
+        if "sx_fused_kernel" in ev.key:
+            kern += us / 1e6
+        else:
+            other += us / 1e6
+    intervals = tempered_launches(SPLIT_STEPS)
+    print(f"tempered fit, {SPLIT_STEPS} steps x {NTEMPS} replicas "
+          f"({intervals} B4-tempered launches): wall {wall:.3f} s, "
+          f"B4-tempered on the card {kern:.3f} s "
+          f"({kern / intervals * 1e3:.4f} ms a swap interval), other "
+          f"kernels (exchange, copies) {other:.3f} s, the card idle "
+          f"{max(wall - kern - other, 0.0):.3f} s "
+          f"({max(wall - kern - other, 0.0) / wall:.2%} of the wall)")
+    return {"wall_s": wall, "kernel_s": kern, "other_device_s": other,
+            "intervals": intervals}
 
 
 def main() -> int:
@@ -813,6 +1240,7 @@ def main() -> int:
         config_path = write_example(workdir)
         measured = check_kernels(torch, kernels, config_path, workdir)
         paths = main_paths(torch, kernels, config_path, workdir)
+        split = tempered_split(torch, config_path, workdir)
 
     rows = []
     for name, replaces in REPLACES.items():
@@ -826,9 +1254,12 @@ def main() -> int:
     for p in paths:
         extra = (f", {p['updates_per_sec']!r} parameter updates/s"
                  if p["updates_per_sec"] else "")
+        if p["replica_steps_per_sec"]:
+            extra += f", {p['replica_steps_per_sec']!r} replica-steps/s"
         print(f"path {p['path']}: {p['steps_per_sec']!r} chain-steps/s "
               f"({p['nsteps']} steps x {p['nchains']} chain(s){extra}) on "
               f"{smi}")
+    print(json.dumps({"tempered_split": split}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@
 from the root of a checkout, on a machine with one Hopper card.  On the
 reference example's layout (``chip_smoke.write_example``: 2 signals x
 500k MC rows, 10 bins, scale and resolution systematics) it runs one B4
-segment of lock-step chains through the C entry ``sx_fused`` with the
+segment of lock-step chains through the C entry ``sx_fused`` (its
+unweighted diagonal form) with the
 cooperative grid set by hand to 1, 2, 3 and 4 blocks per SM (in the
 order 1, 2, 3, 4, 4, 3, 2, 1), and once with the grid that
 ``sx_fused_grid``'s rule picks.  It checks that every grid takes the
@@ -58,7 +59,7 @@ def main() -> int:
     lib = kernels._library()
     cs = kernels._c_spec(hs, ns, int(ns.st.nsources))
     rule = ctypes.c_int(0)
-    kernels._check_cuda(lib, lib.sx_fused_grid(ctypes.byref(cs), nch,
+    kernels._check_cuda(lib, lib.sx_fused_grid(ctypes.byref(cs), nch, 0,
                                                ctypes.byref(rule)),
                         "sx_fused_grid")
     nsm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -72,10 +73,10 @@ def main() -> int:
 
     def launch(nblocks):
         err = lib.sx_fused(
-            ctypes.byref(cs), nch, p(st.samples), p(st.hist_init), p(rb),
-            rb.shape[1], p(params), p(nll0), p(width), p(noise), p(log_u), n,
-            0, p(scratch), p(partials), nblocks, p(s_out), p(n_out),
-            p(a_out), kernels._stream(dev))
+            ctypes.byref(cs), nch, 0, p(st.samples), p(st.hist_init), p(rb),
+            rb.shape[1], p(params), p(nll0), p(width), None, p(noise),
+            p(log_u), n, 0, p(scratch), p(partials), nblocks, p(s_out),
+            p(n_out), p(a_out), kernels._stream(dev))
         kernels._check_cuda(lib, err, f"sx_fused on {nblocks} blocks")
 
     launch(rule.value)

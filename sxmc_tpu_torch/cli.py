@@ -35,7 +35,9 @@ def main(argv=None) -> int:
     parser.add_argument("--sampler", default="metropolis",
                         choices=["metropolis", "hmc", "nuts", "stretch",
                                  "tempered", "mle"],
-                        help="only metropolis is ported")
+                        help="metropolis, or tempered (parallel-tempered "
+                             "replica exchange for multimodal posteriors); "
+                             "the others are not ported")
     not_ported = {
         "sharded": "ROADMAP queue A, item 14",
         "hypotest": "ROADMAP queue A, item 10",
@@ -75,10 +77,11 @@ def main(argv=None) -> int:
     if asked:
         raise NotImplementedError(
             "not ported to sxmc_tpu_torch yet: " + "; ".join(asked))
-    if args.sampler != "metropolis":
+    if args.sampler in ("hmc", "nuts", "stretch", "mle"):
+        item = "10" if args.sampler == "mle" else "11"
         raise NotImplementedError(
             f"--sampler {args.sampler} is not ported to sxmc_tpu_torch yet "
-            "(ROADMAP queue A, items 9-11)")
+            f"(ROADMAP queue A, item {item})")
     device = resolve_device(args.device)
 
     from sxmc_tpu_torch.ensemble import main_fit
@@ -86,7 +89,7 @@ def main(argv=None) -> int:
     main_fit(args.config, args.output_path, device=device,
              resume=args.resume, data_root=args.data_root,
              max_retries=args.max_retries, binned=args.binned,
-             rate_substeps=args.rate_substeps)
+             rate_substeps=args.rate_substeps, sampler=args.sampler)
     return 0
 
 

@@ -3,17 +3,22 @@
 //
 // B1  sx_histogram     replaces sxmc_tpu/ops/pallas_hist.py::
 //                      pallas_histogram_segmented, single-theta form
-//                      (nchains == 1) and batched theta (nchains, npar).
+//                      (nchains == 1) and batched theta (nchains, npar),
+//                      unweighted and weighted; with one segment it also
+//                      serves pallas_histogram (B1a).
 // B2  sx_eval_lut      replaces sxmc_tpu/ops/pallas_hist.py::
 //                      pallas_eval_lut.
 // B3  sx_fused (nsteps == 0)
 //                      replaces sxmc_tpu/ops/pallas_step.py::
-//                      pallas_fused_step, single and batched chains.
-// B4  sx_fused (nsteps > 0), sx_fused_tril
+//                      pallas_fused_step, single and batched chains,
+//                      unweighted and weighted.
+// B4  sx_fused (nsteps > 0)
 //                      replaces sxmc_tpu/ops/pallas_step.py::
 //                      pallas_fused_segment, single-chain and batched
 //                      (lock-step chains) forms, diagonal and tril
-//                      (full-covariance) proposals.
+//                      (full-covariance) proposals, tempered (a per-chain
+//                      inverse temperature in the accept), each
+//                      unweighted and weighted.
 // B5  sx_blocked       replaces sxmc_tpu/ops/pallas_step.py::
 //                      pallas_fused_segment_blocked, single-chain and
 //                      batched forms.
@@ -68,6 +73,17 @@
 // every block reduces every chain's partials and takes every chain's
 // decision.
 //
+// Weighted forms (a float32 weight per MC row): bins and norms sum the
+// weights in float64 (shared and global atomics, native on sm_90) and
+// are rounded once to float32 where they are read, so the order the
+// atomics land in moves a sum by ~1e-16 relative and the float32 value
+// equals the plain version's (index_add_ in float64, then rounded) but
+// on a rounding tie.  The TPU accumulated float32 one-hot products and
+// carried the norms as compensated float32 pairs; neither is needed on
+// a card with native float64 atomics.  The f64 replicas take twice the
+// shared memory of the unsigned counts; when they do not fit the budget
+// the atomics go to global memory, as for large unweighted histograms.
+//
 // B5 -- what bounds it.  A blocked cycle is one B4 step for the
 // systematic block and then M rate moves, each a pass over the events
 // against the carried histogram: at the example's 1500 events a rate
@@ -78,6 +94,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <initializer_list>
+
 #include "sxmc_phases.cuh"
 
 namespace cg = cooperative_groups;
@@ -87,19 +105,26 @@ namespace cg = cooperative_groups;
 // gets without an opt-in.
 static const int kSmemBudget = 36 * 1024;
 
+// Bytes of one histogram cell or norm: an unsigned count, or a float64
+// weight sum.
+static int sx_cell_bytes(bool weighted) { return weighted ? 8 : 4; }
+
 // Shared-memory histogram replicas (each holding all nchains chains)
 // that fit the budget (0: use global).
-static int sx_replicas(const SxSpec& sp, int nchains) {
-  const long long per = 4LL * nchains * sp.ndyn * sp.total;
-  const long long norm = 4LL * nchains * sp.ndyn;
+static int sx_replicas(const SxSpec& sp, int nchains, bool weighted) {
+  const long long eb = sx_cell_bytes(weighted);
+  const long long per = eb * nchains * sp.ndyn * sp.total;
+  const long long norm = eb * nchains * sp.ndyn;
   if (per == 0 || per + norm > kSmemBudget) return 0;
   long long r = (kSmemBudget - norm) / per;
   const int warps = SX_THREADS / 32;
   return (int)(r < warps ? r : warps);
 }
 
-static int sx_smem_bytes(const SxSpec& sp, int nchains, int nrep) {
-  return 4 * nchains * (nrep * sp.ndyn * sp.total + sp.ndyn);
+static int sx_smem_bytes(const SxSpec& sp, int nchains, int nrep,
+                         bool weighted) {
+  return sx_cell_bytes(weighted) * nchains *
+         (nrep * sp.ndyn * sp.total + sp.ndyn);
 }
 
 static cudaError_t sx_num_sms(int* nsm) {
@@ -111,25 +136,34 @@ static cudaError_t sx_num_sms(int* nsm) {
 
 // ---------------------------------------------------------------- B1
 
-template <bool kChains>
+// Every kernel's dynamic shared memory: histogram replicas and norms,
+// unsigned or float64 (hence the 8-byte alignment).
+#define SX_DYN_SMEM(Acc, name)                         \
+  extern __shared__ __align__(8) unsigned sx_smem[];   \
+  Acc* name = reinterpret_cast<Acc*>(sx_smem)
+
+template <bool kChains, bool kW>
 __global__ void __launch_bounds__(SX_THREADS)
 sx_hist_kernel(const SxSpec sp, const float* __restrict__ samples,
                const float* __restrict__ par, int nchains, int pstride,
-               unsigned* g_hist, unsigned* g_norm, int nrep) {
-  extern __shared__ unsigned sh[];
+               SxAcc<kW>* g_hist, SxAcc<kW>* g_norm, int nrep) {
+  using Acc = SxAcc<kW>;
+  SX_DYN_SMEM(Acc, sh);
   const int nh = nchains * sp.ndyn * sp.total;
-  unsigned* sh_norm = sh + nrep * nh;
+  Acc* sh_norm = sh + nrep * nh;
   for (int t = threadIdx.x; t < nrep * nh + nchains * sp.ndyn;
        t += blockDim.x)
-    sh[t] = 0u;
+    sh[t] = Acc(0);
   __syncthreads();
-  sx_accumulate<kChains>(sp, samples, par, nchains, pstride, sh, sh_norm,
-                         g_hist, nrep);
+  sx_accumulate<kChains, false, kW>(sp, samples, par, nchains, pstride, sh,
+                                    sh_norm, g_hist, nrep);
   __syncthreads();
-  sx_flush(sp, nchains, sh, sh_norm, nrep, g_hist, g_norm);
+  sx_flush<false, kW>(sp, nchains, sh, sh_norm, nrep, g_hist, g_norm);
 }
 
-__global__ void sx_to_float(const unsigned* __restrict__ in,
+// Counts or float64 sums -> float32 (round to nearest, once).
+template <class Acc>
+__global__ void sx_to_float(const Acc* __restrict__ in,
                             float* __restrict__ out, int n) {
   for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < n;
        t += gridDim.x * blockDim.x)
@@ -192,7 +226,19 @@ __global__ void sx_eval_lut_kernel(const float* __restrict__ counts,
 // chain's lower-triangular L (nchains, npar, npar), read from global
 // memory (32 chains x 16 parameters would not fit the static shared
 // arrays).  The diagonal instantiations do not contain that code.
-template <bool kChains, bool kTril>
+//
+// kW: weighted MC samples (see sx_accumulate); scratch holds float64
+// histograms and norms.
+//
+// kTemp: parallel tempering, each chain c a replica at inverse
+// temperature beta[c]: the accept takes delta = beta[c] * ((cur_hi -
+// hi) + (cur_lo - lo)) (pallas_step.py:782-786); beta > 0 keeps the sign,
+// so the fast-accept branch is unchanged.  The 1/sqrt(beta) widening of
+// the proposals is in the width rows the caller passes.
+//
+// Each flag is a template parameter, so that the forms without it
+// compile to what they were before it existed.
+template <bool kChains, bool kTril, bool kW, bool kTemp>
 __global__ void __launch_bounds__(SX_THREADS, 4)
 sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
                 const float* __restrict__ hist_init,
@@ -200,13 +246,15 @@ sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
                 const float* __restrict__ params0,
                 const float* __restrict__ nll0,
                 const float* __restrict__ width,
+                const float* __restrict__ beta,
                 const float* __restrict__ noise,
                 const float* __restrict__ log_u, int nsteps, int debug,
-                unsigned* scratch, double* partials, float* samples_out,
+                SxAcc<kW>* scratch, double* partials, float* samples_out,
                 float* nlls_out, float* acc_out, int nrep) {
+  using Acc = SxAcc<kW>;
   if (!kChains) nch = 1;  // lets the compiler fold the chain loops away
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ unsigned sh[];
+  SX_DYN_SMEM(Acc, sh);
   __shared__ float s_cur[SX_MAXCP];
   __shared__ float s_prop[SX_MAXCP];
   __shared__ float s_w[SX_MAXCS];
@@ -224,7 +272,7 @@ sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
   const int ncp = nch * np;
   const int nh = nch * sp.ndyn * sp.total;  // every chain's histograms
   const int buf = nh + nch * sp.ndyn;       // one buffer + its norms
-  unsigned* sh_norm = sh + nrep * nh;
+  Acc* sh_norm = sh + nrep * nh;
   const long long gtid = (long long)blockIdx.x * blockDim.x + tid;
   const long long gstride = (long long)gridDim.x * blockDim.x;
   const bool eval_only = nsteps == 0;
@@ -236,9 +284,9 @@ sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
   __syncthreads();
 
   for (int s = 0; s < nrun; ++s) {
-    unsigned* cur_hist = scratch + (s & 1) * buf;
-    unsigned* cur_norm = cur_hist + nh;
-    unsigned* next_hist = scratch + ((s + 1) & 1) * buf;
+    Acc* cur_hist = scratch + (s & 1) * buf;
+    Acc* cur_norm = cur_hist + nh;
+    Acc* next_hist = scratch + ((s + 1) & 1) * buf;
 
     // Propose.  Entry t is parameter t % np of chain t / np.
     for (int t = tid; t < ncp; t += blockDim.x) {
@@ -264,16 +312,16 @@ sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
       }
     }
     for (int t = tid; t < nrep * nh + nch * sp.ndyn; t += blockDim.x)
-      sh[t] = 0u;
+      sh[t] = Acc(0);
     // The buffer of step s - 1 is free again: clear it for step s + 1.
-    for (long long t = gtid; t < buf; t += gstride) next_hist[t] = 0u;
+    for (long long t = gtid; t < buf; t += gstride) next_hist[t] = Acc(0);
     __syncthreads();
 
     // Rebuild every chain's dynamic histograms at its proposal.
-    sx_accumulate<kChains>(sp, samples, s_prop, nch, np, sh, sh_norm,
-                           cur_hist, nrep);
+    sx_accumulate<kChains, false, kW>(sp, samples, s_prop, nch, np, sh,
+                                      sh_norm, cur_hist, nrep);
     __syncthreads();
-    sx_flush(sp, nch, sh, sh_norm, nrep, cur_hist, cur_norm);
+    sx_flush<false, kW>(sp, nch, sh, sh_norm, nrep, cur_hist, cur_norm);
     grid.sync();
 
     sx_weights(sp, nch, s_prop,
@@ -298,9 +346,10 @@ sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
           }
         } else {
           // df_diff's op order, then the log-space accept of the TPU
-          // kernel: log(u) <= delta (pallas_step.py:782-792).
-          const float delta =
-              (s_pair[2 * c] - hi) + (s_pair[2 * c + 1] - lo);
+          // kernel: log(u) <= delta (pallas_step.py:782-792), delta
+          // annealed by the replica's beta when tempered.
+          float delta = (s_pair[2 * c] - hi) + (s_pair[2 * c + 1] - lo);
+          if constexpr (kTemp) delta = beta[c] * delta;
           const bool a = debug || delta > 0.0f ||
                          log_u[(long long)s * nch + c] <= delta;
           s_accept[c] = a ? 1 : 0;
@@ -368,7 +417,7 @@ sx_blocked_kernel(const SxSpec sp, int nch,
                   int nrep) {
   if (!kChains) nch = 1;
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ unsigned sh[];
+  SX_DYN_SMEM(unsigned, sh);
   __shared__ float s_cur[SX_MAXCP];
   __shared__ float s_prop[SX_MAXCP];
   __shared__ float s_w[SX_MAXCS];
@@ -503,18 +552,40 @@ sx_blocked_kernel(const SxSpec sp, int nch,
 }
 
 // Each kernel is built once per form: one chain (kChains = false) or
-// lock-step chains, and for B4 diagonal or tril proposals.
-static const void* sx_hist_fn(int nchains) {
-  return nchains == 1 ? (const void*)sx_hist_kernel<false>
-                      : (const void*)sx_hist_kernel<true>;
+// lock-step chains, unweighted or weighted, and for B4 diagonal, tril or
+// tempered (diagonal) proposals.
+static const void* sx_hist_fn(int nchains, bool w) {
+  if (w)
+    return nchains == 1 ? (const void*)sx_hist_kernel<false, true>
+                        : (const void*)sx_hist_kernel<true, true>;
+  return nchains == 1 ? (const void*)sx_hist_kernel<false, false>
+                      : (const void*)sx_hist_kernel<true, false>;
 }
 
-static const void* sx_fused_fn(int nchains, bool tril) {
-  if (tril)
-    return nchains == 1 ? (const void*)sx_fused_kernel<false, true>
-                        : (const void*)sx_fused_kernel<true, true>;
-  return nchains == 1 ? (const void*)sx_fused_kernel<false, false>
-                      : (const void*)sx_fused_kernel<true, false>;
+// B3/B4 forms (bits of form): tril proposals, weighted samples, tempered
+// replicas.  Tempered proposals are diagonal.
+#define SX_TRIL 1
+#define SX_WEIGHTED 2
+#define SX_TEMPERED 4
+
+template <bool kChains, bool kW>
+static const void* sx_fused_fn_w(int form) {
+  if (form & SX_TEMPERED)
+    return (form & SX_TRIL)
+               ? nullptr
+               : (const void*)sx_fused_kernel<kChains, false, kW, true>;
+  return (form & SX_TRIL)
+             ? (const void*)sx_fused_kernel<kChains, true, kW, false>
+             : (const void*)sx_fused_kernel<kChains, false, kW, false>;
+}
+
+static const void* sx_fused_fn(int nchains, int form) {
+  const bool w = (form & SX_WEIGHTED) != 0;
+  if (nchains == 1)
+    return w ? sx_fused_fn_w<false, true>(form)
+             : sx_fused_fn_w<false, false>(form);
+  return w ? sx_fused_fn_w<true, true>(form)
+           : sx_fused_fn_w<true, false>(form);
 }
 
 static const void* sx_blocked_fn(int nchains) {
@@ -523,11 +594,12 @@ static const void* sx_blocked_fn(int nchains) {
 }
 
 // Blocks of fn resident on one SM with this spec's shared memory.
-static cudaError_t sx_occupancy(const SxSpec& sp, int nchains,
+static cudaError_t sx_occupancy(const SxSpec& sp, int nchains, bool weighted,
                                 const void* fn, int* occ) {
-  const int nrep = sx_replicas(sp, nchains);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  const int nrep = sx_replicas(sp, nchains, weighted);
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      occ, fn, SX_THREADS, sx_smem_bytes(sp, nchains, nrep));
+      occ, fn, SX_THREADS, sx_smem_bytes(sp, nchains, nrep, weighted));
 }
 
 // The grid rule of the persistent kernels (B4 and B5), given the blocks
@@ -558,12 +630,14 @@ static cudaError_t sx_grid_rule(const SxSpec& sp, int nchains, int occ,
 // Launch a persistent cooperative kernel fn on nblocks blocks, which must
 // all be resident at once.
 static cudaError_t sx_cooperative(const SxSpec& sp, int nchains,
-                                  const void* fn, int nblocks, void** args,
-                                  int smem, cudaStream_t st) {
+                                  bool weighted, const void* fn,
+                                  int nblocks, void** args, int smem,
+                                  cudaStream_t st) {
   int nsm = 0, occ = 0;
   cudaError_t err = sx_num_sms(&nsm);
   if (err != cudaSuccess) return err;
-  if ((err = sx_occupancy(sp, nchains, fn, &occ)) != cudaSuccess) return err;
+  if ((err = sx_occupancy(sp, nchains, weighted, fn, &occ)) != cudaSuccess)
+    return err;
   if (nblocks < 1 || nblocks > nsm * occ)
     return cudaErrorCooperativeLaunchTooLarge;
   err = cudaLaunchCooperativeKernel(fn, dim3(nblocks), dim3(SX_THREADS),
@@ -577,35 +651,6 @@ static bool sx_chains_fit(const SxSpec& sp, int nchains) {
          nchains * sp.npar <= SX_MAXCP && nchains * sp.nsig <= SX_MAXCS;
 }
 
-// B3/B4 for both proposal forms.
-static int sx_fused_launch(const SxSpec* sp, int nchains, bool tril,
-                           const float* samples, const float* hist_init,
-                           const int* rb, int nev, const float* params0,
-                           const float* nll0, const float* width,
-                           const float* noise, const float* log_u,
-                           int nsteps, int debug, unsigned* scratch,
-                           double* partials, int nblocks,
-                           float* samples_out, float* nlls_out,
-                           float* acc_out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (!sx_chains_fit(*sp, nchains)) return cudaErrorInvalidValue;
-  const int buf = nchains * (sp->ndyn * sp->total + sp->ndyn);
-  cudaError_t err =
-      cudaMemsetAsync(scratch, 0, 2 * sizeof(unsigned) * buf, st);
-  if (err != cudaSuccess) return err;
-  int nrep = sx_replicas(*sp, nchains);
-  SxSpec spv = *sp;
-  void* args[] = {(void*)&spv,      (void*)&nchains,  (void*)&samples,
-                  (void*)&hist_init, (void*)&rb,      (void*)&nev,
-                  (void*)&params0,  (void*)&nll0,     (void*)&width,
-                  (void*)&noise,    (void*)&log_u,    (void*)&nsteps,
-                  (void*)&debug,    (void*)&scratch,  (void*)&partials,
-                  (void*)&samples_out, (void*)&nlls_out, (void*)&acc_out,
-                  (void*)&nrep};
-  return sx_cooperative(*sp, nchains, sx_fused_fn(nchains, tril), nblocks,
-                        args, sx_smem_bytes(*sp, nchains, nrep), st);
-}
-
 // ------------------------------------------------------ C interface
 
 extern "C" {
@@ -616,39 +661,57 @@ const char* sx_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// B1: par holds nchains parameter vectors pstride apart.  scratch holds
-// nchains * (ndyn * total + ndyn) unsigned ints; out as many float32:
-// the (nchains, ndyn, total) counts, then the (nchains, ndyn) in-domain
-// counts.
-int sx_histogram(const SxSpec* sp, int nchains, const float* samples,
-                 const float* par, int pstride, unsigned* scratch,
-                 float* out, void* stream) {
+// B1: par holds nchains parameter vectors pstride apart; weighted
+// samples carry their weight row after the nfields fields.  scratch
+// holds nchains * (ndyn * total + ndyn) unsigned ints (float64 when
+// weighted); out as many float32: the (nchains, ndyn, total) counts,
+// then the (nchains, ndyn) in-domain counts (weight sums when weighted).
+int sx_histogram(const SxSpec* sp, int nchains, int weighted,
+                 const float* samples, const float* par, int pstride,
+                 void* scratch, float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (nchains < 1 || nchains > SX_MAXCHAINS) return cudaErrorInvalidValue;
+  const bool w = weighted != 0;
   const int nh = nchains * sp->ndyn * sp->total;
   const int nall = nh + nchains * sp->ndyn;
-  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(unsigned) * nall, st);
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, (size_t)sx_cell_bytes(w) * nall, st);
   if (err != cudaSuccess) return err;
-  const int nrep = sx_replicas(*sp, nchains);
-  const int smem = sx_smem_bytes(*sp, nchains, nrep);
+  const int nrep = sx_replicas(*sp, nchains, w);
+  const int smem = sx_smem_bytes(*sp, nchains, nrep, w);
   int nsm = 0, occ = 0;
   if ((err = sx_num_sms(&nsm)) != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &occ, sx_hist_fn(nchains), SX_THREADS, smem);
+      &occ, sx_hist_fn(nchains, w), SX_THREADS, smem);
   if (err != cudaSuccess) return err;
   if (occ < 1) return cudaErrorInvalidConfiguration;
   const long long n = sp->seg_off[sp->ndyn];
   long long blocks = (long long)nsm * (occ < 4 ? occ : 4);
   const long long need = (n + SX_THREADS - 1) / SX_THREADS;
   if (need < blocks) blocks = need > 0 ? need : 1;
-  if (nchains == 1)
-    sx_hist_kernel<false><<<(int)blocks, SX_THREADS, smem, st>>>(
-        *sp, samples, par, 1, pstride, scratch, scratch + nh, nrep);
-  else
-    sx_hist_kernel<true><<<(int)blocks, SX_THREADS, smem, st>>>(
-        *sp, samples, par, nchains, pstride, scratch, scratch + nh, nrep);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  sx_to_float<<<(nall + 255) / 256, 256, 0, st>>>(scratch, out, nall);
+  const int nb = (int)blocks;
+  const int cb = (nall + 255) / 256;
+  if (w) {
+    double* acc = static_cast<double*>(scratch);
+    if (nchains == 1)
+      sx_hist_kernel<false, true><<<nb, SX_THREADS, smem, st>>>(
+          *sp, samples, par, 1, pstride, acc, acc + nh, nrep);
+    else
+      sx_hist_kernel<true, true><<<nb, SX_THREADS, smem, st>>>(
+          *sp, samples, par, nchains, pstride, acc, acc + nh, nrep);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    sx_to_float<double><<<cb, 256, 0, st>>>(acc, out, nall);
+  } else {
+    unsigned* acc = static_cast<unsigned*>(scratch);
+    if (nchains == 1)
+      sx_hist_kernel<false, false><<<nb, SX_THREADS, smem, st>>>(
+          *sp, samples, par, 1, pstride, acc, acc + nh, nrep);
+    else
+      sx_hist_kernel<true, false><<<nb, SX_THREADS, smem, st>>>(
+          *sp, samples, par, nchains, pstride, acc, acc + nh, nrep);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    sx_to_float<unsigned><<<cb, 256, 0, st>>>(acc, out, nall);
+  }
   return cudaGetLastError();
 }
 
@@ -669,69 +732,79 @@ int sx_eval_lut(const float* counts, const float* norms, const int* rb,
   return cudaGetLastError();
 }
 
-// Grid size of sx_fused (either proposal form) for this spec and chain
-// count: the number of partial slots per chain (sx_grid_rule).
-int sx_fused_grid(const SxSpec* sp, int nchains, int* nblocks) {
-  int occ = 0, occ_tril = 0;
-  cudaError_t err = sx_occupancy(*sp, nchains, sx_fused_fn(nchains, false),
-                                 &occ);
-  if (err != cudaSuccess) return err;
-  err = sx_occupancy(*sp, nchains, sx_fused_fn(nchains, true), &occ_tril);
-  if (err != cudaSuccess) return err;
-  return sx_grid_rule(*sp, nchains, occ < occ_tril ? occ : occ_tril,
-                      nblocks);
+// Grid size of sx_fused (every proposal form of this weightedness) for
+// this spec and chain count: the number of partial slots per chain
+// (sx_grid_rule).
+int sx_fused_grid(const SxSpec* sp, int nchains, int weighted,
+                  int* nblocks) {
+  const bool w = weighted != 0;
+  const int base = w ? SX_WEIGHTED : 0;
+  int occ = 0x7fffffff;
+  for (int form : {base, base | SX_TRIL, base | SX_TEMPERED}) {
+    int o = 0;
+    cudaError_t err =
+        sx_occupancy(*sp, nchains, w, sx_fused_fn(nchains, form), &o);
+    if (err != cudaSuccess) return err;
+    if (o < occ) occ = o;
+  }
+  return sx_grid_rule(*sp, nchains, occ, nblocks);
 }
 
 // B3 (nsteps == 0: NLL of each chain at params0 into nlls_out (nchains,
 // 2)) and B4 (nsteps > 0: a whole fixed-width segment; histories
 // (nsteps, nchains, npar), (nsteps, nchains, 2), (nsteps, nchains)).
-// width is (nchains, npar).  scratch holds 2 * nchains * (ndyn * total +
-// ndyn) unsigned ints, partials nchains * nblocks doubles
-// (sx_fused_grid).
-int sx_fused(const SxSpec* sp, int nchains, const float* samples,
+// form: SX_TRIL (width the (nchains, npar, npar) lower-triangular
+// scales, else (nchains, npar) widths), SX_WEIGHTED (the samples carry
+// their weight row), SX_TEMPERED (beta the (nchains,) inverse
+// temperatures; else beta is unused).  scratch holds 2 * nchains *
+// (ndyn * total + ndyn) unsigned ints (float64 when weighted), partials
+// nchains * nblocks doubles (sx_fused_grid).
+int sx_fused(const SxSpec* sp, int nchains, int form, const float* samples,
              const float* hist_init, const int* rb, int nev,
              const float* params0, const float* nll0, const float* width,
-             const float* noise, const float* log_u, int nsteps, int debug,
-             unsigned* scratch, double* partials, int nblocks,
-             float* samples_out, float* nlls_out, float* acc_out,
-             void* stream) {
-  return sx_fused_launch(sp, nchains, false, samples, hist_init, rb, nev,
-                         params0, nll0, width, noise, log_u, nsteps, debug,
-                         scratch, partials, nblocks, samples_out, nlls_out,
-                         acc_out, stream);
-}
-
-// B4 with full-covariance proposals: as sx_fused with nsteps > 0, width
-// the (nchains, npar, npar) lower-triangular scales.
-int sx_fused_tril(const SxSpec* sp, int nchains, const float* samples,
-                  const float* hist_init, const int* rb, int nev,
-                  const float* params0, const float* nll0, const float* tril,
-                  const float* noise, const float* log_u, int nsteps,
-                  int debug, unsigned* scratch, double* partials,
-                  int nblocks, float* samples_out, float* nlls_out,
-                  float* acc_out, void* stream) {
-  if (nsteps < 1) return cudaErrorInvalidValue;
-  return sx_fused_launch(sp, nchains, true, samples, hist_init, rb, nev,
-                         params0, nll0, tril, noise, log_u, nsteps, debug,
-                         scratch, partials, nblocks, samples_out, nlls_out,
-                         acc_out, stream);
+             const float* beta, const float* noise, const float* log_u,
+             int nsteps, int debug, void* scratch, double* partials,
+             int nblocks, float* samples_out, float* nlls_out,
+             float* acc_out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const void* fn = sx_fused_fn(nchains, form);
+  if (!sx_chains_fit(*sp, nchains) || fn == nullptr ||
+      ((form & (SX_TRIL | SX_TEMPERED)) && nsteps < 1))
+    return cudaErrorInvalidValue;
+  const bool w = (form & SX_WEIGHTED) != 0;
+  const int buf = nchains * (sp->ndyn * sp->total + sp->ndyn);
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, 2 * (size_t)sx_cell_bytes(w) * buf, st);
+  if (err != cudaSuccess) return err;
+  int nrep = sx_replicas(*sp, nchains, w);
+  SxSpec spv = *sp;
+  void* args[] = {(void*)&spv,      (void*)&nchains,  (void*)&samples,
+                  (void*)&hist_init, (void*)&rb,      (void*)&nev,
+                  (void*)&params0,  (void*)&nll0,     (void*)&width,
+                  (void*)&beta,     (void*)&noise,    (void*)&log_u,
+                  (void*)&nsteps,   (void*)&debug,    (void*)&scratch,
+                  (void*)&partials, (void*)&samples_out, (void*)&nlls_out,
+                  (void*)&acc_out,  (void*)&nrep};
+  return sx_cooperative(*sp, nchains, w, fn, nblocks, args,
+                        sx_smem_bytes(*sp, nchains, nrep, w), st);
 }
 
 // Grid size of sx_blocked (sx_grid_rule).
 int sx_blocked_grid(const SxSpec* sp, int nchains, int* nblocks) {
   int occ = 0;
-  cudaError_t err = sx_occupancy(*sp, nchains, sx_blocked_fn(nchains), &occ);
+  cudaError_t err =
+      sx_occupancy(*sp, nchains, false, sx_blocked_fn(nchains), &occ);
   if (err != cudaSuccess) return err;
   return sx_grid_rule(*sp, nchains, occ, nblocks);
 }
 
 // B5: ncycles blocked cycles of nsub >= 2 decisions (one systematic
-// move, nsub - 1 rate moves).  width (nchains, npar), noise (ncycles,
-// nsub, nchains, npar), log_u (ncycles, nsub, nchains); histories
-// (ncycles, nchains, npar), (ncycles, nchains, 2) and the accepted
-// fraction (ncycles, nchains).  scratch holds 2 * nchains * (ndyn *
-// total + ndyn) unsigned ints, partials 2 * nchains * nblocks doubles
-// (sx_blocked_grid).
+// move, nsub - 1 rate moves), unweighted samples.  width (nchains,
+// npar), noise (ncycles, nsub, nchains, npar), log_u (ncycles, nsub,
+// nchains); histories (ncycles, nchains, npar), (ncycles, nchains, 2)
+// and the accepted fraction (ncycles, nchains).  scratch holds 2 *
+// nchains * (ndyn * total + ndyn) unsigned ints, partials 2 * nchains *
+// nblocks doubles (sx_blocked_grid).
 int sx_blocked(const SxSpec* sp, int nchains, const float* samples,
                const float* hist_init, const int* rb, int nev,
                const float* params0, const float* nll0, const float* width,
@@ -746,7 +819,7 @@ int sx_blocked(const SxSpec* sp, int nchains, const float* samples,
   cudaError_t err =
       cudaMemsetAsync(scratch, 0, 2 * sizeof(unsigned) * buf, st);
   if (err != cudaSuccess) return err;
-  int nrep = sx_replicas(*sp, nchains);
+  int nrep = sx_replicas(*sp, nchains, false);
   SxSpec spv = *sp;
   void* args[] = {(void*)&spv,      (void*)&nchains,  (void*)&samples,
                   (void*)&hist_init, (void*)&rb,      (void*)&nev,
@@ -755,8 +828,9 @@ int sx_blocked(const SxSpec* sp, int nchains, const float* samples,
                   (void*)&nsub,     (void*)&debug,    (void*)&scratch,
                   (void*)&partials, (void*)&samples_out, (void*)&nlls_out,
                   (void*)&acc_out,  (void*)&nrep};
-  return sx_cooperative(*sp, nchains, sx_blocked_fn(nchains), nblocks, args,
-                        sx_smem_bytes(*sp, nchains, nrep), st);
+  return sx_cooperative(*sp, nchains, false, sx_blocked_fn(nchains),
+                        nblocks, args,
+                        sx_smem_bytes(*sp, nchains, nrep, false), st);
 }
 
 }  // extern "C"

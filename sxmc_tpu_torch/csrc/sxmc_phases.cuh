@@ -1,8 +1,9 @@
 // Shared device code of the sxmc_tpu_torch kernels (Hopper, sm_90a).
 //
 // The phase functions below are used by the segmented histogram (kernel
-// B1, single and batched), the fused NLL / whole-segment kernel (B3/B4,
-// single and batched) and the blocked whole-segment kernel (B5), the
+// B1, single and batched, unweighted and weighted), the fused NLL /
+// whole-segment kernel (B3/B4, every form) and the blocked whole-segment
+// kernel (B5), the
 // way sxmc_tpu/ops/pallas_step.py::_phase_bodies shares its bodies
 // between pallas_fused_step, pallas_fused_segment and
 // pallas_fused_segment_blocked: one copy of the systematics and bin-id
@@ -14,10 +15,21 @@
 // that nvcc contracts no a*b+c into an FMA.  floor((x - lo) * scale)
 // is rounding-sensitive; an FMA would move samples that sit on a bin
 // edge into the neighbouring bin.
+//
+// Weighted MC samples (kW): the samples carry one more row, the per-
+// sample float32 weight, after the nfields fields.  Bins and in-domain
+// norms then accumulate the weights in float64 (SxAcc<true>), in shared
+// and global memory alike, and are rounded once to float32 where they
+// are read.  Float atomics land in scheduling order, so a float32 sum
+// would differ from run to run; in float64 the order moves a sum by
+// ~1e-16 relative, and the rounded float32 value is the same except
+// where the sum falls on a float32 rounding tie.  Unweighted counts stay
+// unsigned integers: exact in any order.
 
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #define SX_MAXOBS 4
 #define SX_MAXFIELDS 8
@@ -72,6 +84,18 @@ struct SxSpec {
   float sigmas[SX_MAXPAR];
 };
 
+// The accumulator of a histogram cell or an in-domain norm: unsigned
+// counts, or float64 sums of weights.
+template <bool kW>
+using SxAcc = typename std::conditional<kW, double, unsigned>::type;
+
+// Sum of v over the warp (every lane must call it).
+__device__ __forceinline__ double sx_warp_sum(double v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
 // Bin the fields of one sample (of dynamic segment seg) after the masked
 // systematics at parameters par: the flat bin id, or -1 when it is out
 // of domain.  The systematics transform cols in place.
@@ -124,6 +148,8 @@ __device__ __forceinline__ void sx_load(const SxSpec& sp,
 // Histogram layout, in a replica and in global memory alike: (nchains,
 // ndyn, total); in-domain counts go to sh_norm (nchains, ndyn).
 // Unsigned integer counts: exact, whatever order the atomics land in.
+// Weighted (kW): each in-domain sample adds its weight (row nfields of
+// the samples) in float64 instead of 1.
 //
 // One chain: each thread bins its samples in place and counts its
 // in-domain ones, one warp sum per segment.  Lock-step chains: each
@@ -131,28 +157,33 @@ __device__ __forceinline__ void sx_load(const SxSpec& sp,
 // loaded fields per chain but the last, which transforms them in
 // place); the loop is warp-uniform (lanes past a segment's end idle)
 // so that one ballot per chain and sample row counts the in-domain
-// samples.  The kernels are instantiated once per form (kChains), so
+// samples (weighted: a warp sum of their weights, where the ballot has
+// any).  The kernels are instantiated once per form (kChains, kW), so
 // the single chain's registers and spills are not the chains' loop's.
 //
-// kOff (the blocked kernel B5): chain c's global histogram starts at
-// g_hist + choff[c] instead of g_hist + c * ndyn * total, so that each
-// chain can rebuild into whichever of its two buffers is not current.
-template <bool kChains, bool kOff = false>
+// kOff (the blocked kernel B5, unweighted): chain c's global histogram
+// starts at g_hist + choff[c] instead of g_hist + c * ndyn * total, so
+// that each chain can rebuild into whichever of its two buffers is not
+// current.
+template <bool kChains, bool kOff = false, bool kW = false>
 __device__ __forceinline__ void sx_accumulate(
     const SxSpec& sp, const float* __restrict__ samples, const float* par,
-    int nchains, int pstride, unsigned* sh_hist, unsigned* sh_norm,
-    unsigned* g_hist, int nrep, const int* choff = nullptr) {
+    int nchains, int pstride, SxAcc<kW>* sh_hist, SxAcc<kW>* sh_norm,
+    SxAcc<kW>* g_hist, int nrep, const int* choff = nullptr) {
+  static_assert(!(kOff && kW), "B5 takes unweighted samples only");
+  using Acc = SxAcc<kW>;
   const long long n = sp.seg_off[sp.ndyn];
+  const float* __restrict__ wrow = samples + (long long)sp.nfields * n;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  unsigned* mine =
+  Acc* mine =
       nrep ? sh_hist + (warp % nrep) * nchains * sp.ndyn * sp.total : g_hist;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (int seg = 0; seg < sp.ndyn; ++seg) {
     const long long end = sp.seg_off[seg + 1];
     if constexpr (!kChains) {
-      unsigned cnt = 0;
-      unsigned* row = mine + seg * sp.total;
+      Acc cnt = 0;
+      Acc* row = mine + seg * sp.total;
       if constexpr (kOff) {
         if (!nrep) row = g_hist + choff[0] + seg * sp.total;
       }
@@ -163,12 +194,23 @@ __device__ __forceinline__ void sx_accumulate(
         sx_load(sp, samples, n, i, cols);
         const int id = sx_bin_fields(sp, cols, seg, par);
         if (id >= 0) {
-          ++cnt;
-          atomicAdd(&row[id], 1u);
+          if constexpr (kW) {
+            const double w = (double)wrow[i];
+            cnt += w;
+            atomicAdd(&row[id], w);
+          } else {
+            ++cnt;
+            atomicAdd(&row[id], 1u);
+          }
         }
       }
-      cnt = __reduce_add_sync(0xffffffffu, cnt);
-      if (lane == 0 && cnt) atomicAdd(&sh_norm[seg], cnt);
+      if constexpr (kW) {
+        cnt = sx_warp_sum(cnt);
+        if (lane == 0 && cnt != 0.0) atomicAdd(&sh_norm[seg], cnt);
+      } else {
+        cnt = __reduce_add_sync(0xffffffffu, cnt);
+        if (lane == 0 && cnt) atomicAdd(&sh_norm[seg], cnt);
+      }
     } else {
       const long long first =
           (long long)blockIdx.x * blockDim.x + (warp << 5);
@@ -178,6 +220,10 @@ __device__ __forceinline__ void sx_accumulate(
         const bool live = i < end;
         float in[SX_MAXFIELDS];
         if (live) sx_load(sp, samples, n, i, in);
+        float w = 0.0f;
+        if constexpr (kW) {
+          if (live) w = wrow[i];
+        }
         for (int c = 0; c < nchains; ++c) {
           int id = -1;
           if (live) {
@@ -189,18 +235,31 @@ __device__ __forceinline__ void sx_accumulate(
               id = sx_bin_fields(sp, in, seg, par + c * pstride);
             }
           }
+          Acc one;
+          if constexpr (kW) {
+            one = (double)w;
+          } else {
+            one = 1u;
+          }
           if (id >= 0) {
             if constexpr (kOff) {
               atomicAdd(nrep ? &mine[(c * sp.ndyn + seg) * sp.total + id]
                              : &g_hist[choff[c] + seg * sp.total + id],
-                        1u);
+                        one);
             } else {
-              atomicAdd(&mine[(c * sp.ndyn + seg) * sp.total + id], 1u);
+              atomicAdd(&mine[(c * sp.ndyn + seg) * sp.total + id], one);
             }
           }
           const unsigned hit = __ballot_sync(0xffffffffu, id >= 0);
-          if (lane == 0 && hit)
-            atomicAdd(&sh_norm[c * sp.ndyn + seg], (unsigned)__popc(hit));
+          if constexpr (kW) {
+            if (hit) {  // warp-uniform
+              const double v = sx_warp_sum(id >= 0 ? (double)w : 0.0);
+              if (lane == 0) atomicAdd(&sh_norm[c * sp.ndyn + seg], v);
+            }
+          } else {
+            if (lane == 0 && hit)
+              atomicAdd(&sh_norm[c * sp.ndyn + seg], (unsigned)__popc(hit));
+          }
         }
       }
     }
@@ -210,23 +269,25 @@ __device__ __forceinline__ void sx_accumulate(
 // Add the block's shared replicas and in-domain counts of nchains
 // chains to global memory.  kOff: chain c's histogram goes to g_hist +
 // choff[c] and its in-domain counts right after it (g_norm unused).
-template <bool kOff = false>
+template <bool kOff = false, bool kW = false>
 __device__ __forceinline__ void sx_flush(const SxSpec& sp, int nchains,
-                                         const unsigned* sh_hist,
-                                         const unsigned* sh_norm, int nrep,
-                                         unsigned* g_hist, unsigned* g_norm,
+                                         const SxAcc<kW>* sh_hist,
+                                         const SxAcc<kW>* sh_norm, int nrep,
+                                         SxAcc<kW>* g_hist,
+                                         SxAcc<kW>* g_norm,
                                          const int* choff = nullptr) {
+  using Acc = SxAcc<kW>;
   const int per = sp.ndyn * sp.total;  // one chain's histograms
   const int nh = nchains * per;
   if (nrep) {
     for (int t = threadIdx.x; t < nh; t += blockDim.x) {
-      unsigned v = 0;
+      Acc v = 0;
       for (int r = 0; r < nrep; ++r) v += sh_hist[r * nh + t];
       if constexpr (kOff) {
         const int c = t / per;
         if (v) atomicAdd(&g_hist[choff[c] + (t - c * per)], v);
       } else {
-        if (v) atomicAdd(&g_hist[t], v);
+        if (v != Acc(0)) atomicAdd(&g_hist[t], v);
       }
     }
   }
@@ -236,16 +297,17 @@ __device__ __forceinline__ void sx_flush(const SxSpec& sp, int nchains,
       if (sh_norm[t])
         atomicAdd(&g_hist[choff[c] + per + (t - c * sp.ndyn)], sh_norm[t]);
     } else {
-      if (sh_norm[t]) atomicAdd(&g_norm[t], sh_norm[t]);
+      if (sh_norm[t] != Acc(0)) atomicAdd(&g_norm[t], sh_norm[t]);
     }
   }
 }
 
 // Norms and per-signal weights ((rate * nexpected) * norm) / n_mc of
 // nch chains at their proposals s_prop; entry t is signal t % nsig of
-// chain t / nsig.  A dynamic signal's norm is its in-domain count,
-// norm_of(c)[slot] (chain c's counts in global memory, complete after a
-// grid barrier); a static signal's is norm_init.
+// chain t / nsig.  A dynamic signal's norm is its in-domain count (or
+// weight sum, rounded to float32), norm_of(c)[slot] (chain c's counts
+// in global memory, complete after a grid barrier); a static signal's
+// is norm_init.
 template <class NormOf>
 __device__ __forceinline__ void sx_weights(const SxSpec& sp, int nch,
                                            const float* s_prop,
@@ -264,11 +326,13 @@ __device__ __forceinline__ void sx_weights(const SxSpec& sp, int nch,
 }
 
 // One thread's share of a chain's event log-sum against its histograms
-// chist (ndyn, total): LUT gather with the -1/-2 sentinels (both give 0
-// here, as nll_pair's nan_to_num makes them), the mix in ascending
-// signal order, log where positive; f64 accumulation.
+// chist (ndyn, total; counts, or float64 weight sums rounded here to
+// float32): LUT gather with the -1/-2 sentinels (both give 0 here, as
+// nll_pair's nan_to_num makes them), the mix in ascending signal order,
+// log where positive; f64 accumulation.
+template <class Acc>
 __device__ __forceinline__ double sx_event_sum(
-    const SxSpec& sp, const unsigned* chist,
+    const SxSpec& sp, const Acc* chist,
     const float* __restrict__ hist_init, const int* __restrict__ rb,
     int nev, const float* cw, const float* cn) {
   const long long gtid = (long long)blockIdx.x * blockDim.x + threadIdx.x;

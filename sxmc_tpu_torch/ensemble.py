@@ -1,7 +1,8 @@
 """Ensemble runner: fake experiments -> fits -> limits.
 
-Port of the Metropolis branch of ``sxmc_tpu/ensemble.py::run_ensemble``
-(reference src/sxmc.cpp:44-148): for each experiment, generate (or
+Port of the Metropolis and tempered branches of
+``sxmc_tpu/ensemble.py::run_ensemble`` (reference src/sxmc.cpp:44-148):
+for each experiment, generate (or
 load) a dataset, run the MCMC, extract the best fit and the upper limit
 on the signal of interest, persist the likelihood space, and report the
 median limit.  Each experiment runs behind the same fault barrier as
@@ -35,8 +36,10 @@ def check_slice(fc: FitConfig, sampler: str = "metropolis") -> None:
     """Raise NotImplementedError for a configuration the port does not
     run yet, naming the ROADMAP item that will bring it."""
     todo = []
-    if sampler != "metropolis":
-        todo.append(f"sampler {sampler!r} (ROADMAP queue A, items 9-11)")
+    if sampler in ("hmc", "nuts", "stretch"):
+        todo.append(f"sampler {sampler!r} (ROADMAP queue A, item 11)")
+    elif sampler == "mle":
+        todo.append("sampler 'mle' (ROADMAP queue A, item 10)")
     if fc.plots:
         todo.append("fit.plots (plots.py, ROADMAP queue A, item 7); set "
                     '"plots": false')
@@ -68,7 +71,10 @@ def run_ensemble(
     ``dataset_fn(i)`` and ``presampler_fn(i)``, when given, replace
     experiment i's fake dataset and the chain's noise streams (the
     injection point the tests use to run both packages on identical
-    inputs).  Structured metrics go to
+    inputs).  ``sampler`` is "metropolis" or "tempered" (a replica
+    ladder with the JAX package's defaults: 8 temperatures up to 32, a
+    swap every 10 steps), whose presampler hands out the tempered
+    streams.  Structured metrics go to
     ``<output_path>/<prefix>_metrics.jsonl``.
     """
     check_slice(fc, sampler)
@@ -86,7 +92,12 @@ def run_ensemble(
             print(msg)
 
     mcmc = None
-    if not fc.samples:
+    if not fc.samples and sampler == "tempered":
+        from sxmc_tpu_torch.mcmc.tempered import TemperedMCMC
+
+        mcmc = TemperedMCMC(fc.sources, fc.signals, fc.systematics,
+                            fc.observables, binned=fc.binned, device=device)
+    elif not fc.samples:
         mcmc = MCMC(fc.sources, fc.signals, fc.systematics,
                     fc.observables, device=device, binned=fc.binned)
 
@@ -123,14 +134,16 @@ def run_ensemble(
                     chunks.append(sig.histogram.get_samples())
                 samples_data = np.concatenate(chunks, axis=0)
 
+            extra = ({"rate_substeps": fc.rate_substeps,
+                      "proposal": fc.proposal}
+                     if sampler == "metropolis" else {})
             sw = Stopwatch()
             ls = mcmc(samples_data, fc.nsteps, fc.burnin_fraction,
                       debug_mode=fc.debug_mode, nchains=nchains,
-                      rate_substeps=fc.rate_substeps, proposal=fc.proposal,
                       generator=torch.Generator(device).manual_seed(
                           chain_seed),
                       presampler=(presampler_fn(i) if presampler_fn
-                                  else None))
+                                  else None), **extra)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             elapsed = sw.real_time()
@@ -147,8 +160,11 @@ def run_ensemble(
         log(ls.print_best_fit())
         log(ls.print_correlations())
 
-        # Convergence diagnostics (absent from the reference).
-        diag = summarize(ls.samples, list(ls.names), nchains=nchains)
+        # Convergence diagnostics (absent from the reference).  The
+        # tempered sampler returns ONE cold chain whatever fc.nchains
+        # says; splitting it into pseudo-chains would corrupt R-hat/ESS.
+        diag = summarize(ls.samples, list(ls.names),
+                         nchains=1 if sampler == "tempered" else nchains)
         log("-- Diagnostics --")
         for pname, d in diag.items():
             log(f" {pname}: ESS={d['ess']:.0f} R-hat={d['rhat']:.3f}")
@@ -209,7 +225,8 @@ def main_fit(config_file: str, output_path: str, device="cuda",
              resume: bool = False, data_root: Optional[str] = None,
              max_retries: int = 1,
              binned: Optional[bool] = None,
-             rate_substeps: Optional[int] = None) -> List[float]:
+             rate_substeps: Optional[int] = None,
+             sampler: str = "metropolis") -> List[float]:
     """The whole fit from a config file (reference: sxmc.cpp:181-229);
     ``binned`` and ``rate_substeps``, when given, override
     ``fit.binned`` and ``fit.rate_substeps``."""
@@ -223,7 +240,7 @@ def main_fit(config_file: str, output_path: str, device="cuda",
     print(fc.print())
     print(f"sxmc_tpu_torch: Running ensemble on {device}...")
     limits = run_ensemble(fc, output_path, device=device, resume=resume,
-                          max_retries=max_retries)
+                          max_retries=max_retries, sampler=sampler)
     if limits:
         print("sxmc_tpu_torch: Upper limits:",
               ", ".join(f"{x:g}" for x in limits))

@@ -2,15 +2,16 @@
 
 Takes the numpy arrays a ``sxmc_tpu`` run produced and builds the
 port's objects from them, so that both packages can compute on
-identical inputs: a chain state, the NLL constants, a dataset, and
-presampled noise streams (one chain's or lock-step chains', joint or
-blocked).  Nothing
-here imports jax: the caller converts with ``np.asarray`` on its side.
+identical inputs: a chain state or a tempering ladder's, the NLL
+constants, a dataset, a weighted signal's weights, and presampled noise
+streams (one chain's or lock-step chains', joint or blocked, or a
+ladder's).  Nothing here imports jax: the caller converts with
+``np.asarray`` on its side.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +29,25 @@ def chain_state(params, nll_pair, width, device="cpu"
     npar)``."""
     hi, lo = (as_f32(np.asarray(x).reshape(()), device) for x in nll_pair)
     return as_f32(params, device), (hi, lo), as_f32(width, device)
+
+
+def ladder_state(params, nll_pair, width, index: int, device="cpu"):
+    """A tempering ladder's state (the carry of the JAX package's
+    ``tempered_segment`` / ``_run_tempered``): ``(params (ntemps, npar),
+    (hi (ntemps,), lo (ntemps,)), width (ntemps, npar), index)``, the
+    index being the swap-interval count (fused route) or the global step
+    count (stepper route) that sets the next pairing."""
+    hi, lo = (as_f32(np.asarray(x).reshape(-1), device) for x in nll_pair)
+    return (as_f32(params, device), (hi, lo), as_f32(width, device),
+            int(np.asarray(index)))
+
+
+def weights(histogram) -> Optional[np.ndarray]:
+    """A JAX ``EvalHist``'s per-sample weights as float32 numpy, or None
+    (the JAX stack reads ``histogram.weights``, which callers may set
+    after construction)."""
+    w = histogram.weights
+    return None if w is None else np.asarray(w, np.float32)
 
 
 def nll_static(static) -> NLLStatic:
@@ -88,5 +108,31 @@ def presampler(phases: Sequence[Tuple[np.ndarray, np.ndarray]],
             raise ValueError(f"phase {phase} stream has {noise.shape[0]} "
                              f"steps, the chain asks for {n}")
         return noise, u
+
+    return draw
+
+
+def tempered_presampler(phases: Sequence[Tuple[np.ndarray, np.ndarray,
+                                                np.ndarray]],
+                        device="cpu"):
+    """A tempered presampler (``mcmc.tempered``) that hands out the given
+    per-phase ``(noise (n, ntemps, npar), u (n, ntemps), swap_u (n,
+    ntemps))`` streams: burn-in 1, burn-in 2, main (None for a phase
+    that does not run)."""
+    streams = [None if p is None else tuple(as_f32(x, device) for x in p)
+               for p in phases]
+    for noise, u, swap_u in filter(None, streams):
+        if noise.dim() != 3 or u.shape != noise.shape[:2] \
+                or swap_u.shape != u.shape:
+            raise ValueError(f"not a ladder's streams: noise "
+                             f"{tuple(noise.shape)}, u {tuple(u.shape)}, "
+                             f"swap_u {tuple(swap_u.shape)}")
+
+    def draw(phase: int, n: int):
+        noise, u, swap_u = streams[phase]
+        if noise.shape[0] != n:
+            raise ValueError(f"phase {phase} stream has {noise.shape[0]} "
+                             f"steps, the ladder asks for {n}")
+        return noise, u, swap_u
 
     return draw

@@ -273,6 +273,13 @@ def _fused_ok(mcmc: MCMC) -> bool:
             and mcmc.stack.supports_fused)
 
 
+def _blocked_fused_ok(mcmc: MCMC) -> bool:
+    """The blocked kernel B5 additionally needs an unweighted stack (its
+    rate moves reuse integer in-domain counts; metropolis.py:422-426):
+    a weighted blocked fit takes the blocked stepper."""
+    return _fused_ok(mcmc) and not mcmc.stack.has_weights
+
+
 def _blocked_enabled(mcmc: MCMC, rate_substeps: int) -> bool:
     """Blocked updates apply with a floating systematic (else the LUT
     never changes and the joint step already skips rebuilds) and a rate
@@ -307,14 +314,15 @@ def _nll_backend(mcmc: MCMC, read_bins: torch.Tensor):
     return stack.histograms, stack.histograms_batch, pair
 
 
-def _chain_nll(mcmc: MCMC, read_bins: torch.Tensor):
+def _chain_nll(mcmc: MCMC, read_bins: torch.Tensor, allow_fused=True):
     """params ``(npar,)`` or ``(nchains, npar)`` -> the compensated
     ``(hi, lo)`` pair(s): the JAX package's ``_chain_nll`` and
     ``_chain_nll_batch`` in one (metropolis.py:393-419, 978-1013).
-    Fused: B3 (or B3-batched).  Otherwise the state comes from
+    Fused (unless ``allow_fused`` is false, as for the tempered ladder):
+    B3 (or B3-batched).  Otherwise the state comes from
     ``_nll_backend``: built once at the means when no systematic floats,
     else at every call (``evaluate`` or ``evaluate_batch``)."""
-    if _fused_ok(mcmc):
+    if allow_fused and _fused_ok(mcmc):
         stack, spec = mcmc.stack, mcmc.nll_spec
 
         def fused(params):
@@ -456,10 +464,12 @@ def _phase_runner(mcmc: MCMC, read_bins: torch.Tensor, chain_nll,
     extras of a chain's start (the blocked stepper's ``(lut, norms)``).
 
     Fused route: one launch per phase of B4 (diagonal or tril) or, for
-    ``m`` blocked rate moves, B5, all fed ``log(u)``.  Stepper route: a
-    loop of :func:`_make_step` or the blocked cycle."""
+    ``m`` blocked rate moves on an unweighted stack, B5, all fed
+    ``log(u)``.  Stepper route: a loop of :func:`_make_step` or the
+    blocked cycle."""
     no_extras = lambda params: ()  # noqa: E731
-    if _fused_ok(mcmc):
+    fused = _blocked_fused_ok(mcmc) if m else _fused_ok(mcmc)
+    if fused:
         stack = mcmc.stack
         if m:
             segments = (stack.blocked_segment, stack.blocked_segment_batch)

@@ -69,20 +69,29 @@ def compute_bin_ids(
     Returns ``(ids, valid)``: ``(n,)`` int64 flat bin ids (clipped into
     range for invalid points) and the ``(n,)`` bool in-domain mask.
     """
+    return bin_ids_of_columns([obs[:, i] for i in range(len(nbins))],
+                              lower, upper, nbins)
+
+
+def bin_ids_of_columns(cols, lower: Sequence[float], upper: Sequence[float],
+                       nbins: Sequence[int]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`compute_bin_ids` of observables given as one float32 tensor
+    each (``cols[i]`` the i-th observable, all of one shape, or
+    broadcasting to one): ``(ids, valid)`` of that shape."""
     strides = bin_strides(nbins)
     scales = bin_scales(lower, upper, nbins)
-    n = obs.shape[0]
-    valid = torch.ones(n, dtype=torch.bool, device=obs.device)
-    ids = torch.zeros(n, dtype=torch.int64, device=obs.device)
+    ids = valid = None
     for i in range(len(nbins)):
-        x = obs[:, i]
+        x = cols[i]
         lo = float(np.float32(lower[i]))
         up = float(np.float32(upper[i]))
-        valid &= (x >= lo) & (x < up)
+        ok = (x >= lo) & (x < up)
         # float32 ops, in the JAX package's order: (x - lo) * scale.
         axis = torch.floor((x - lo) * float(scales[i])).to(torch.int64)
-        axis = axis.clamp(0, nbins[i] - 1)
-        ids += axis * strides[i]
+        axis = axis.clamp(0, nbins[i] - 1) * strides[i]
+        valid = ok if valid is None else valid & ok
+        ids = axis if ids is None else ids + axis
     return ids, valid
 
 

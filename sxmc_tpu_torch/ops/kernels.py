@@ -17,18 +17,28 @@ Five kernels carry the Metropolis fits (sources and notes in
      pallas_fused_segment (one whole fixed-width Metropolis phase);
      :func:`fused_segment_batched` for lock-step chains;
      :func:`fused_segment_tril` and :func:`fused_segment_tril_batched`
-     for full-covariance proposals ``cur + L @ z``
+     for full-covariance proposals ``cur + L @ z``;
+     :func:`fused_segment_tempered` for a parallel-tempering ladder (a
+     per-chain inverse temperature in the accept)
   B5 :func:`blocked_segment`      <- sxmc_tpu/ops/pallas_step.py::
      pallas_fused_segment_blocked (one whole blocked Metropolis-within-
      Gibbs phase); :func:`blocked_segment_batched` for lock-step chains
 
-Each form takes one shape and counts its launches under its own name,
-so that a run shows which form ran.  Each wrapper checks its inputs,
-and then takes one of two routes decided only by where the tensors
-lie: on the CPU it runs the plain PyTorch version beside it
-(``*_plain``), on a CUDA device it launches the kernel or raises.
-There is no fallback from the card to the plain version.  Every launch
-adds one to the wrapper's ``launches`` count.
+Weighted MC samples (``HistSpec.weighted``: the samples carry a weight
+row after their fields) run through B1, B3 and B4 in their weighted
+forms: bins and norms are float64 weight sums, rounded once to float32
+(the TPU kernels' ``has_weights`` / ``has_wrow``).  B5 takes unweighted
+samples only, as in the JAX package.
+
+Each form takes one shape and counts its launches under its own name
+(the wrapper's name, with ``_weighted`` appended for weighted samples),
+so that a run shows which form ran (:func:`launch_counts`).  Each
+wrapper checks its inputs, and then takes one of two routes decided
+only by where the tensors lie: on the CPU it runs the plain PyTorch
+version beside it (``*_plain``), on a CUDA device it launches the
+kernel or raises.  There is no fallback from the card to the plain
+version.  Every launch, and nothing else, adds one to its form's
+count.
 
 The library is compiled with nvcc at first use, into
 ``build/sxmc_kernels/<hash of the sources>/`` beside the package, and
@@ -75,10 +85,11 @@ class HistSpec:
 
     ``samples`` tensors are field-major ``(nfields, n)`` float32, the
     dynamic segments back to back: segment d is columns
-    ``seg_off[d]:seg_off[d + 1]``.  ``systematics`` holds ``(desc,
-    mask)`` pairs, ``mask[d]`` true where the systematic acts on
-    segment d; ``desc.par_indices`` index the systematic-parameter
-    vector theta.
+    ``seg_off[d]:seg_off[d + 1]``; ``weighted`` samples carry one more
+    row, each sample's weight (``(nfields + 1, n)``).  ``systematics``
+    holds ``(desc, mask)`` pairs, ``mask[d]`` true where the systematic
+    acts on segment d; ``desc.par_indices`` index the systematic-
+    parameter vector theta.
     """
 
     nfields: int
@@ -88,17 +99,24 @@ class HistSpec:
     systematics: Tuple[Tuple[transforms.SystematicDesc, Tuple[bool, ...]],
                        ...]
     seg_off: Tuple[int, ...]
+    weighted: bool = False
 
     @classmethod
-    def build(cls, nfields, lower, upper, nbins, systematics, seg_off):
+    def build(cls, nfields, lower, upper, nbins, systematics, seg_off,
+              weighted: bool = False):
         spec = cls(int(nfields), tuple(float(x) for x in lower),
                    tuple(float(x) for x in upper),
                    tuple(int(b) for b in nbins),
                    tuple((d, tuple(bool(b) for b in m))
                          for d, m in systematics),
-                   tuple(int(x) for x in seg_off))
+                   tuple(int(x) for x in seg_off), bool(weighted))
         spec.validate()
         return spec
+
+    @property
+    def nrows(self) -> int:
+        """Rows of the samples tensor: the fields, and the weights."""
+        return self.nfields + int(self.weighted)
 
     @property
     def nobs(self) -> int:
@@ -297,20 +315,26 @@ def _library() -> ctypes.CDLL:
     lib.sx_spec_size.argtypes, lib.sx_spec_size.restype = [], _I
     lib.sx_error_string.argtypes = [_I]
     lib.sx_error_string.restype = ctypes.c_char_p
-    lib.sx_histogram.argtypes = [_P, _I, _P, _P, _I, _P, _P, _P]
+    lib.sx_histogram.argtypes = [_P, _I, _I, _P, _P, _I, _P, _P, _P]
     lib.sx_histogram.restype = _I
     lib.sx_eval_lut.argtypes = [_P, _P, _P, _I, _I, _I, ctypes.c_longlong,
                                 ctypes.c_float, _P, _P]
     lib.sx_eval_lut.restype = _I
-    lib.sx_fused_grid.argtypes = [_P, _I, _P]
+    lib.sx_fused_grid.argtypes = [_P, _I, _I, _P]
     lib.sx_fused_grid.restype = _I
-    segment = [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P,
-               _I, _P, _P, _P, _P]
-    for fn in (lib.sx_fused, lib.sx_fused_tril):
-        fn.argtypes, fn.restype = segment, _I
+    # sx_fused: spec, nchains, form, samples, hist_init, rb, nev, params0,
+    # nll0, width, beta, noise, log_u, nsteps, debug, scratch, partials,
+    # nblocks, samples_out, nlls_out, acc_out, stream.
+    lib.sx_fused.argtypes = [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                             _P, _I, _I, _P, _P, _I, _P, _P, _P, _P]
+    lib.sx_fused.restype = _I
     lib.sx_blocked_grid.argtypes = [_P, _I, _P]
     lib.sx_blocked_grid.restype = _I
-    lib.sx_blocked.argtypes = segment[:12] + [_I] + segment[12:]
+    # sx_blocked: spec, nchains, samples, hist_init, rb, nev, params0,
+    # nll0, width, noise, log_u, ncycles, nsub, debug, scratch, partials,
+    # nblocks, samples_out, nlls_out, acc_out, stream.
+    lib.sx_blocked.argtypes = [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _P, _P, _I, _P, _P, _P, _P]
     lib.sx_blocked.restype = _I
     if lib.sx_spec_size() != ctypes.sizeof(_CSpec):
         raise RuntimeError(
@@ -352,7 +376,7 @@ def _expect(t: torch.Tensor, name: str, shape, dtype, device) -> None:
 
 
 def _check_samples(hs: HistSpec, samples: torch.Tensor) -> None:
-    _expect(samples, "samples", (hs.nfields, hs.n), torch.float32,
+    _expect(samples, "samples", (hs.nrows, hs.n), torch.float32,
             samples.device)
 
 
@@ -361,13 +385,12 @@ def _check_samples(hs: HistSpec, samples: torch.Tensor) -> None:
 
 def _dyn_counts_plain(hs: HistSpec, samples: torch.Tensor,
                       par: torch.Tensor, par_off: int) -> torch.Tensor:
-    """``(ndyn, total)`` int64 counts, or ``(nchains, ndyn, total)``
-    for ``(nchains, npar)`` parameters: the plain version of the
-    rebuild every kernel here does."""
+    """``(ndyn, total)`` int64 counts (float64 weight sums for weighted
+    samples), or ``(nchains, ndyn, total)`` for ``(nchains, npar)``
+    parameters: the plain version of the rebuild every kernel here
+    does."""
     dev = samples.device
     cols = [samples[f] for f in range(hs.nfields)]
-    sizes = torch.as_tensor(np.diff(hs.seg_off), device=dev)
-    seg = torch.repeat_interleave(torch.arange(hs.ndyn, device=dev), sizes)
     batched = par.dim() == 2
     theta = par[..., par_off:]
     if batched:
@@ -381,18 +404,31 @@ def _dyn_counts_plain(hs: HistSpec, samples: torch.Tensor,
         if all(mask):
             cols[desc.obs] = new
         else:
-            on = torch.as_tensor(mask, device=dev)[seg]
+            sizes = torch.as_tensor(np.diff(hs.seg_off), device=dev)
+            on = torch.repeat_interleave(torch.as_tensor(mask, device=dev),
+                                         sizes)
             cols[desc.obs] = torch.where(on, new, cols[desc.obs])
-    obs = torch.stack(torch.broadcast_tensors(*cols[:hs.nobs]), dim=-1)
     nch = par.shape[0] if batched else 1
-    ids, valid = hist_ops.compute_bin_ids(
-        obs.expand(nch, hs.n, hs.nobs).reshape(-1, hs.nobs), hs.lower,
-        hs.upper, hs.nbins)
-    segs = (torch.arange(nch, device=dev)[:, None] * hs.ndyn
-            + seg[None, :]).reshape(-1)
-    counts = hist_ops.segmented_histogram(ids, valid, segs, nch * hs.ndyn,
-                                          hs.total)
-    return counts.reshape(nch, hs.ndyn, hs.total) if batched else counts
+    ids, valid = hist_ops.bin_ids_of_columns(cols[:hs.nobs], hs.lower,
+                                             hs.upper, hs.nbins)
+    # Out-of-domain samples go to a spare bin (index total) of every
+    # (chain, segment) row, cut off below.
+    width = hs.total + 1
+    ids = torch.where(valid, ids, hs.total).expand(nch, hs.n)
+    rows = torch.arange(nch, device=dev)[:, None] * width
+    out = []
+    for d in range(hs.ndyn):
+        a, b = hs.seg_off[d], hs.seg_off[d + 1]
+        flat = (ids[:, a:b] + rows).reshape(-1)
+        if hs.weighted:
+            w = samples[hs.nfields, a:b].to(torch.float64)
+            cnt = torch.zeros(nch * width, dtype=torch.float64, device=dev)
+            cnt.index_add_(0, flat, w.expand(nch, b - a).reshape(-1))
+        else:
+            cnt = torch.bincount(flat, minlength=nch * width)
+        out.append(cnt.reshape(nch, width)[:, :hs.total])
+    counts = torch.stack(out, dim=1)
+    return counts if batched else counts[0]
 
 
 def segmented_histogram_plain(hs: HistSpec, samples: torch.Tensor,
@@ -400,7 +436,8 @@ def segmented_histogram_plain(hs: HistSpec, samples: torch.Tensor,
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of B1 (single and batched): ``([nchains,] ndyn,
     total)`` float32 counts and the ``([nchains,] ndyn)`` float32
-    in-domain counts (integer sums, then cast)."""
+    in-domain counts (integer sums, then cast; weighted: float64 sums,
+    rounded once)."""
     counts = _dyn_counts_plain(hs, samples, theta, 0)
     return counts.to(torch.float32), counts.sum(dim=-1).to(torch.float32)
 
@@ -422,7 +459,8 @@ def assemble(ns: NLLSpec, hist_init: torch.Tensor,
              counts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full ``([nchains,] nsig, total)`` float32 table + ``([nchains,]
     nsig)`` norms from the static rows and the dynamic segments'
-    integer counts ``([nchains,] ndyn, total)``."""
+    counts ``([nchains,] ndyn, total)`` (integers, or float64 weight
+    sums: each rounded once to float32)."""
     dev = hist_init.device
     lead = tuple(counts.shape[:-2])
     dyn = [j for j, s in enumerate(ns.sig_slot) if s >= 0]
@@ -477,21 +515,26 @@ def tril_propose_plain(cur: torch.Tensor, tril: torch.Tensor,
     return cur + acc
 
 
-def _accept_plain(cur_hi, cur_lo, hi, lo, log_u, debug_mode: bool):
+def _accept_plain(cur_hi, cur_lo, hi, lo, log_u, debug_mode: bool,
+                  beta=None):
     """df_diff's op order, then the kernels' log-space accept ``delta > 0
-    or log(u) <= delta``."""
+    or log(u) <= delta``, delta annealed by ``beta`` ``(nchains,)`` when
+    given (the tempered form)."""
     delta = df_diff(cur_hi, cur_lo, hi, lo)
+    if beta is not None:
+        delta = beta * delta
     acc = (delta > 0) | (log_u <= delta)
     return torch.ones_like(acc) if debug_mode else acc
 
 
 def fused_segment_plain(hs, ns, samples, hist_init, rb, params0, nll0,
-                        width, noise, log_u, debug_mode: bool = False):
-    """Plain version of B4 (single and batched, diagonal or tril): the
-    step loop, one :func:`fused_nll_plain` per proposal, the log-space
-    accept.  ``width`` one dimension longer than ``params0`` is the tril
-    (:func:`tril_propose_plain`).  Stays on the device (no host
-    synchronisation per step)."""
+                        width, noise, log_u, debug_mode: bool = False,
+                        beta=None):
+    """Plain version of B4 (single and batched, diagonal or tril,
+    tempered with ``beta``): the step loop, one :func:`fused_nll_plain`
+    per proposal, the log-space accept.  ``width`` one dimension longer
+    than ``params0`` is the tril (:func:`tril_propose_plain`).  Stays on
+    the device (no host synchronisation per step)."""
     cur = params0.clone()
     cur_hi, cur_lo = nll0[..., 0].clone(), nll0[..., 1].clone()
     tril = width.dim() == params0.dim() + 1
@@ -503,7 +546,8 @@ def fused_segment_plain(hs, ns, samples, hist_init, rb, params0, nll0,
         else:
             prop = torch.where(width > 0, cur + noise[s] * wpos, cur)
         hi, lo = fused_nll_plain(hs, ns, samples, hist_init, rb, prop)
-        acc = _accept_plain(cur_hi, cur_lo, hi, lo, log_u[s], debug_mode)
+        acc = _accept_plain(cur_hi, cur_lo, hi, lo, log_u[s], debug_mode,
+                            beta)
         cur = torch.where(acc[..., None], prop, cur)
         cur_hi = torch.where(acc, hi, cur_hi)
         cur_lo = torch.where(acc, lo, cur_lo)
@@ -577,19 +621,25 @@ def _check_theta(hs: HistSpec, theta: torch.Tensor, ndim: int,
     _expect(theta, "theta", theta.shape, torch.float32, device)
 
 
+def _acc_dtype(hs: HistSpec) -> torch.dtype:
+    """The kernels' accumulator: unsigned counts (int32 storage) or
+    float64 weight sums."""
+    return torch.float64 if hs.weighted else torch.int32
+
+
 def _launch_histogram(hs: HistSpec, samples: torch.Tensor,
                       theta: torch.Tensor, nch: int, what: str):
     dev = samples.device
     lib = _library()
     nh = nch * hs.ndyn * hs.total
     out = torch.empty(nh + nch * hs.ndyn, dtype=torch.float32, device=dev)
-    scratch = torch.empty(out.shape[0], dtype=torch.int32, device=dev)
+    scratch = torch.empty(out.shape[0], dtype=_acc_dtype(hs), device=dev)
     pstride = theta.shape[-1]
     if pstride == 0:
         theta = torch.zeros(1, dtype=torch.float32, device=dev)
     err = lib.sx_histogram(ctypes.byref(_hist_c_spec(hs)), nch,
-                           _ptr(samples), _ptr(theta), pstride,
-                           _ptr(scratch), _ptr(out), _stream(dev))
+                           int(hs.weighted), _ptr(samples), _ptr(theta),
+                           pstride, _ptr(scratch), _ptr(out), _stream(dev))
     _check_cuda(lib, err, what)
     return (out[:nh].view(nch, hs.ndyn, hs.total),
             out[nh:].view(nch, hs.ndyn))
@@ -607,11 +657,8 @@ def segmented_histogram(hs: HistSpec, samples: torch.Tensor,
         return segmented_histogram_plain(hs, samples, theta)
     counts, norms = _launch_histogram(hs, samples, theta, 1,
                                       "segmented_histogram")
-    segmented_histogram.launches += 1
+    _launched("segmented_histogram", hs)
     return counts[0], norms[0]
-
-
-segmented_histogram.launches = 0
 
 
 def segmented_histogram_batched(hs: HistSpec, samples: torch.Tensor,
@@ -630,11 +677,8 @@ def segmented_histogram_batched(hs: HistSpec, samples: torch.Tensor,
         return segmented_histogram_plain(hs, samples, theta)
     counts, norms = _launch_histogram(hs, samples, theta, nch,
                                       "segmented_histogram_batched")
-    segmented_histogram_batched.launches += 1
+    _launched("segmented_histogram_batched", hs)
     return counts, norms
-
-
-segmented_histogram_batched.launches = 0
 
 
 def lut_eval(counts: torch.Tensor, norms: torch.Tensor,
@@ -671,11 +715,8 @@ def lut_eval(counts: torch.Tensor, norms: torch.Tensor,
     err = lib.sx_eval_lut(_ptr(counts), _ptr(norms), _ptr(read_bins), nseg,
                           rows, total, nev, bv, _ptr(out), _stream(dev))
     _check_cuda(lib, err, "lut_eval")
-    lut_eval.launches += 1
+    _launched("lut_eval")
     return out
-
-
-lut_eval.launches = 0
 
 
 def _check_fused(hs, ns, samples, hist_init, rb, params, nch):
@@ -700,34 +741,49 @@ def _check_fused(hs, ns, samples, hist_init, rb, params, nch):
             f"chain-parameters and {MAXCS} chain-signals)")
 
 
+# The forms of sx_fused (csrc/sxmc_kernels.cu: SX_TRIL, SX_WEIGHTED,
+# SX_TEMPERED).
+_TRIL, _WEIGHTED, _TEMPERED = 1, 2, 4
+
+
 def _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
                   noise, log_u, nsteps, debug, samples_out, nlls_out,
-                  acc_out, nch, what, kind="fused", nsub=0):
-    """Launch B3/B4 (``kind`` "fused", or "fused_tril" for the tril
-    proposals) or B5 ("blocked", ``nsub`` decisions per cycle) on the
-    grid that the library's rule picks."""
+                  acc_out, nch, what, kind="fused", nsub=0, beta=None):
+    """Launch B3/B4 (``kind`` "fused", "fused_tril" for the tril
+    proposals, "fused_tempered" with ``beta``) or B5 ("blocked", ``nsub``
+    decisions per cycle) on the grid that the library's rule picks; the
+    weighted forms for weighted samples."""
     dev = samples.device
     lib = _library()
     cs = _c_spec(hs, ns, int(ns.st.nsources))
     nblocks = ctypes.c_int(0)
-    grid = lib.sx_blocked_grid if kind == "blocked" else lib.sx_fused_grid
-    _check_cuda(lib, grid(ctypes.byref(cs), nch, ctypes.byref(nblocks)),
-                what)
+    if kind == "blocked":
+        err = lib.sx_blocked_grid(ctypes.byref(cs), nch,
+                                  ctypes.byref(nblocks))
+    else:
+        err = lib.sx_fused_grid(ctypes.byref(cs), nch, int(hs.weighted),
+                                ctypes.byref(nblocks))
+    _check_cuda(lib, err, what)
     # B5 double-buffers its partials by decision parity.
     nslots = nch * nblocks.value * (2 if kind == "blocked" else 1)
     partials = torch.empty(nslots, dtype=torch.float64, device=dev)
     scratch = torch.empty(2 * nch * (hs.ndyn * hs.total + hs.ndyn),
-                          dtype=torch.int32, device=dev)
-    head = (ctypes.byref(cs), nch, _ptr(samples), _ptr(hist_init), _ptr(rb),
-            rb.shape[1], _ptr(params0), _ptr(nll0), _ptr(width), _ptr(noise),
-            _ptr(log_u), nsteps)
+                          dtype=_acc_dtype(hs), device=dev)
     tail = (int(debug), _ptr(scratch), _ptr(partials), nblocks.value,
             _ptr(samples_out), _ptr(nlls_out), _ptr(acc_out), _stream(dev))
     if kind == "blocked":
-        err = lib.sx_blocked(*head, nsub, *tail)
+        err = lib.sx_blocked(
+            ctypes.byref(cs), nch, _ptr(samples), _ptr(hist_init), _ptr(rb),
+            rb.shape[1], _ptr(params0), _ptr(nll0), _ptr(width), _ptr(noise),
+            _ptr(log_u), nsteps, nsub, *tail)
     else:
-        fn = lib.sx_fused_tril if kind == "fused_tril" else lib.sx_fused
-        err = fn(*head, *tail)
+        form = ((_TRIL if kind == "fused_tril" else 0)
+                | (_TEMPERED if kind == "fused_tempered" else 0)
+                | (_WEIGHTED if hs.weighted else 0))
+        err = lib.sx_fused(
+            ctypes.byref(cs), nch, form, _ptr(samples), _ptr(hist_init),
+            _ptr(rb), rb.shape[1], _ptr(params0), _ptr(nll0), _ptr(width),
+            _ptr(beta), _ptr(noise), _ptr(log_u), nsteps, *tail)
     _check_cuda(lib, err, what)
 
 
@@ -743,11 +799,8 @@ def fused_nll(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
     out = torch.empty(2, dtype=torch.float32, device=samples.device)
     _launch_fused(hs, ns, samples, hist_init, rb, params, None, None, None,
                   None, 0, False, None, out, None, 1, "fused_nll")
-    fused_nll.launches += 1
+    _launched("fused_nll", hs)
     return out[0], out[1]
-
-
-fused_nll.launches = 0
 
 
 def fused_nll_batched(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
@@ -762,11 +815,8 @@ def fused_nll_batched(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
     out = torch.empty((nch, 2), dtype=torch.float32, device=samples.device)
     _launch_fused(hs, ns, samples, hist_init, rb, params, None, None, None,
                   None, 0, False, None, out, None, nch, "fused_nll_batched")
-    fused_nll_batched.launches += 1
+    _launched("fused_nll_batched", hs)
     return out[:, 0], out[:, 1]
-
-
-fused_nll_batched.launches = 0
 
 
 def _check_segment(ns, params0, nll0, width, noise, log_u, nch,
@@ -822,11 +872,8 @@ def fused_segment(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
     out = _segment_out(n, (), ns.npar, dev)
     _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
                   noise, log_u, n, debug_mode, *out, 1, "fused_segment")
-    fused_segment.launches += 1
+    _launched("fused_segment", hs)
     return out
-
-
-fused_segment.launches = 0
 
 
 def fused_segment_batched(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
@@ -850,11 +897,8 @@ def fused_segment_batched(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
     _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
                   noise, log_u, n, debug_mode, *out, nch,
                   "fused_segment_batched")
-    fused_segment_batched.launches += 1
+    _launched("fused_segment_batched", hs)
     return out
-
-
-fused_segment_batched.launches = 0
 
 
 def fused_segment_tril(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
@@ -877,11 +921,8 @@ def fused_segment_tril(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
     _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, tril,
                   noise, log_u, n, debug_mode, *out, 1,
                   "fused_segment_tril", kind="fused_tril")
-    fused_segment_tril.launches += 1
+    _launched("fused_segment_tril", hs)
     return out
-
-
-fused_segment_tril.launches = 0
 
 
 def fused_segment_tril_batched(hs: HistSpec, ns: NLLSpec,
@@ -906,11 +947,38 @@ def fused_segment_tril_batched(hs: HistSpec, ns: NLLSpec,
     _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, tril,
                   noise, log_u, n, debug_mode, *out, nch,
                   "fused_segment_tril_batched", kind="fused_tril")
-    fused_segment_tril_batched.launches += 1
+    _launched("fused_segment_tril_batched", hs)
     return out
 
 
-fused_segment_tril_batched.launches = 0
+def fused_segment_tempered(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
+                           hist_init: torch.Tensor, rb: torch.Tensor,
+                           params0: torch.Tensor, nll0: torch.Tensor,
+                           width: torch.Tensor, beta: torch.Tensor,
+                           noise: torch.Tensor, log_u: torch.Tensor,
+                           debug_mode: bool = False):
+    """B4 for a parallel-tempering ladder: the lock-step replicas of
+    :func:`fused_segment_batched` (``params0`` ``(ntemps, npar)``), each
+    replica c deciding with ``delta = beta[c] * df_diff(...)``
+    (pallas_step.py:782-786) against ``beta`` ``(ntemps,)`` float32,
+    every entry > 0.  The caller widens each replica's ``width`` row by
+    1/sqrt(beta) (mcmc/tempered.py)."""
+    dev = samples.device
+    nch = params0.shape[0]
+    _check_fused(hs, ns, samples, hist_init, rb, params0, nch)
+    n, _ = _check_segment(ns, params0, nll0, width, noise, log_u, nch)
+    _expect(beta, "beta", (nch,), torch.float32, dev)
+    if dev.type == "cpu":
+        return fused_segment_plain(hs, ns, samples, hist_init, rb, params0,
+                                   nll0, width, noise, log_u, debug_mode,
+                                   beta)
+    out = _segment_out(n, (nch,), ns.npar, dev)
+    _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
+                  noise, log_u, n, debug_mode, *out, nch,
+                  "fused_segment_tempered", kind="fused_tempered",
+                  beta=beta)
+    _launched("fused_segment_tempered", hs)
+    return out
 
 
 def blocked_segment(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
@@ -930,6 +998,7 @@ def blocked_segment(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
     """
     dev = samples.device
     _check_fused(hs, ns, samples, hist_init, rb, params0, None)
+    _check_unweighted(hs)
     n, nsub = _check_segment(ns, params0, nll0, width, noise, log_u, None,
                              blocked=True)
     if dev.type == "cpu":
@@ -940,11 +1009,8 @@ def blocked_segment(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
     _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
                   noise, log_u, n, debug_mode, *out, 1, "blocked_segment",
                   kind="blocked", nsub=nsub)
-    blocked_segment.launches += 1
+    _launched("blocked_segment")
     return out
-
-
-blocked_segment.launches = 0
 
 
 def blocked_segment_batched(hs: HistSpec, ns: NLLSpec,
@@ -961,6 +1027,7 @@ def blocked_segment_batched(hs: HistSpec, ns: NLLSpec,
     dev = samples.device
     nch = params0.shape[0]
     _check_fused(hs, ns, samples, hist_init, rb, params0, nch)
+    _check_unweighted(hs)
     n, nsub = _check_segment(ns, params0, nll0, width, noise, log_u, nch,
                              blocked=True)
     if dev.type == "cpu":
@@ -971,24 +1038,46 @@ def blocked_segment_batched(hs: HistSpec, ns: NLLSpec,
     _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
                   noise, log_u, n, debug_mode, *out, nch,
                   "blocked_segment_batched", kind="blocked", nsub=nsub)
-    blocked_segment_batched.launches += 1
+    _launched("blocked_segment_batched")
     return out
 
 
-blocked_segment_batched.launches = 0
+def _check_unweighted(hs: HistSpec) -> None:
+    if hs.weighted:
+        raise ValueError("the blocked kernel B5 takes unweighted samples "
+                         "(its rate moves reuse integer in-domain counts; "
+                         "weighted blocked fits take the stepper)")
 
-KERNELS = (segmented_histogram, segmented_histogram_batched, lut_eval,
-           fused_nll, fused_nll_batched, fused_segment,
-           fused_segment_batched, fused_segment_tril,
-           fused_segment_tril_batched, blocked_segment,
-           blocked_segment_batched)
+
+# Every form, by the name its launches count under.
+FORMS = (
+    "segmented_histogram", "segmented_histogram_weighted",
+    "segmented_histogram_batched", "segmented_histogram_batched_weighted",
+    "lut_eval",
+    "fused_nll", "fused_nll_weighted",
+    "fused_nll_batched", "fused_nll_batched_weighted",
+    "fused_segment", "fused_segment_weighted",
+    "fused_segment_batched", "fused_segment_batched_weighted",
+    "fused_segment_tril", "fused_segment_tril_weighted",
+    "fused_segment_tril_batched", "fused_segment_tril_batched_weighted",
+    "fused_segment_tempered", "fused_segment_tempered_weighted",
+    "blocked_segment", "blocked_segment_batched",
+)
+_LAUNCHES = dict.fromkeys(FORMS, 0)
+
+
+def _launched(name: str, hs: Optional[HistSpec] = None) -> None:
+    """Count one launch of wrapper ``name``'s kernel, under its weighted
+    form's name for weighted samples."""
+    _LAUNCHES[name + ("_weighted" if hs is not None and hs.weighted
+                      else "")] += 1
 
 
 def launch_counts() -> dict:
     """Launches of each kernel and form since the last reset."""
-    return {k.__name__: k.launches for k in KERNELS}
+    return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    for k in _LAUNCHES:
+        _LAUNCHES[k] = 0

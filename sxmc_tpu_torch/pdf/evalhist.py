@@ -11,18 +11,19 @@ Semantics (reference src/pdfz.{h,cpp}):
     (pdfz.cpp:245-302, 411-436; evalhist.py:140-155);
   * PDF value = bins[id] / (norm * bin_volume).
 
-:meth:`EvalHist.eval` is the segmented-histogram kernel B1
-(``ops.kernels.segmented_histogram``) with one segment, then the LUT
-gather B2 (``ops.kernels.lut_eval``): on a CUDA device the hand-written
-kernels, on the CPU their plain versions (the JAX package's
-``pallas_histogram`` + ``pallas_eval_lut``).  Weighted samples,
-density export and ``random_sample`` are not ported yet (ROADMAP queue
-A, item 3).
+:meth:`EvalHist.histogram` is the segmented-histogram kernel B1
+(``ops.kernels.segmented_histogram``) with one segment, and
+:meth:`EvalHist.eval` B1 then the LUT gather B2
+(``ops.kernels.lut_eval``): on a CUDA device the hand-written kernels,
+on the CPU their plain versions (the JAX package's ``pallas_histogram``
++ ``pallas_eval_lut``).  Per-sample ``weights`` (an extension over the
+reference, evalhist.py:20-22) take B1's weighted form: bins and norm
+are float64 sums of the in-domain weights, rounded once to float32.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,10 +57,6 @@ class EvalHist:
         weights=None,
         device="cuda",
     ):
-        if weights is not None:
-            raise NotImplementedError(
-                "weighted MC samples are not ported to sxmc_tpu_torch yet "
-                "(ROADMAP queue A, item 3 and kernel B4's weighted form)")
         samples = np.asarray(samples, dtype=np.float32)
         if samples.ndim == 1:
             if nfields <= 0 or samples.size % nfields != 0:
@@ -90,7 +87,8 @@ class EvalHist:
             raise PdfError("Cannot make histogram with zero bins.")
 
         self.samples_host = samples
-        self.weights = None
+        self._samples_t = None  # field-major device copy, made lazily
+        self.weights = weights
         self.nfields = nfields
         self.nobservables = nobservables
         self.lower_host = tuple(float(x) for x in lower)
@@ -101,11 +99,28 @@ class EvalHist:
         self.bin_volume = hist_ops.bin_volume(lower, upper, self.nbins)
         self.systematics: Tuple[transforms.SystematicDesc, ...] = ()
         self.device = resolve_device(device)
-        self._samples_t = None  # field-major device copy, made lazily
 
     @property
     def n_mc(self) -> int:
         return self.samples_host.shape[0]
+
+    @property
+    def weights(self) -> Optional[np.ndarray]:
+        """Per-sample float32 weights on the host, or None (unweighted).
+        May be set after construction, as on the JAX package's EvalHist
+        (tests/test_static_segments.py:34-41)."""
+        return self._weights
+
+    @weights.setter
+    def weights(self, weights) -> None:
+        if weights is not None:
+            weights = np.asarray(weights, np.float32).reshape(-1)
+            if weights.shape[0] != self.samples_host.shape[0]:
+                raise PdfError(
+                    f"{weights.shape[0]} weights for "
+                    f"{self.samples_host.shape[0]} samples")
+        self._weights = weights
+        self._samples_t = None
 
     def add_systematic(self, desc: transforms.SystematicDesc) -> None:
         """Attach a systematic (reference: Eval::AddSystematic)."""
@@ -138,14 +153,17 @@ class EvalHist:
             nfields=self.nfields, lower=self.lower_host,
             upper=self.upper_host, nbins=self.nbins,
             systematics=[(d, (True,)) for d in self.systematics],
-            seg_off=(0, self.n_mc))
+            seg_off=(0, self.n_mc), weighted=self.weights is not None)
 
     def device_samples(self) -> torch.Tensor:
-        """The field-major ``(nfields, n)`` samples on ``device``."""
+        """The field-major ``(nfields, n)`` samples on ``device``, with
+        the weights as one more row when weighted."""
         if self._samples_t is None:
-            self._samples_t = torch.as_tensor(
-                np.ascontiguousarray(self.samples_host.T),
-                device=self.device)
+            rows = self.samples_host.T
+            if self.weights is not None:
+                rows = np.concatenate([rows, self.weights[None]])
+            self._samples_t = torch.as_tensor(np.ascontiguousarray(rows),
+                                              device=self.device)
         return self._samples_t
 
     def histogram(self, params=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -179,6 +197,52 @@ class EvalHist:
     def eval_points(self, points, params=None):
         """Convenience: compute read_bins then evaluate."""
         return self.eval(self.compute_read_bins(points), params)
+
+    def density_histogram(self, params=None) -> np.ndarray:
+        """Normalized density per bin, shaped ``self.nbins``: bins /
+        (max(norm, 1) * bin_volume) in float32 (reference:
+        EvalHist::CreateHistogram, pdfz.cpp:498-594)."""
+        bins, norm = self.histogram(params)
+        bv = float(np.float32(self.bin_volume))
+        dens = bins / (torch.clamp_min(norm, 1.0) * bv)
+        return dens.cpu().numpy().reshape(self.nbins)
+
+    def density_projection(self, observable_index: int,
+                           params=None) -> np.ndarray:
+        """Normalized 1-D density of one observable, the others summed
+        out (the reference declares CreateHistogramProjection but leaves
+        it unimplemented, pdfz.cpp:597-619; evalhist.py:231-253)."""
+        if not 0 <= observable_index < self.nobservables:
+            raise PdfError(
+                "CreateHistogramProjection: Invalid observable index!")
+        dens = self.density_histogram(params)
+        axes = tuple(a for a in range(self.nobservables)
+                     if a != observable_index)
+        marg = dens.sum(axis=axes) if axes else dens
+        lo = float(np.float32(self.lower_host[observable_index]))
+        up = float(np.float32(self.upper_host[observable_index]))
+        width = (up - lo) / self.nbins[observable_index]
+        total = marg.sum() * width
+        return marg / total if total > 0 else marg
+
+    def random_sample(self, gen: torch.Generator, nexpected: float,
+                      syst_vals=None, uppers=None, lowers=None,
+                      poisson: bool = False,
+                      dataset: Optional[int] = None) -> np.ndarray:
+        """Draw ``(n, nobs + 1)`` events from the binned PDF at
+        ``syst_vals`` (reference: pdfz.cpp:817-922): categorical over
+        the bins, uniform within a bin, bins outside the optional
+        per-observable bounds excluded; all draws from the CPU generator
+        ``gen`` (:func:`sxmc_tpu_torch.generator.sample_from_counts`)."""
+        from sxmc_tpu_torch.generator import sample_from_counts
+
+        if dataset is None:
+            dataset = self.dataset
+        bins, _ = self.histogram(syst_vals)
+        return sample_from_counts(
+            gen, bins.cpu().numpy(), self.nbins, self.lower_host,
+            self.upper_host, nexpected, uppers=uppers, lowers=lowers,
+            poisson=poisson, dataset=dataset)
 
     def get_samples(self) -> np.ndarray:
         """Observable columns + dataset tag (reference: pdfz.h:542-556)."""

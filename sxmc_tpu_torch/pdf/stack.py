@@ -17,10 +17,20 @@ fits whose systematics are fixed or absent; :meth:`fused_nll_pair`
 (B3) and :meth:`fused_segment` (B4), with :meth:`fused_nll_pair_batch`
 and :meth:`fused_segment_batch` for lock-step chains, and
 :meth:`fused_segment_tril` / :meth:`fused_segment_tril_batch` for
-full-covariance proposals; :meth:`blocked_segment` and
+full-covariance proposals, :meth:`fused_segment_tempered` for a
+tempering ladder; :meth:`blocked_segment` and
 :meth:`blocked_segment_batch` (B5); and the binned likelihood's data counts
-(:meth:`data_bin_counts`, :meth:`counts_from_read_bins`).  KDE and
-weighted signals are not ported yet and raise.
+(:meth:`data_bin_counts`, :meth:`counts_from_read_bins`).  KDE signals
+are not ported yet and raise.
+
+Weighted MC (a signal whose ``histogram.weights`` is set; stack.py:
+183-194, 238-290): a static weighted row is a float64 host sum of its
+weights per bin, rounded once to float32, and its norm the float64 sum
+of those float32 bins (stack.py:246-247).  When any dynamic signal is
+weighted, the dynamic samples carry a weight row (1 for the dynamic
+signals without weights) and every kernel takes its weighted form:
+float64 weight sums, rounded once.  The blocked kernel B5 takes
+unweighted stacks only (``has_weights``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,9 +49,11 @@ from sxmc_tpu_torch.signal import Observable, Signal, Systematic
 from sxmc_tpu_torch.utils import as_f32, resolve_device
 
 
-def _host_histogram(samples, lower, upper, nbins) -> np.ndarray:
+def _host_histogram(samples, lower, upper, nbins,
+                    weights=None) -> np.ndarray:
     """Host (numpy) counts with the device bin-id math (the f32 scale
-    of ``compute_bin_ids``, stack.py:62-101 with pallas_scale=False)."""
+    of ``compute_bin_ids``, stack.py:62-101 with pallas_scale=False);
+    with ``weights``, their float64 sums per bin, rounded to float32."""
     samples = np.asarray(samples, np.float32)
     strides = hist_ops.bin_strides(nbins)
     scales = hist_ops.bin_scales(lower, upper, nbins)
@@ -56,7 +68,13 @@ def _host_histogram(samples, lower, upper, nbins) -> np.ndarray:
         axis = np.floor((col - lo) * scales[i]).astype(np.int32)
         np.clip(axis, 0, nbins[i] - 1, out=axis)
         ids += axis.astype(np.int64) * strides[i]
-    h = np.bincount(ids[valid], minlength=hist_ops.total_bins(nbins))
+    total = hist_ops.total_bins(nbins)
+    if weights is None:
+        h = np.bincount(ids[valid], minlength=total)
+    else:
+        h = np.bincount(ids[valid],
+                        weights=np.asarray(weights, np.float64)[valid],
+                        minlength=total)
     return h.astype(np.float32)
 
 
@@ -75,12 +93,8 @@ class PdfStack:
                 raise NotImplementedError(
                     f"signal {s.name}: only histogram PDFs are ported to "
                     "sxmc_tpu_torch (KDE: ROADMAP queue A, item 12)")
-            if s.histogram.weights is not None:
-                raise NotImplementedError(
-                    f"signal {s.name}: weighted MC is not ported yet")
-        # Weighted MC raises above; the blocked kernel B5 relies on it
-        # (its rate moves reuse integer in-domain counts as the norms).
-        self.has_weights = False
+        weights = [s.histogram.weights for s in signals]
+        self.has_weights = any(w is not None for w in weights)
 
         nobs = self.nobservables
         lower, upper, nbins = [0.0] * nobs, [1.0] * nobs, [1] * nobs
@@ -120,7 +134,7 @@ class PdfStack:
         norm_init = np.zeros(self.nsignals, np.float32)
         for i in self._static_idx:
             h = _host_histogram(arrays[i][:, :nobs], lower, upper,
-                                self.nbins)
+                                self.nbins, weights[i])
             hist_init[i] = h
             norm_init[i] = h.sum(dtype=np.float64)
         self.hist_init = torch.as_tensor(hist_init, device=self.device)
@@ -132,9 +146,11 @@ class PdfStack:
             self._dyn_idx.index(i) if touched[i] else -1
             for i in range(self.nsignals))
 
-        # Dynamic rows: field-major samples + segment offsets.
+        # Dynamic rows: field-major samples + segment offsets, and a
+        # weight row when a dynamic signal is weighted.
         self.hist_spec = None
         self.samples = None
+        dyn_weighted = any(weights[i] is not None for i in self._dyn_idx)
         if self._ndyn:
             dyn = [arrays[i] for i in self._dyn_idx]
             seg_off = np.concatenate([[0], np.cumsum([a.shape[0]
@@ -145,10 +161,16 @@ class PdfStack:
                 if any(m):
                     dyn_systs.append((desc, m))
             self.hist_spec = kernels.HistSpec.build(
-                self.nfields, lower, upper, self.nbins, dyn_systs, seg_off)
-            self.samples = torch.as_tensor(
-                np.ascontiguousarray(np.concatenate(dyn, axis=0).T),
-                device=self.device)
+                self.nfields, lower, upper, self.nbins, dyn_systs, seg_off,
+                weighted=dyn_weighted)
+            rows = np.concatenate(dyn, axis=0).T
+            if dyn_weighted:
+                w = np.concatenate([
+                    np.ones(a.shape[0], np.float32) if weights[i] is None
+                    else weights[i] for i, a in zip(self._dyn_idx, dyn)])
+                rows = np.concatenate([rows, w[None]])
+            self.samples = torch.as_tensor(np.ascontiguousarray(rows),
+                                           device=self.device)
         self._read_bins = None
 
     # ------------------------------------------------------------------
@@ -182,8 +204,8 @@ class PdfStack:
 
     @property
     def supports_fused(self) -> bool:
-        """True when the fused kernels (B3/B4) apply: at least one
-        dynamic segment (KDE and weighted stacks do not reach here)."""
+        """True when the fused kernels (B3/B4, weighted or not) apply: at
+        least one dynamic segment (KDE stacks do not reach here)."""
         return self._ndyn >= 1
 
     def histograms(self, theta_syst) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -331,14 +353,25 @@ class PdfStack:
             self.hist_spec, ns, self.samples, self.hist_init, read_bins,
             params0, nll0, tril, noise, log_u, debug_mode)
 
+    def fused_segment_tempered(self, params0, nll0, width, beta, read_bins,
+                               noise, log_u, ns: kernels.NLLSpec,
+                               debug_mode: bool = False):
+        """One swap interval of a parallel-tempering ladder: the
+        ``(ntemps, npar)`` replicas of :meth:`fused_segment_batch`, each
+        with its inverse temperature ``beta`` ``(ntemps,)`` in the accept
+        (B4's tempered form)."""
+        self._require_fused()
+        return kernels.fused_segment_tempered(
+            self.hist_spec, ns, self.samples, self.hist_init, read_bins,
+            params0, nll0, width, beta, noise, log_u, debug_mode)
+
     def blocked_segment(self, params0, nll0, width, read_bins, noise, log_u,
                         ns: kernels.NLLSpec, debug_mode: bool = False):
         """A whole blocked Metropolis-within-Gibbs segment of one chain
         (kernel B5): ``noise`` ``(n, M + 1, npar)``, ``log_u`` ``(n, M +
         1)``; returns per-cycle ``(samples (n, npar), nlls (n, 2),
-        accepted fractions (n,))``."""
+        accepted fractions (n,))``.  Unweighted stacks only."""
         self._require_fused()
-        assert not self.has_weights
         return kernels.blocked_segment(
             self.hist_spec, ns, self.samples, self.hist_init, read_bins,
             params0, nll0, width, noise, log_u, debug_mode)
@@ -350,7 +383,6 @@ class PdfStack:
         ``noise`` ``(n, M + 1, nchains, npar)``, histories ``(n, nchains,
         ...)`` (B5's batched form)."""
         self._require_fused()
-        assert not self.has_weights
         return kernels.blocked_segment_batched(
             self.hist_spec, ns, self.samples, self.hist_init, read_bins,
             params0, nll0, width, noise, log_u, debug_mode)

@@ -45,6 +45,8 @@ def _jax_inputs():
     nburn = int(fc.nsteps * fc.burnin_fraction)
     lengths = (nburn, nburn, fc.nsteps - 2 * nburn)
     key = jax.random.PRNGKey(fc.seed)
+    # As the JAX runner draws them: inside jit (one compile per length).
+    presample = jax.jit(jm._presample, static_argnums=(1, 2))
     datasets, streams = [], []
     for i in range(fc.nexperiments):
         exp_key = jax.random.fold_in(key, i)
@@ -54,8 +56,8 @@ def _jax_inputs():
         chain_key = jax.random.split(exp_key, 1)[0]
         phases = []
         for k, n in zip(jax.random.split(chain_key, 3), lengths):
-            noise, u = jm._presample(jax.random.split(k, n),
-                                     mcmc.nparameters, 0)
+            noise, u = presample(jax.random.split(k, n),
+                                 mcmc.nparameters, 0)
             phases.append((np.asarray(noise), np.asarray(u)))
         streams.append(phases)
     return datasets, streams

@@ -239,7 +239,7 @@ def test_cuda_lut_eval_equals_plain(cuda_pair, rows):
     want = kernels.lut_eval_plain(hists, norms, rb, st.bin_volume)
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
-    assert kernels.lut_eval.launches > 0
+    assert kernels.launch_counts()["lut_eval"] > 0
 
 
 @pytest.mark.cuda
@@ -316,12 +316,12 @@ def test_cuda_segment_tril_matches_plain(cuda_pair, nch):
     tril = tril.contiguous()
     args = (st.hist_spec, mcmc.nll_spec, st.samples, st.hist_init,
             st.read_bins, params, nll0, tril, noise, log_u)
-    kern = (kernels.fused_segment_tril_batched if nch > 1
-            else kernels.fused_segment_tril)
-    before = kern.launches
+    name = "fused_segment_tril_batched" if nch > 1 else "fused_segment_tril"
+    kern = getattr(kernels, name)
+    before = kernels.launch_counts()[name]
     s, n, a = kern(*args)
     ps, pn, pa = kernels.fused_segment_plain(*args)
-    assert kern.launches == before + 1
+    assert kernels.launch_counts()[name] == before + 1
     assert torch.equal(a, pa) and torch.equal(s, ps)
     assert (n.double().sum(-1) - pn.double().sum(-1)).abs().max() <= NLL_TOL
     assert 0 < float(a.sum()) < a.numel()
@@ -337,12 +337,12 @@ def test_cuda_blocked_segment_matches_plain(cuda_pair, nch):
                                                        sub=(4,))
     args = (st.hist_spec, mcmc.nll_spec, st.samples, st.hist_init,
             st.read_bins, params, nll0, width, noise, log_u)
-    kern = (kernels.blocked_segment_batched if nch > 1
-            else kernels.blocked_segment)
-    before = kern.launches
+    name = "blocked_segment_batched" if nch > 1 else "blocked_segment"
+    kern = getattr(kernels, name)
+    before = kernels.launch_counts()[name]
     s, n, a = kern(*args)
     ps, pn, pa = kernels.blocked_segment_plain(*args)
-    assert kern.launches == before + 1
+    assert kernels.launch_counts()[name] == before + 1
     assert a.shape == ((60, nch) if nch > 1 else (60,))
     assert torch.equal(a, pa) and torch.equal(s, ps)
     assert (n.double().sum(-1) - pn.double().sum(-1)).abs().max() <= NLL_TOL
@@ -351,3 +351,74 @@ def test_cuda_blocked_segment_matches_plain(cuda_pair, nch):
     s, n, a = kern(*args, debug_mode=True)
     ps, pn, pa = kernels.blocked_segment_plain(*args, debug_mode=True)
     assert bool((a == 1).all()) and torch.equal(s, ps)
+
+
+@pytest.fixture(scope="module")
+def cuda_weighted(cuda_pair):
+    """The card fixture's fit with every signal weighted (log-normal,
+    sigma 0.3): the weighted forms of B1, B3 and B4."""
+    mcmc, dev = cuda_pair
+    srcs, sigs, systs, obs = make_stack_inputs("sxmc_tpu_torch")
+    rng = np.random.default_rng(8)
+    for sig in sigs:
+        sig.histogram.weights = rng.lognormal(0, 0.3, sig.n_mc).astype(
+            np.float32)
+    wm = MCMC(srcs, sigs, systs, obs, device=dev)
+    wm.stack.set_data(make_data())
+    assert wm.stack.hist_spec.weighted
+    return wm, dev
+
+
+def _within_ties(got, want):
+    """Float64 weight sums rounded once: equal but on a rounding tie,
+    where the two float32 values are an ulp apart."""
+    ulp = torch.abs(torch.nextafter(want, torch.full_like(want, np.inf))
+                    - want)
+    return bool((torch.abs(got - want) <= ulp).all())
+
+
+@pytest.mark.cuda
+def test_cuda_weighted_histograms_equal_plain(cuda_weighted):
+    mcmc, dev = cuda_weighted
+    st = mcmc.stack
+    th = torch.as_tensor(np.asarray(THETAS * 2, np.float32), device=dev)
+    for name, theta in (("segmented_histogram", th[1]),
+                        ("segmented_histogram_batched", th)):
+        before = kernels.launch_counts()[name + "_weighted"]
+        got = getattr(kernels, name)(st.hist_spec, st.samples, theta)
+        want = kernels.segmented_histogram_plain(st.hist_spec, st.samples,
+                                                 theta)
+        assert kernels.launch_counts()[name + "_weighted"] == before + 1
+        assert all(_within_ties(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["batched", "tril", "tempered"])
+def test_cuda_weighted_and_tempered_segments_match_plain(cuda_pair,
+                                                         cuda_weighted,
+                                                         form):
+    """B4's weighted forms (4 chains: diagonal, tril, tempered) and its
+    unweighted tempered form against their plain versions."""
+    for mcmc, dev in (cuda_weighted, cuda_pair)[:2 if form == "tempered"
+                                                else 1]:
+        st = mcmc.stack
+        params, nll0, width, noise, log_u = _chains_inputs(mcmc, 4, 100)
+        beta = None
+        if form == "tril":
+            width = torch.diag_embed(width.clamp_min(0)).contiguous()
+        if form == "tempered":
+            beta = torch.as_tensor([1.0, 0.5, 0.25, 0.125], device=dev)
+            width = width / torch.sqrt(beta)[:, None]
+        name = {"batched": "fused_segment_batched",
+                "tril": "fused_segment_tril_batched",
+                "tempered": "fused_segment_tempered"}[form]
+        args = (st.hist_spec, mcmc.nll_spec, st.samples, st.hist_init,
+                st.read_bins, params, nll0, width)
+        tail = (noise, log_u)
+        got = (getattr(kernels, name)(*args, beta, *tail) if beta is not None
+               else getattr(kernels, name)(*args, *tail))
+        ps, pn, pa = kernels.fused_segment_plain(*args, *tail, beta=beta)
+        s, n, a = got
+        assert torch.equal(a, pa) and torch.equal(s, ps)
+        assert (n.double().sum(-1) - pn.double().sum(-1)).abs().max() \
+            <= NLL_TOL

@@ -98,20 +98,24 @@ def test_out_of_slice_cli_flags_raise(tmp_path, flag):
         main(["config.json", str(tmp_path), "--device", "cpu"] + flag)
 
 
-@pytest.mark.parametrize("entry", ["MCMC", "PdfStack", "EvalHist"])
+@pytest.mark.parametrize("entry", ["MCMC", "PdfStack", "EvalHist",
+                                   "TemperedMCMC"])
 def test_entry_points_default_to_the_card(entry):
-    """MCMC, PdfStack and EvalHist take the card unless the caller asks
-    for the CPU: without CUDA, constructing one with no device raises
-    (naming --device cpu) instead of quietly running on the CPU."""
+    """MCMC, TemperedMCMC, PdfStack and EvalHist take the card unless the
+    caller asks for the CPU: without CUDA, constructing one with no
+    device raises (naming --device cpu) instead of quietly running on
+    the CPU."""
     import torch
 
     from sxmc_tpu_torch.mcmc.metropolis import MCMC
+    from sxmc_tpu_torch.mcmc.tempered import TemperedMCMC
     from sxmc_tpu_torch.pdf.evalhist import EvalHist
     from sxmc_tpu_torch.pdf.stack import PdfStack
     from test_torch_pdf import make_stack_inputs
 
     srcs, sigs, systs, obs = make_stack_inputs("sxmc_tpu_torch", n_mc=200)
     build = {"MCMC": lambda: MCMC(srcs, sigs, systs, obs),
+             "TemperedMCMC": lambda: TemperedMCMC(srcs, sigs, systs, obs),
              "PdfStack": lambda: PdfStack(sigs, obs, systs),
              "EvalHist": lambda: EvalHist(
                  np.zeros((4, 1), np.float32), 1, 1, [0.0], [1.0], [2])}

@@ -43,9 +43,19 @@ from the root of a checkout, on a machine with one Hopper card.  It
           counted and printed, at most an ulp apart), decisions and
           parameters identical (else the first diverging step is
           printed), |dNLL| <= NLL_TOL;
+       the experiment-grouped forms of the sharded ensemble (B4
+          diagonal and tril, unweighted and weighted; B5 at M = 4), 4
+          fake experiments x 2 chains of the example, 500 steps: each
+          against its plain version (the same checks), and against the
+          batched form run experiment by experiment on the same noise
+          (identical decisions); then, at bench.py's
+          bench_sharded_ensemble shape (2 signals x 1M MC rows, 100
+          bins, a shift systematic, 3,000 - 7 e events in experiment
+          e), B4-grouped at 4 x 2 chains against B4-batched at 8 chains
+          on one dataset, in turns, with card time from torch.profiler;
   4. runs the port's CLI (--device cuda) on the reference example
      (examples/reference_example.json: 2 signals x 500k rows, 10 energy
-     bins, a radius cut, scale and resolution systematics) ten times:
+     bins, a radius cut, scale and resolution systematics) on every path:
      the default fit; "nchains": 8; both systematics fixed; --binned with
      "nchains": 8; "proposal": "full_cov", alone and with 8 chains;
      "rate_substeps": 4, alone and with 8 chains; "rate_substeps": 4
@@ -54,13 +64,19 @@ from the root of a checkout, on a machine with one Hopper card.  It
      swap every 10 steps), alone and with fixed systematics; and,
      through run_ensemble with both signals weighted (the config has no
      weights key), a weighted fit alone, with 8 chains, with full_cov,
-     with full_cov and 8 chains, and tempered.  Every launch counter is
-     reset just before each run and read just after; each run must
-     launch exactly its path's kernels, end with a finite limit and no
-     failed experiment, and fit sanely.  The runs on the stepper loop
-     (fixed, binned) take fewer steps, printed as a cut; blocked runs
-     also print parameter updates/s; a profiled tempered fit splits its
-     wall into kernel and host time;
+     with full_cov and 8 chains, and tempered; then the sharded ensemble
+     (4 experiments x 2 chains as one batch) through --sharded: diagonal,
+     "proposal": "full_cov", "rate_substeps": 4 and --binned (the
+     stepper, experiment by experiment), and through
+     run_sharded_ensemble with both signals weighted: diagonal and
+     full_cov: 23 paths.  Every launch counter is reset just before
+     each run and read just after; each run must launch exactly its
+     path's kernels, end with a finite limit (four on the sharded
+     paths) and no failed experiment, and fit sanely.  The runs on the
+     stepper loop (fixed, binned) take fewer steps, printed as a cut;
+     blocked runs also print parameter updates/s, sharded runs their
+     fake-data set-up apart from the fit; a profiled tempered fit splits
+     its wall into kernel and host time;
   5. prints the kernels' JSON line (every kernel and form: launches on
      the paths, error, times, bound, library time), the card line, and
      as its last line {"ok": true, "device": {...}}.
@@ -88,10 +104,11 @@ NLL_TOL = 1e-3
 SEGMENT_STEPS = 500
 NCHAINS = 8
 FULL_STEPS = 100_000   # the example's nsteps
-LOOP_STEPS = 20_000    # the stepper-loop paths' cut
-SHORT_STEPS = 2_000    # the cut of the new options' stepper-loop paths
+LOOP_STEPS = 8_000     # the stepper-loop paths' cut (host-bound)
+SHORT_STEPS = 1_000    # the cut of the later options' stepper-loop paths
 RATE_SUBSTEPS = 4      # M of the blocked runs (README, bench.py)
 SPLIT_STEPS = 20_000   # the profiled tempered fit (2,000 swap intervals)
+NEXP, CPE = 4, 2       # the sharded paths: experiments x chains each
 NTEMPS, TMAX, SWAP_EVERY = 8, 32.0, 10  # the tempered sampler's defaults
 WEIGHT_SIGMA = 0.3     # log-normal per-row MC weights of the weighted runs
 
@@ -113,12 +130,14 @@ REPLACES = {
     "blocked_segment": "sxmc_tpu/ops/pallas_step.py:1239",
     "blocked_segment_batched": "sxmc_tpu/ops/pallas_step.py:1239",
     "fused_segment_tempered": "sxmc_tpu/ops/pallas_step.py:808",
+    "fused_segment_grouped": "sxmc_tpu/ops/pallas_step.py:808",
+    "fused_segment_tril_grouped": "sxmc_tpu/ops/pallas_step.py:808",
+    "blocked_segment_grouped": "sxmc_tpu/ops/pallas_step.py:1239",
 }
 # Each weighted form replaces its unweighted form's TPU kernel (the
 # has_weights / has_wrow branches of the same pallas_call).
 REPLACES.update({f"{k}_weighted": v for k, v in list(REPLACES.items())
-                 if k not in ("lut_eval", "blocked_segment",
-                              "blocked_segment_batched")})
+                 if k != "lut_eval" and not k.startswith("blocked")})
 
 
 def fail(msg: str) -> None:
@@ -166,7 +185,10 @@ def device_ms(torch, fn, reps: int, names) -> float:
     """Milliseconds per call that the kernels whose names contain one of
     ``names`` spent on the card (torch.profiler), without the host's
     launch gaps that the CUDA-event times include; None when the
-    profiler records no such kernel."""
+    profiler records no such kernel.  Each such kernel runs once per
+    call of ``fn``; the time is the mean over the launches the profiler
+    recorded (it may drop some of a run of long launches: that is
+    printed, and the mean stays that of whole launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -175,12 +197,16 @@ def device_ms(torch, fn, reps: int, names) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    total_ms = 0.0
     for ev in prof.key_averages():
-        if any(n in ev.key for n in names):
-            total_us += (getattr(ev, "device_time_total", None)
-                         or getattr(ev, "cuda_time_total", 0.0))
-    return total_us / 1e3 / reps if total_us else None
+        if any(n in ev.key for n in names) and ev.count:
+            us = (getattr(ev, "device_time_total", None)
+                  or getattr(ev, "cuda_time_total", 0.0))
+            total_ms += us / 1e3 / ev.count
+            if ev.count != reps:
+                print(f"torch.profiler recorded {ev.count} of {reps} "
+                      f"launches of {ev.key[:40]}")
+    return total_ms or None
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -738,6 +764,7 @@ def check_kernels(torch, kernels, config_path: str, workdir: str):
 
     check_weighted(torch, kernels, config_path, workdir, data, out, beta,
                    noise, log_u)
+    check_grouped(torch, kernels, config_path, workdir, out)
     for v in out.values():
         v.setdefault("library_ms", None)
     return out
@@ -965,6 +992,212 @@ def check_weighted(torch, kernels, config_path, workdir, data, out, beta,
         sample_bytes, nsig, nev)
 
 
+def grouped_data(torch, stack, fc, nexp: int):
+    """NEXP fake experiments of the fit (seeds 3, 4, ...), padded:
+    their ``(nexp, nsig, nev)`` read bins and each one's event count."""
+    from sxmc_tpu_torch.generator import make_fake_dataset
+    from sxmc_tpu_torch.parallel.ensemble import pad_datasets
+
+    datasets = [make_fake_dataset(torch.Generator().manual_seed(3 + e),
+                                  fc.signals, fc.systematics,
+                                  fc.observables, stack=stack)
+                for e in range(nexp)]
+    return (stack.compute_read_bins(pad_datasets(datasets)),
+            [d.shape[0] for d in datasets])
+
+
+def check_grouped(torch, kernels, config_path, workdir, out):
+    """Phase 3, the sharded ensemble's experiment-grouped forms: each
+    against its plain version and against the batched form run
+    experiment by experiment, then B4-grouped against B4-batched at
+    bench.py's shape."""
+    from sxmc_tpu_torch.fitconfig import FitConfig
+    from sxmc_tpu_torch.mcmc.metropolis import MCMC, initial_state
+
+    dev = torch.device("cuda")
+    f4 = 4.0
+    nch = NEXP * CPE
+    nsub = RATE_SUBSTEPS + 1
+    forms = (("fused_segment_grouped", False, False),
+             ("fused_segment_tril_grouped", True, False),
+             ("blocked_segment_grouped", False, False),
+             ("fused_segment_grouped", False, True),
+             ("fused_segment_tril_grouped", True, True))
+    fits = {}
+    for name, tril, weighted in forms:
+        if weighted not in fits:
+            fc = (weighted_fit(config_path, workdir) if weighted else
+                  FitConfig.from_json_file(config_path, data_root=workdir))
+            mcmc = MCMC(fc.sources, fc.signals, fc.systematics,
+                        fc.observables, device=dev)
+            fits[weighted] = (mcmc,) + grouped_data(torch, mcmc.stack, fc,
+                                                    NEXP)
+        mcmc, rb, nevs = fits[weighted]
+        st, ns = mcmc.stack, mcmc.nll_spec
+        hs = st.hist_spec
+        npar = mcmc.nparameters
+        nsig, nev = rb.shape[1:]
+        blocked = name.startswith("blocked")
+        label = name + ("_weighted" if weighted else "")
+        # Every chain starts at the means, with its experiment's NLL.
+        params, _, width = initial_state(mcmc, rb[0], nch)
+        nll0 = torch.stack([torch.stack(initial_state(mcmc, rb[e])[1])
+                            for e in range(NEXP) for _ in range(CPE)])
+        if tril:
+            w = width.clamp_min(0.0)
+            width = (torch.diag_embed(w) + 0.3 * torch.tril(
+                torch.ones((npar, npar), device=dev), -1)
+                * w[..., :, None]).contiguous()
+        gen = torch.Generator(dev).manual_seed(43)
+        lead = (SEGMENT_STEPS,) + ((nsub,) if blocked else ()) + (nch,)
+        noise = torch.randn(lead + (npar,), generator=gen, device=dev)
+        log_u = torch.log(torch.rand(lead, generator=gen, device=dev))
+        args = (hs, ns, st.samples, st.hist_init, rb, params, nll0, width,
+                noise, log_u)
+        fn = getattr(kernels, name)
+        plain = (kernels.blocked_segment_grouped_plain if blocked
+                 else kernels.fused_segment_grouped_plain)
+        got = fn(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        err = same_walk(torch, label, got, want)
+        a = got[2]
+        check(0 < float(a.sum()) < a.numel(), f"{label}: no walk")
+        # Experiment by experiment through the batched form, same noise.
+        batched = getattr(kernels, name.replace("grouped", "batched"))
+        ax = 2 if blocked else 1
+        berr = 0.0
+        for e in range(NEXP):
+            def part(t, dim=0):
+                return t.narrow(dim, e * CPE, CPE).contiguous()
+
+            bs, bn, ba = batched(hs, ns, st.samples, st.hist_init, rb[e],
+                                 part(params), part(nll0), part(width),
+                                 part(noise, ax), part(log_u, ax))
+            c = slice(e * CPE, (e + 1) * CPE)
+            check(torch.equal(ba, a[:, c]) and torch.equal(bs, got[0][:, c]),
+                  f"{label}: experiment {e} decides otherwise than "
+                  "the batched form on its read bins")
+            berr = max(berr, float((bn.double().sum(-1) - got[1][:, c]
+                                    .double().sum(-1)).abs().max()))
+        ms, plain_ms = in_turns(torch, lambda: plain(*args),
+                                lambda: fn(*args), 1, 10)
+        seg_bytes = (f4 * hs.nrows * hs.n
+                     + f4 * (nsig * hs.total + NEXP * nsig * nev)
+                     + f4 * nch * npar * (npar if tril else 1)
+                     + f4 * SEGMENT_STEPS * nch * (
+                         (nsub * (npar + 1) + npar + 3) if blocked
+                         else (2 * npar + 4)))
+        events = CPE * sum(event_ops(nsig, n_e) for n_e in nevs)
+        ops = SEGMENT_STEPS * (
+            binning_ops(hs, nch) + weight_ops(hs, nch)
+            + (nsub if blocked else 1) * events
+            + (nch * npar * (npar + 1) if tril else 0))
+        unit = "cycle" if blocked else "step"
+        print(f"{label}, {NEXP} experiments ({nevs} events, padded to "
+              f"{nev}) x {CPE} chains x {SEGMENT_STEPS} {unit}s: "
+              f"trajectories identical to the plain version (accept rate "
+              f"{float(a.mean()):.3f}), |dNLL| {err:.3g}; experiment by "
+              f"experiment through the batched form: decisions identical, "
+              f"|dNLL| {berr:.3g}; kernel {ms:.4f} ms "
+              f"({ms / SEGMENT_STEPS * 1e3:.2f} us/{unit}), plain "
+              f"{plain_ms:.4f} ms")
+        out[label] = {"max_abs_err": err, "batched_max_abs_err": berr,
+                      "ms": ms, "plain_ms": plain_ms, **bound(seg_bytes, ops)}
+    out["fused_segment_grouped"].update(bench_shape_turns(torch, kernels))
+
+
+def bench_shape_turns(torch, kernels) -> dict:
+    """B4-grouped (NEXP x CPE chains) against B4-batched (the same number
+    of chains on one dataset) at bench.py's bench_sharded_ensemble shape,
+    in turns (batched, grouped, grouped, batched), CUDA events and
+    torch.profiler card time."""
+    from sxmc_tpu_torch.mcmc.metropolis import MCMC, initial_state
+    from sxmc_tpu_torch.parallel.ensemble import pad_datasets
+    from sxmc_tpu_torch.signal import Observable, Signal, Source, Systematic
+
+    dev = torch.device("cuda")
+    n_mc, nevents, nch = 1_000_000, 3000, NEXP * CPE
+    rng = np.random.default_rng(5)
+    obs = Observable(name="energy", field="energy", bins=100, lower=5.0,
+                     upper=15.0, field_index=0)
+    syst = Systematic(name="shift", type=0, observable_field="energy",
+                      means=[0.0], sigmas=[0.05], observable_field_index=0,
+                      pidx=[0])
+    fields = ["energy", "DATASET"]
+    src_s = Source(name="sig", index=0, mean=1.0)
+    src_b = Source(name="bkg", index=1, mean=1.0, sigma=0.1)
+    sig = Signal.from_table("sig", "s", rng.normal(10, 1, (n_mc, 1)).astype(
+        np.float32), ["energy"], 0, src_s, 1000.0, fields, [obs], [], [syst])
+    bkg = Signal.from_table("bkg", "b", rng.uniform(5, 15, (n_mc, 1)).astype(
+        np.float32), ["energy"], 0, src_b, 2000.0, fields, [obs], [], [])
+    mcmc = MCMC([src_s, src_b], [sig, bkg], [syst], [obs], device=dev)
+    st, ns = mcmc.stack, mcmc.nll_spec
+    datasets = [np.stack([rng.uniform(5, 15, nevents - 7 * e).astype(
+        np.float32), np.zeros(nevents - 7 * e, np.float32)], axis=1)
+        for e in range(NEXP)]
+    rb = st.compute_read_bins(pad_datasets(datasets))
+    params, nll0, width = initial_state(mcmc, rb[0], nch)
+    nll0 = torch.stack(nll0, dim=-1)
+    gen = torch.Generator(dev).manual_seed(47)
+    noise = torch.randn((SEGMENT_STEPS, nch, mcmc.nparameters),
+                        generator=gen, device=dev)
+    log_u = torch.log(torch.rand((SEGMENT_STEPS, nch), generator=gen,
+                                 device=dev))
+    rest = (params, nll0, width, noise, log_u)
+    base = (st.hist_spec, ns, st.samples, st.hist_init)
+    rb0 = rb[0, :, :nevents].contiguous()  # experiment 0, unpadded
+
+    def grouped():
+        return kernels.fused_segment_grouped(*base, rb, *rest)
+
+    def batched():
+        return kernels.fused_segment_batched(*base, rb0, *rest)
+
+    g_ms, b_ms = in_turns(torch, batched, grouped, 10, 10)
+    # Card time in turns too (batched, grouped, grouped, batched).
+    names = ("sx_fused_kernel",)
+    b1, g1, g2, b2 = (device_ms(torch, fn, 10, names)
+                      for fn in (batched, grouped, grouped, batched))
+    print(f"card time a {SEGMENT_STEPS}-step segment in turns (batched, "
+          f"grouped, grouped, batched): {b1}, {g1}, {g2}, {b2} ms")
+    g_dev = (g1 + g2) / 2 if g1 and g2 else None
+    b_dev = (b1 + b2) / 2 if b1 and b2 else None
+    # A 40-ms launch's card time is its CUDA-event time to well within
+    # 5% (one launch gap); a card time further off is not trusted and
+    # stays out of the kernels line.
+    for what, dev_ms, ev_ms in (("grouped", g_dev, g_ms),
+                                ("batched", b_dev, b_ms)):
+        agree = dev_ms is not None and abs(dev_ms / ev_ms - 1) <= 0.05
+        print(f"{what}: card time {dev_ms} ms against CUDA events "
+              f"{ev_ms:.4f} ms a segment: "
+              f"{'agree' if agree else 'DISAGREE, left out'}")
+        if not agree:
+            if what == "grouped":
+                g_dev = None
+            else:
+                b_dev = None
+    hs, npar, f4 = st.hist_spec, mcmc.nparameters, 4.0
+    nsig = rb.shape[1]
+    nevs = [d.shape[0] for d in datasets]
+    bnd = bound(f4 * hs.nrows * hs.n + f4 * (nsig * hs.total + rb.numel())
+                + f4 * SEGMENT_STEPS * nch * (2 * npar + 4),
+                SEGMENT_STEPS * (binning_ops(hs, nch) + CPE * sum(
+                    event_ops(nsig, n_e) for n_e in nevs)))
+    print(f"bench_sharded_ensemble shape (2 x {n_mc} MC, 100 bins, shift; "
+          f"{[d.shape[0] for d in datasets]} events): B4-grouped {NEXP} x "
+          f"{CPE} chains {g_ms / SEGMENT_STEPS * 1e3:.2f} us/step (on the "
+          f"card {g_dev} ms a segment), B4-batched {nch} chains on one "
+          f"dataset {b_ms / SEGMENT_STEPS * 1e3:.2f} us/step (on the card "
+          f"{b_dev} ms); {nch * SEGMENT_STEPS / g_ms * 1e3:.6g} against "
+          f"{nch * SEGMENT_STEPS / b_ms * 1e3:.6g} chain-steps/s in the "
+          f"kernel; grouped bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    return {"bench_shape_ms": g_ms, "bench_shape_device_ms": g_dev,
+            "bench_shape_batched_ms": b_ms,
+            "bench_shape_batched_device_ms": b_dev,
+            "bench_shape_bound_ms": bnd["bound_ms"]}
+
+
 # Per path: the fit's edits, the CLI flags, its step count, and the exact
 # launches of every kernel per experiment (nsteps + 1 for B1-batched on
 # the binned path: the initial NLL, then every step).
@@ -1050,7 +1283,7 @@ def path_config(config_path: str, workdir: str, tag: str, edits: dict,
     with open(config_path) as f:
         cfg = json.load(f)
     cfg["fit"]["nsteps"] = nsteps
-    for key in ("nchains", "proposal", "rate_substeps"):
+    for key in ("nexperiments", "nchains", "proposal", "rate_substeps"):
         if edits.get(key):
             cfg["fit"][key] = edits[key]
     if edits.get("fixed"):
@@ -1152,6 +1385,124 @@ def main_paths(torch, kernels, config_path: str, workdir: str):
     return results
 
 
+# The sharded ensemble's paths: NEXP fake experiments x CPE chains as
+# one batch.  Per path: the edits, the CLI flags (None: through
+# run_sharded_ensemble, the signals weighted), the step count and the
+# exact launches: B1 for each experiment's fake data, B3 for each
+# experiment's initial NLL, then one grouped launch per phase; --binned
+# runs experiment by experiment on the stepper (B1-batched for the
+# initial NLL of each experiment's chains, then once a step).
+SHARDED = {"nexperiments": NEXP, "nchains": CPE}
+SHARDED_PATHS = [
+    ("sharded", {}, [], FULL_STEPS,
+     {"segmented_histogram": NEXP, "fused_nll": NEXP,
+      "fused_segment_grouped": 3}),
+    ("sharded, full_cov", {"proposal": "full_cov"}, [], FULL_STEPS,
+     {"segmented_histogram": NEXP, "fused_nll": NEXP,
+      "fused_segment_tril_grouped": 3}),
+    ("sharded, rate_substeps=4", {"rate_substeps": RATE_SUBSTEPS}, [],
+     FULL_STEPS, {"segmented_histogram": NEXP, "fused_nll": NEXP,
+                  "blocked_segment_grouped": 3}),
+    ("sharded, binned", {}, ["--binned"], SHORT_STEPS,
+     {"segmented_histogram": NEXP,
+      "segmented_histogram_batched": NEXP * (SHORT_STEPS + 1)}),
+    ("sharded, weighted", {"weighted": True}, None, FULL_STEPS,
+     {"segmented_histogram_weighted": NEXP, "fused_nll_weighted": NEXP,
+      "fused_segment_grouped_weighted": 3}),
+    ("sharded, weighted, full_cov", {"weighted": True,
+                                     "proposal": "full_cov"}, None,
+     FULL_STEPS,
+     {"segmented_histogram_weighted": NEXP, "fused_nll_weighted": NEXP,
+      "fused_segment_tril_grouped_weighted": 3}),
+]
+
+
+def sharded_paths(torch, kernels, config_path: str, workdir: str):
+    """Phase 4, the sharded ensemble: through the CLI's --sharded (the
+    weighted paths through run_sharded_ensemble), counters around each;
+    chain-steps/s = nsteps x nexp x nchains / the fit's wall (host clock,
+    ending in a device synchronisation), the fake-data set-up timed on
+    its own."""
+    from sxmc_tpu_torch.cli import main as cli_main
+    from sxmc_tpu_torch.observability import MetricsLogger
+    from sxmc_tpu_torch.parallel.ensemble import run_sharded_ensemble
+
+    dev = torch.device("cuda")
+    results = []
+    for tag, edits, flags, nsteps, expect in SHARDED_PATHS:
+        if nsteps != FULL_STEPS:
+            print(f"{tag}: cut to {nsteps} steps (the example has "
+                  f"{FULL_STEPS}): the stepper loop is host-bound")
+        m = edits.get("rate_substeps", 0)
+        cfg = path_config(config_path, workdir, tag, dict(SHARDED, **edits),
+                          nsteps)
+        out = os.path.join(workdir, "out_" + os.path.basename(cfg)[:-5])
+        fc = None
+        if flags is None:
+            fc = weighted_fit(cfg, workdir)
+            os.makedirs(out, exist_ok=True)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        if fc is None:
+            rc = cli_main([cfg, out, "--data-root", workdir, "--device",
+                           "cuda", "--sharded"] + flags)
+        else:
+            run_sharded_ensemble(fc, device=dev, verbose=False,
+                                 metrics=MetricsLogger(os.path.join(
+                                     out, "example_metrics.jsonl")))
+            rc = 0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        check(rc == 0, f"{tag}: cli returned {rc}")
+        want = {k: expect.get(k, 0) for k in counts}
+        check(counts == want, f"{tag}: launches {counts}, expected {want}")
+        with open(os.path.join(out, "example_metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        setup = next(r for r in recs if r["event"] == "sharded_setup")
+        fit = next(r for r in recs if r["event"] == "sharded_fit")
+        limits = [r["upper"] for r in recs
+                  if r["event"] == "experiment_limit"]
+        check(len(limits) == NEXP and all(math.isfinite(x) for x in limits),
+              f"{tag}: limits {limits}")
+        # Each experiment's fake data is drawn at the nominal rates: the
+        # limit on signal1 sits a little above 1.
+        check(all(0.8 < x < 1.5 for x in limits), f"{tag}: limits {limits}")
+        if fc is None:
+            from sxmc_tpu_torch.stats.likelihood import LikelihoodSpace
+
+            nkeep = nsteps - 2 * int(nsteps * 0.2)
+            for i in range(NEXP):
+                ls = LikelihoodSpace.load(os.path.join(out,
+                                                       f"example_{i}.npz"))
+                check(ls.samples.shape == (CPE * nkeep, 4)
+                      and np.isfinite(ls.samples).all()
+                      and np.isfinite(ls.nll_values).all(),
+                      f"{tag}: experiment {i}'s likelihood space "
+                      f"{ls.samples.shape}")
+        rate = fit["steps_per_sec"]
+        updates = rate * (m + 1) if m else None
+        print(f"path {tag}: route {fit['route']}, limits "
+              f"{[round(x, 6) for x in limits]}, {nsteps} "
+              f"{'cycles' if m else 'steps'} x {NEXP} experiments x {CPE} "
+              f"chains in {fit['wall_seconds']:.3f} s = {rate!r} chain-"
+              f"{'cycles' if m else 'steps'}/s"
+              + (f" ({updates!r} parameter updates/s)" if m else "")
+              + f"; fake data and read bins {setup['seconds']:.3f} s "
+              f"({setup['nevents']} events a padded experiment); whole run "
+              f"{wall:.2f} s; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        results.append({"path": tag, "nsteps": nsteps,
+                        "nchains": NEXP * CPE, "steps_per_sec": rate,
+                        "updates_per_sec": updates,
+                        "replica_steps_per_sec": None,
+                        "wall_seconds": fit["wall_seconds"],
+                        "setup_seconds": setup["seconds"],
+                        "cli_seconds": wall, "limits": limits,
+                        "launches": counts})
+    return results
+
+
 def tempered_split(torch, config_path: str, workdir: str) -> dict:
     """The tempered fit's wall against its device time: the example at
     its full width through TemperedMCMC (SPLIT_STEPS steps), once on the
@@ -1240,6 +1591,7 @@ def main() -> int:
         config_path = write_example(workdir)
         measured = check_kernels(torch, kernels, config_path, workdir)
         paths = main_paths(torch, kernels, config_path, workdir)
+        paths += sharded_paths(torch, kernels, config_path, workdir)
         split = tempered_split(torch, config_path, workdir)
 
     rows = []
@@ -1251,11 +1603,15 @@ def main() -> int:
                          launches_by_path={p["path"]: p["launches"][name]
                                            for p in paths},
                          **measured[name]))
+    eight = next(p for p in paths if p["path"] == f"nchains={NCHAINS}")
     for p in paths:
         extra = (f", {p['updates_per_sec']!r} parameter updates/s"
                  if p["updates_per_sec"] else "")
         if p["replica_steps_per_sec"]:
             extra += f", {p['replica_steps_per_sec']!r} replica-steps/s"
+        if p["path"].startswith("sharded"):
+            extra += (f"; {NEXP} experiments x {CPE} chains, beside the "
+                      f"{NCHAINS}-chain path's {eight['steps_per_sec']!r}")
         print(f"path {p['path']}: {p['steps_per_sec']!r} chain-steps/s "
               f"({p['nsteps']} steps x {p['nchains']} chain(s){extra}) on "
               f"{smi}")

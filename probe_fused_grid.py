@@ -73,8 +73,8 @@ def main() -> int:
 
     def launch(nblocks):
         err = lib.sx_fused(
-            ctypes.byref(cs), nch, 0, p(st.samples), p(st.hist_init), p(rb),
-            rb.shape[1], p(params), p(nll0), p(width), None, p(noise),
+            ctypes.byref(cs), nch, 0, 0, p(st.samples), p(st.hist_init),
+            p(rb), rb.shape[1], p(params), p(nll0), p(width), None, p(noise),
             p(log_u), n, 0, p(scratch), p(partials), nblocks, p(s_out),
             p(n_out), p(a_out), kernels._stream(dev))
         kernels._check_cuda(lib, err, f"sx_fused on {nblocks} blocks")

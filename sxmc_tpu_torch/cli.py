@@ -39,14 +39,20 @@ def main(argv=None) -> int:
                              "replica exchange for multimodal posteriors); "
                              "the others are not ported")
     not_ported = {
-        "sharded": "ROADMAP queue A, item 14",
+        "num_processes": "ROADMAP queue A, item 14",
+        "coordinator": "ROADMAP queue A, item 14",
         "hypotest": "ROADMAP queue A, item 10",
         "gof": "ROADMAP queue A, item 10",
         "bias_study": "ROADMAP queue A, item 10",
         "checkpoint_steps": "ROADMAP queue A, item 8",
     }
     parser.add_argument("--sharded", action="store_true",
-                        help="not ported")
+                        help="fit every experiment's chains as one batch "
+                             "(the experiment-grouped kernels) on the one "
+                             "device")
+    parser.add_argument("--num-processes", type=int, default=1,
+                        metavar="N", help="not ported")
+    parser.add_argument("--coordinator", default=None, help="not ported")
     parser.add_argument("--hypotest", metavar="NTOYS", nargs="?", const=200,
                         type=int, default=0, help="not ported")
     parser.add_argument("--gof", metavar="NTOYS", nargs="?", const=0,
@@ -69,6 +75,10 @@ def main(argv=None) -> int:
 
     def requested(key):  # --gof takes an optional count; 0 asks for it too
         v = getattr(args, key)
+        if key == "num_processes":
+            return v > 1
+        if key == "coordinator":
+            return v is not None
         return v is True or (v is not None and v is not False
                              and (v > 0 or key == "gof"))
 
@@ -83,6 +93,14 @@ def main(argv=None) -> int:
             f"--sampler {args.sampler} is not ported to sxmc_tpu_torch yet "
             f"(ROADMAP queue A, item {item})")
     device = resolve_device(args.device)
+
+    if args.sharded:
+        from sxmc_tpu_torch.parallel.ensemble import main_sharded
+
+        main_sharded(args.config, args.output_path, device=device,
+                     data_root=args.data_root, binned=args.binned,
+                     rate_substeps=args.rate_substeps)
+        return 0
 
     from sxmc_tpu_torch.ensemble import main_fit
 

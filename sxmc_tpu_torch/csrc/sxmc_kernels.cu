@@ -18,10 +18,13 @@
 //                      (lock-step chains) forms, diagonal and tril
 //                      (full-covariance) proposals, tempered (a per-chain
 //                      inverse temperature in the accept), each
-//                      unweighted and weighted.
+//                      unweighted and weighted; experiment-grouped
+//                      (cpe > 0: every experiment's chains in one
+//                      launch, each reading its experiment's read bins),
+//                      diagonal and tril, unweighted and weighted.
 // B5  sx_blocked       replaces sxmc_tpu/ops/pallas_step.py::
-//                      pallas_fused_segment_blocked, single-chain and
-//                      batched forms.
+//                      pallas_fused_segment_blocked, single-chain,
+//                      batched and experiment-grouped forms.
 //
 // B1 -- what bounds it.  Per sample it reads nfields floats (12 bytes on
 // the reference example), does a few float ops and one atomic increment
@@ -217,6 +220,16 @@ __global__ void sx_eval_lut_kernel(const float* __restrict__ counts,
 
 // ------------------------------------------------------------- B3/B4
 
+// Chain c's read bins: the one dataset's (nsig, nev) rows, or with kGrp
+// those of experiment c / cpe in (nexp, nsig, nev).
+template <bool kGrp>
+__device__ __forceinline__ const int* sx_chain_rb(const SxSpec& sp,
+                                                  const int* rb, int nev,
+                                                  int cpe, int c) {
+  if constexpr (kGrp) return rb + (long long)(c / cpe) * sp.nsig * nev;
+  return rb;
+}
+
 // The cooperative grid never holds more than 4 blocks per SM
 // (sx_fused_grid), so the kernel may use 64 registers a thread: with
 // them ptxas spills nothing (at its default 32 the per-sample field
@@ -236,13 +249,21 @@ __global__ void sx_eval_lut_kernel(const float* __restrict__ counts,
 // so the fast-accept branch is unchanged.  The 1/sqrt(beta) widening of
 // the proposals is in the width rows the caller passes.
 //
+// kGrp: the experiment-grouped form of the sharded ensemble
+// (pallas_step.py:741-752).  rb holds (nexp, nsig, nev) read bins and
+// chain c sums the events of experiment c / cpe (its rows start at rb +
+// (c / cpe) * nsig * nev); every chain still shares each sample read of
+// the rebuild.  Experiments padded to a common nev carry sentinel read
+// bins (-1 or -2) in their pad rows, which add exactly 0.  The grouped forms
+// are lock-step forms (kChains) and never tempered.
+//
 // Each flag is a template parameter, so that the forms without it
 // compile to what they were before it existed.
-template <bool kChains, bool kTril, bool kW, bool kTemp>
+template <bool kChains, bool kTril, bool kW, bool kTemp, bool kGrp>
 __global__ void __launch_bounds__(SX_THREADS, 4)
 sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
                 const float* __restrict__ hist_init,
-                const int* __restrict__ rb, int nev,
+                const int* __restrict__ rb, int nev, int cpe,
                 const float* __restrict__ params0,
                 const float* __restrict__ nll0,
                 const float* __restrict__ width,
@@ -252,6 +273,7 @@ sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
                 SxAcc<kW>* scratch, double* partials, float* samples_out,
                 float* nlls_out, float* acc_out, int nrep) {
   using Acc = SxAcc<kW>;
+  static_assert(!kGrp || (kChains && !kTemp), "grouped forms: chains only");
   if (!kChains) nch = 1;  // lets the compiler fold the chain loops away
   cg::grid_group grid = cg::this_grid();
   SX_DYN_SMEM(Acc, sh);
@@ -329,7 +351,9 @@ sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
     __syncthreads();
     sx_event_partials<kChains>(
         sp, nch, [&](int c) { return cur_hist + c * sp.ndyn * sp.total; },
-        hist_init, rb, nev, s_w, s_norm, s_warp, s_red, partials);
+        hist_init,
+        [&](int c) { return sx_chain_rb<kGrp>(sp, rb, nev, cpe, c); }, nev,
+        s_w, s_norm, s_warp, s_red, partials);
     grid.sync();
 
     // Every block: for each chain (warp w takes chains w, w + 8, ...)
@@ -400,13 +424,14 @@ sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
 // event partials while a slower one still reduces this decision's: the
 // partials are double-buffered by decision parity.  A prologue rebuilds
 // every chain's current histogram at params0 (buffer 0), so a blocked
-// phase is one launch.
-template <bool kChains>
+// phase is one launch.  kGrp: experiment-grouped, as sx_fused_kernel's
+// (both event sweeps read chain c's experiment's rows).
+template <bool kChains, bool kGrp>
 __global__ void __launch_bounds__(SX_THREADS, 4)
 sx_blocked_kernel(const SxSpec sp, int nch,
                   const float* __restrict__ samples,
                   const float* __restrict__ hist_init,
-                  const int* __restrict__ rb, int nev,
+                  const int* __restrict__ rb, int nev, int cpe,
                   const float* __restrict__ params0,
                   const float* __restrict__ nll0,
                   const float* __restrict__ width,
@@ -415,6 +440,7 @@ sx_blocked_kernel(const SxSpec sp, int nch,
                   int debug, unsigned* scratch, double* partials,
                   float* samples_out, float* nlls_out, float* acc_out,
                   int nrep) {
+  static_assert(!kGrp || kChains, "grouped forms: chains only");
   if (!kChains) nch = 1;
   cg::grid_group grid = cg::this_grid();
   SX_DYN_SMEM(unsigned, sh);
@@ -442,6 +468,7 @@ sx_blocked_kernel(const SxSpec sp, int nch,
   const long long gtid = (long long)blockIdx.x * blockDim.x + tid;
   const long long gstride = (long long)gridDim.x * blockDim.x;
   auto buffer = [&](int c, int b) { return scratch + (2 * c + b) * per; };
+  auto rb_of = [&](int c) { return sx_chain_rb<kGrp>(sp, rb, nev, cpe, c); };
 
   for (int t = tid; t < ncp; t += blockDim.x) s_cur[t] = params0[t];
   for (int t = tid; t < 2 * nch; t += blockDim.x) s_pair[t] = nll0[t];
@@ -494,7 +521,7 @@ sx_blocked_kernel(const SxSpec sp, int nch,
         __syncthreads();
         sx_event_partials<kChains>(
             sp, nch, [&](int c) { return scratch + s_off[c]; }, hist_init,
-            rb, nev, s_w, s_norm, s_warp, s_red, part);
+            rb_of, nev, s_w, s_norm, s_warp, s_red, part);
       } else {
         __syncthreads();
         sx_weights(sp, nch, s_prop,
@@ -503,7 +530,7 @@ sx_blocked_kernel(const SxSpec sp, int nch,
         __syncthreads();
         sx_event_partials<kChains>(
             sp, nch, [&](int c) { return buffer(c, s_cb[c]); }, hist_init,
-            rb, nev, s_w, s_norm, s_warp, s_red, part);
+            rb_of, nev, s_w, s_norm, s_warp, s_red, part);
       }
       grid.sync();
 
@@ -552,8 +579,9 @@ sx_blocked_kernel(const SxSpec sp, int nch,
 }
 
 // Each kernel is built once per form: one chain (kChains = false) or
-// lock-step chains, unweighted or weighted, and for B4 diagonal, tril or
-// tempered (diagonal) proposals.
+// lock-step chains, unweighted or weighted, for B4 diagonal, tril or
+// tempered (diagonal) proposals, and experiment-grouped (lock-step, not
+// tempered) for B4 and B5.
 static const void* sx_hist_fn(int nchains, bool w) {
   if (w)
     return nchains == 1 ? (const void*)sx_hist_kernel<false, true>
@@ -563,34 +591,41 @@ static const void* sx_hist_fn(int nchains, bool w) {
 }
 
 // B3/B4 forms (bits of form): tril proposals, weighted samples, tempered
-// replicas.  Tempered proposals are diagonal.
+// replicas, experiment-grouped chains.  Tempered proposals are diagonal
+// and never grouped.
 #define SX_TRIL 1
 #define SX_WEIGHTED 2
 #define SX_TEMPERED 4
+#define SX_GROUPED 8
 
 template <bool kChains, bool kW>
 static const void* sx_fused_fn_w(int form) {
+  const bool tril = (form & SX_TRIL) != 0;
+  if (form & SX_GROUPED) {
+    if (form & SX_TEMPERED) return nullptr;
+    return tril ? (const void*)sx_fused_kernel<true, true, kW, false, true>
+                : (const void*)sx_fused_kernel<true, false, kW, false, true>;
+  }
   if (form & SX_TEMPERED)
-    return (form & SX_TRIL)
-               ? nullptr
-               : (const void*)sx_fused_kernel<kChains, false, kW, true>;
-  return (form & SX_TRIL)
-             ? (const void*)sx_fused_kernel<kChains, true, kW, false>
-             : (const void*)sx_fused_kernel<kChains, false, kW, false>;
+    return tril ? nullptr
+                : (const void*)sx_fused_kernel<kChains, false, kW, true, false>;
+  return tril ? (const void*)sx_fused_kernel<kChains, true, kW, false, false>
+              : (const void*)sx_fused_kernel<kChains, false, kW, false, false>;
 }
 
 static const void* sx_fused_fn(int nchains, int form) {
   const bool w = (form & SX_WEIGHTED) != 0;
-  if (nchains == 1)
+  if (nchains == 1 && !(form & SX_GROUPED))
     return w ? sx_fused_fn_w<false, true>(form)
              : sx_fused_fn_w<false, false>(form);
   return w ? sx_fused_fn_w<true, true>(form)
            : sx_fused_fn_w<true, false>(form);
 }
 
-static const void* sx_blocked_fn(int nchains) {
-  return nchains == 1 ? (const void*)sx_blocked_kernel<false>
-                      : (const void*)sx_blocked_kernel<true>;
+static const void* sx_blocked_fn(int nchains, bool grouped) {
+  if (grouped) return (const void*)sx_blocked_kernel<true, true>;
+  return nchains == 1 ? (const void*)sx_blocked_kernel<false, false>
+                      : (const void*)sx_blocked_kernel<true, false>;
 }
 
 // Blocks of fn resident on one SM with this spec's shared memory.
@@ -646,9 +681,12 @@ static cudaError_t sx_cooperative(const SxSpec& sp, int nchains,
   return cudaGetLastError();
 }
 
-static bool sx_chains_fit(const SxSpec& sp, int nchains) {
+// One launch's chains within the static arrays' caps; grouped (cpe > 0)
+// chains come in whole experiments of cpe chains.
+static bool sx_chains_fit(const SxSpec& sp, int nchains, int cpe) {
   return nchains >= 1 && nchains <= SX_MAXCHAINS &&
-         nchains * sp.npar <= SX_MAXCP && nchains * sp.nsig <= SX_MAXCS;
+         nchains * sp.npar <= SX_MAXCP && nchains * sp.nsig <= SX_MAXCS &&
+         cpe >= 0 && (cpe == 0 || nchains % cpe == 0);
 }
 
 // ------------------------------------------------------ C interface
@@ -756,20 +794,24 @@ int sx_fused_grid(const SxSpec* sp, int nchains, int weighted,
 // form: SX_TRIL (width the (nchains, npar, npar) lower-triangular
 // scales, else (nchains, npar) widths), SX_WEIGHTED (the samples carry
 // their weight row), SX_TEMPERED (beta the (nchains,) inverse
-// temperatures; else beta is unused).  scratch holds 2 * nchains *
-// (ndyn * total + ndyn) unsigned ints (float64 when weighted), partials
-// nchains * nblocks doubles (sx_fused_grid).
-int sx_fused(const SxSpec* sp, int nchains, int form, const float* samples,
-             const float* hist_init, const int* rb, int nev,
-             const float* params0, const float* nll0, const float* width,
-             const float* beta, const float* noise, const float* log_u,
-             int nsteps, int debug, void* scratch, double* partials,
-             int nblocks, float* samples_out, float* nlls_out,
-             float* acc_out, void* stream) {
+// temperatures; else beta is unused).  cpe > 0 takes the experiment-
+// grouped form (B4 only, not tempered): rb holds (nchains / cpe, nsig,
+// nev) read bins and chain c reads experiment c / cpe's; cpe == 0 is
+// one dataset's (nsig, nev) for every chain.  scratch holds 2 * nchains
+// * (ndyn * total + ndyn) unsigned ints (float64 when weighted),
+// partials nchains * nblocks doubles (sx_fused_grid).
+int sx_fused(const SxSpec* sp, int nchains, int cpe, int form,
+             const float* samples, const float* hist_init, const int* rb,
+             int nev, const float* params0, const float* nll0,
+             const float* width, const float* beta, const float* noise,
+             const float* log_u, int nsteps, int debug, void* scratch,
+             double* partials, int nblocks, float* samples_out,
+             float* nlls_out, float* acc_out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (cpe > 0) form |= SX_GROUPED;
   const void* fn = sx_fused_fn(nchains, form);
-  if (!sx_chains_fit(*sp, nchains) || fn == nullptr ||
-      ((form & (SX_TRIL | SX_TEMPERED)) && nsteps < 1))
+  if (!sx_chains_fit(*sp, nchains, cpe) || fn == nullptr ||
+      ((form & (SX_TRIL | SX_TEMPERED | SX_GROUPED)) && nsteps < 1))
     return cudaErrorInvalidValue;
   const bool w = (form & SX_WEIGHTED) != 0;
   const int buf = nchains * (sp->ndyn * sp->total + sp->ndyn);
@@ -780,8 +822,9 @@ int sx_fused(const SxSpec* sp, int nchains, int form, const float* samples,
   SxSpec spv = *sp;
   void* args[] = {(void*)&spv,      (void*)&nchains,  (void*)&samples,
                   (void*)&hist_init, (void*)&rb,      (void*)&nev,
-                  (void*)&params0,  (void*)&nll0,     (void*)&width,
-                  (void*)&beta,     (void*)&noise,    (void*)&log_u,
+                  (void*)&cpe,      (void*)&params0,  (void*)&nll0,
+                  (void*)&width,    (void*)&beta,     (void*)&noise,
+                  (void*)&log_u,
                   (void*)&nsteps,   (void*)&debug,    (void*)&scratch,
                   (void*)&partials, (void*)&samples_out, (void*)&nlls_out,
                   (void*)&acc_out,  (void*)&nrep};
@@ -793,7 +836,7 @@ int sx_fused(const SxSpec* sp, int nchains, int form, const float* samples,
 int sx_blocked_grid(const SxSpec* sp, int nchains, int* nblocks) {
   int occ = 0;
   cudaError_t err =
-      sx_occupancy(*sp, nchains, false, sx_blocked_fn(nchains), &occ);
+      sx_occupancy(*sp, nchains, false, sx_blocked_fn(nchains, false), &occ);
   if (err != cudaSuccess) return err;
   return sx_grid_rule(*sp, nchains, occ, nblocks);
 }
@@ -802,10 +845,11 @@ int sx_blocked_grid(const SxSpec* sp, int nchains, int* nblocks) {
 // move, nsub - 1 rate moves), unweighted samples.  width (nchains,
 // npar), noise (ncycles, nsub, nchains, npar), log_u (ncycles, nsub,
 // nchains); histories (ncycles, nchains, npar), (ncycles, nchains, 2)
-// and the accepted fraction (ncycles, nchains).  scratch holds 2 *
-// nchains * (ndyn * total + ndyn) unsigned ints, partials 2 * nchains *
-// nblocks doubles (sx_blocked_grid).
-int sx_blocked(const SxSpec* sp, int nchains, const float* samples,
+// and the accepted fraction (ncycles, nchains).  cpe > 0: experiment-
+// grouped read bins, as sx_fused's.  scratch holds 2 * nchains * (ndyn
+// * total + ndyn) unsigned ints, partials 2 * nchains * nblocks doubles
+// (sx_blocked_grid).
+int sx_blocked(const SxSpec* sp, int nchains, int cpe, const float* samples,
                const float* hist_init, const int* rb, int nev,
                const float* params0, const float* nll0, const float* width,
                const float* noise, const float* log_u, int ncycles, int nsub,
@@ -813,7 +857,7 @@ int sx_blocked(const SxSpec* sp, int nchains, const float* samples,
                float* samples_out, float* nlls_out, float* acc_out,
                void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (!sx_chains_fit(*sp, nchains) || ncycles < 1 || nsub < 2)
+  if (!sx_chains_fit(*sp, nchains, cpe) || ncycles < 1 || nsub < 2)
     return cudaErrorInvalidValue;
   const int buf = nchains * (sp->ndyn * sp->total + sp->ndyn);
   cudaError_t err =
@@ -823,12 +867,13 @@ int sx_blocked(const SxSpec* sp, int nchains, const float* samples,
   SxSpec spv = *sp;
   void* args[] = {(void*)&spv,      (void*)&nchains,  (void*)&samples,
                   (void*)&hist_init, (void*)&rb,      (void*)&nev,
-                  (void*)&params0,  (void*)&nll0,     (void*)&width,
-                  (void*)&noise,    (void*)&log_u,    (void*)&ncycles,
+                  (void*)&cpe,      (void*)&params0,  (void*)&nll0,
+                  (void*)&width,    (void*)&noise,    (void*)&log_u,
+                  (void*)&ncycles,
                   (void*)&nsub,     (void*)&debug,    (void*)&scratch,
                   (void*)&partials, (void*)&samples_out, (void*)&nlls_out,
                   (void*)&acc_out,  (void*)&nrep};
-  return sx_cooperative(*sp, nchains, false, sx_blocked_fn(nchains),
+  return sx_cooperative(*sp, nchains, false, sx_blocked_fn(nchains, cpe > 0),
                         nblocks, args,
                         sx_smem_bytes(*sp, nchains, nrep, false), st);
 }

@@ -38,7 +38,8 @@
 #define SX_MAXSYST 8
 #define SX_MAXPOW 4
 #define SX_MAXPAR 64
-#define SX_MAXCHAINS 32  // lock-step chains of one launch
+#define SX_MAXCHAINS 32  // lock-step chains of one launch (every
+                         // experiment's, in the grouped forms)
 #define SX_MAXCP 512     // chains x parameters
 #define SX_MAXCS 256     // chains x signals
 #define SX_THREADS 256
@@ -359,24 +360,26 @@ __device__ __forceinline__ double sx_event_sum(
   return acc;
 }
 
-// The block's event sums of nch chains (chain c against hist_of(c)) into
-// the fixed slots partials[c * gridDim.x + blockIdx.x].  One chain
+// The block's event sums of nch chains (chain c against hist_of(c) and
+// the read bins rb_of(c): one dataset's for every chain, or each
+// experiment's in the experiment-grouped forms) into the fixed slots
+// partials[c * gridDim.x + blockIdx.x].  One chain
 // reduces through a shared tree (s_red, SX_THREADS doubles; measured
 // faster on an H100 than warp shuffles for one chain), lock-step chains
 // through warp shuffles into s_warp (nch * SX_THREADS / 32 doubles).
 // Starts and ends on __syncthreads' side: every thread must call it.
-template <bool kChains, class HistOf>
+template <bool kChains, class HistOf, class RbOf>
 __device__ __forceinline__ void sx_event_partials(
     const SxSpec& sp, int nch, HistOf hist_of,
-    const float* __restrict__ hist_init, const int* __restrict__ rb,
-    int nev, const float* s_w, const float* s_norm, double* s_warp,
-    double* s_red, double* partials) {
+    const float* __restrict__ hist_init, RbOf rb_of, int nev,
+    const float* s_w, const float* s_norm, double* s_warp, double* s_red,
+    double* partials) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = SX_THREADS / 32;
   for (int c = 0; c < nch; ++c) {
-    double acc = sx_event_sum(sp, hist_of(c), hist_init, rb, nev,
+    double acc = sx_event_sum(sp, hist_of(c), hist_init, rb_of(c), nev,
                               s_w + c * sp.nsig, s_norm + c * sp.nsig);
     if constexpr (kChains) {
       for (int off = 16; off > 0; off >>= 1)

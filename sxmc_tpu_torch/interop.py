@@ -2,11 +2,11 @@
 
 Takes the numpy arrays a ``sxmc_tpu`` run produced and builds the
 port's objects from them, so that both packages can compute on
-identical inputs: a chain state or a tempering ladder's, the NLL
-constants, a dataset, a weighted signal's weights, and presampled noise
-streams (one chain's or lock-step chains', joint or blocked, or a
-ladder's).  Nothing here imports jax: the caller converts with
-``np.asarray`` on its side.
+identical inputs: a chain state, a tempering ladder's or a sharded
+ensemble's, the NLL constants, a dataset, a weighted signal's weights,
+and presampled noise streams (one chain's or lock-step chains', joint or
+blocked, a ladder's, or the sharded ensemble's segments).  Nothing here
+imports jax: the caller converts with ``np.asarray`` on its side.
 """
 
 from __future__ import annotations
@@ -40,6 +40,57 @@ def ladder_state(params, nll_pair, width, index: int, device="cpu"):
     hi, lo = (as_f32(np.asarray(x).reshape(-1), device) for x in nll_pair)
     return (as_f32(params, device), (hi, lo), as_f32(width, device),
             int(np.asarray(index)))
+
+
+def ensemble_state(params, nll_pair, width, device="cpu"):
+    """The sharded ensemble's batched chain state (the carry of the JAX
+    package's ``_batched_segment[_fused]``): ``(params (nexp, nchains,
+    npar), (hi (nexp, nchains), lo (nexp, nchains)), width (nexp,
+    nchains, npar))``, or with full_cov the trils ``(nexp, nchains, npar,
+    npar)``."""
+    params = as_f32(params, device)
+    hi, lo = (as_f32(np.asarray(x).reshape(params.shape[:2]), device)
+              for x in nll_pair)
+    return params, (hi, lo), as_f32(width, device)
+
+
+def segment_streams(segments, device="cpu"):
+    """A sharded-ensemble ``stream_fn`` (``parallel.ensemble``) that
+    hands out the given JAX streams: ``segments[(phase, seg)] = (noise,
+    u)`` as ``jax.vmap(jax.vmap(_presample))`` over the
+    ``_segment_keys`` of that segment gives them, ``(nexp, nchains, n, M
+    + 1, npar)`` and ``(nexp, nchains, n, M + 1)``.  They come out in the
+    port's grouped layout: ``(n, nexp, nchains, npar)`` for joint steps
+    (M = 0), ``(n, M + 1, nexp, nchains, npar)`` for blocked cycles; the
+    runner takes ``log(u)`` on the grouped route, ``u`` on the stepper.
+    """
+    streams = {}
+    for key, (noise, u) in segments.items():
+        noise = np.asarray(noise, np.float32)
+        u = np.asarray(u, np.float32)
+        if noise.ndim != 5 or u.shape != noise.shape[:-1]:
+            raise ValueError(f"segment {key}: not (nexp, nchains, n, M + 1, "
+                             f"npar) streams: noise {noise.shape}, u "
+                             f"{u.shape}")
+        if noise.shape[3] == 1:  # joint steps
+            noise = np.moveaxis(noise[:, :, :, 0], 2, 0)
+            u = np.moveaxis(u[:, :, :, 0], 2, 0)
+        else:
+            noise = np.transpose(noise, (2, 3, 0, 1, 4))
+            u = np.transpose(u, (2, 3, 0, 1))
+        streams[tuple(key)] = (as_f32(np.ascontiguousarray(noise), device),
+                               as_f32(np.ascontiguousarray(u), device))
+
+    def draw(phase: int, seg: int, n: int):
+        if (phase, seg) not in streams:
+            raise ValueError(f"no stream for segment ({phase}, {seg})")
+        noise, u = streams[(phase, seg)]
+        if noise.shape[0] != n:
+            raise ValueError(f"segment ({phase}, {seg}) stream has "
+                             f"{noise.shape[0]} steps, the run asks for {n}")
+        return noise, u
+
+    return draw
 
 
 def weights(histogram) -> Optional[np.ndarray]:

@@ -24,6 +24,14 @@ Five kernels carry the Metropolis fits (sources and notes in
      pallas_fused_segment_blocked (one whole blocked Metropolis-within-
      Gibbs phase); :func:`blocked_segment_batched` for lock-step chains
 
+The experiment-grouped forms of B4 and B5 (:func:`fused_segment_grouped`,
+:func:`fused_segment_tril_grouped`, :func:`blocked_segment_grouped`)
+carry the sharded ensemble: the chains of every experiment in one
+batch, chain c reading the read bins of experiment c // chains-per-
+experiment, every chain sharing each read of the MC samples.  A batch
+larger than one launch's chain caps goes out in launches of whole
+experiments.
+
 Weighted MC samples (``HistSpec.weighted``: the samples carry a weight
 row after their fields) run through B1, B3 and B4 in their weighted
 forms: bins and norms are float64 weight sums, rounded once to float32
@@ -322,19 +330,19 @@ def _library() -> ctypes.CDLL:
     lib.sx_eval_lut.restype = _I
     lib.sx_fused_grid.argtypes = [_P, _I, _I, _P]
     lib.sx_fused_grid.restype = _I
-    # sx_fused: spec, nchains, form, samples, hist_init, rb, nev, params0,
-    # nll0, width, beta, noise, log_u, nsteps, debug, scratch, partials,
-    # nblocks, samples_out, nlls_out, acc_out, stream.
-    lib.sx_fused.argtypes = [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                             _P, _I, _I, _P, _P, _I, _P, _P, _P, _P]
+    # sx_fused: spec, nchains, cpe, form, samples, hist_init, rb, nev,
+    # params0, nll0, width, beta, noise, log_u, nsteps, debug, scratch,
+    # partials, nblocks, samples_out, nlls_out, acc_out, stream.
+    lib.sx_fused.argtypes = [_P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                             _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P]
     lib.sx_fused.restype = _I
     lib.sx_blocked_grid.argtypes = [_P, _I, _P]
     lib.sx_blocked_grid.restype = _I
-    # sx_blocked: spec, nchains, samples, hist_init, rb, nev, params0,
-    # nll0, width, noise, log_u, ncycles, nsub, debug, scratch, partials,
-    # nblocks, samples_out, nlls_out, acc_out, stream.
-    lib.sx_blocked.argtypes = [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _P, _P, _I, _P, _P, _P, _P]
+    # sx_blocked: spec, nchains, cpe, samples, hist_init, rb, nev,
+    # params0, nll0, width, noise, log_u, ncycles, nsub, debug, scratch,
+    # partials, nblocks, samples_out, nlls_out, acc_out, stream.
+    lib.sx_blocked.argtypes = [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                               _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P]
     lib.sx_blocked.restype = _I
     if lib.sx_spec_size() != ctypes.sizeof(_CSpec):
         raise RuntimeError(
@@ -485,11 +493,22 @@ def _state_plain(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
 def _nll_from_state_plain(hs: HistSpec, ns: NLLSpec, rb: torch.Tensor,
                           params: torch.Tensor, hists: torch.Tensor,
                           norms: torch.Tensor):
-    """LUT from the histograms, then ``nll_pair``."""
+    """LUT from the histograms, then ``nll_pair``; ``rb`` is one
+    dataset's ``(nsig, nev)`` or each chain's ``(nchains, nsig, nev)``
+    (:func:`chain_read_bins`)."""
+    nev = rb.shape[-1]
     lut = lut_eval_plain(hists.reshape(-1, hs.total), norms.reshape(-1),
-                         rb, ns.bin_volume)
-    lut = lut.reshape(*hists.shape[:-1], rb.shape[1])
+                         rb.reshape(-1, nev), ns.bin_volume)
+    lut = lut.reshape(*hists.shape[:-1], nev)
     return nll_pair(params, lut, norms, ns.consts)
+
+
+def chain_read_bins(rb: torch.Tensor, nch: int) -> torch.Tensor:
+    """Each chain's read bins ``(nch, nsig, nev)`` from the experiment-
+    grouped ``(nexp, nsig, nev)``: chain c reads experiment c // (nch //
+    nexp).  The plain versions of the grouped forms are the batched
+    ones on these rows."""
+    return rb.repeat_interleave(nch // rb.shape[0], dim=0)
 
 
 def fused_nll_plain(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
@@ -555,6 +574,30 @@ def fused_segment_plain(hs, ns, samples, hist_init, rb, params0, nll0,
         out_n.append(torch.stack([cur_hi, cur_lo], dim=-1))
         out_a.append(acc.to(torch.float32))
     return torch.stack(out_s), torch.stack(out_n), torch.stack(out_a)
+
+
+def fused_segment_grouped_plain(hs, ns, samples, hist_init, rb, params0,
+                                nll0, width, noise, log_u,
+                                debug_mode: bool = False):
+    """Plain version of B4's experiment-grouped forms (diagonal, or tril
+    for ``width`` ``(nch, npar, npar)``): :func:`fused_segment_plain`
+    with chain c scoring experiment c // cpe's read bins ``rb`` ``(nexp,
+    nsig, nev)``."""
+    return fused_segment_plain(hs, ns, samples, hist_init,
+                               chain_read_bins(rb, params0.shape[0]),
+                               params0, nll0, width, noise, log_u,
+                               debug_mode)
+
+
+def blocked_segment_grouped_plain(hs, ns, samples, hist_init, rb, params0,
+                                  nll0, width, noise, log_u,
+                                  debug_mode: bool = False):
+    """Plain version of B5's experiment-grouped form: as
+    :func:`fused_segment_grouped_plain`, for blocked cycles."""
+    return blocked_segment_plain(hs, ns, samples, hist_init,
+                                 chain_read_bins(rb, params0.shape[0]),
+                                 params0, nll0, width, noise, log_u,
+                                 debug_mode)
 
 
 def blocked_segment_plain(hs, ns, samples, hist_init, rb, params0, nll0,
@@ -719,22 +762,36 @@ def lut_eval(counts: torch.Tensor, norms: torch.Tensor,
     return out
 
 
-def _check_fused(hs, ns, samples, hist_init, rb, params, nch):
+def _check_fused(hs, ns, samples, hist_init, rb, params, nch,
+                 grouped: bool = False):
+    """Inputs of B3/B4/B5: one dataset's ``(nsignals, nevents)`` read
+    bins, or with ``grouped`` the ``(nexp, nsignals, nevents)`` of
+    ``nexp`` experiments, nexp dividing the ``nch`` chains (the chain
+    caps then hold per launch: :func:`_experiment_groups`)."""
     dev = samples.device
     ns.validate()
     _check_samples(hs, samples)
     _expect(hist_init, "hist_init", (ns.nsig, hs.total), torch.float32, dev)
-    if rb.dim() != 2:
-        raise ValueError("read_bins must be (nsignals, nevents)")
-    _expect(rb, "read_bins", (ns.nsig, rb.shape[1]), torch.int32, dev)
+    if grouped:
+        if rb.dim() != 3 or not 1 <= rb.shape[0] <= nch \
+                or nch % rb.shape[0]:
+            raise ValueError(
+                f"grouped read_bins must be (nexp, nsignals, nevents) with "
+                f"nexp dividing the {nch} chains; got {tuple(rb.shape)}")
+        _expect(rb, "read_bins", (rb.shape[0], ns.nsig, rb.shape[2]),
+                torch.int32, dev)
+    else:
+        if rb.dim() != 2:
+            raise ValueError("read_bins must be (nsignals, nevents)")
+        _expect(rb, "read_bins", (ns.nsig, rb.shape[1]), torch.int32, dev)
     _expect(params, "params", (ns.npar,) if nch is None else (nch, ns.npar),
             torch.float32, dev)
     if sorted(s for s in ns.sig_slot if s >= 0) != list(range(hs.ndyn)):
         raise ValueError(f"sig_slot {ns.sig_slot} does not cover the "
                          f"{hs.ndyn} dynamic segments")
-    if nch is not None and not (1 <= nch <= MAXCHAINS
-                                and nch * ns.npar <= MAXCP
-                                and nch * ns.nsig <= MAXCS):
+    if nch is not None and not grouped and not (
+            1 <= nch <= MAXCHAINS and nch * ns.npar <= MAXCP
+            and nch * ns.nsig <= MAXCS):
         raise ValueError(
             f"{nch} chains x {ns.npar} parameters x {ns.nsig} signals "
             f"(the kernels take up to {MAXCHAINS} chains, {MAXCP} "
@@ -748,11 +805,14 @@ _TRIL, _WEIGHTED, _TEMPERED = 1, 2, 4
 
 def _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
                   noise, log_u, nsteps, debug, samples_out, nlls_out,
-                  acc_out, nch, what, kind="fused", nsub=0, beta=None):
+                  acc_out, nch, what, kind="fused", nsub=0, beta=None,
+                  cpe=0):
     """Launch B3/B4 (``kind`` "fused", "fused_tril" for the tril
     proposals, "fused_tempered" with ``beta``) or B5 ("blocked", ``nsub``
     decisions per cycle) on the grid that the library's rule picks; the
-    weighted forms for weighted samples."""
+    weighted forms for weighted samples, the experiment-grouped forms
+    for ``cpe`` > 0 chains per experiment (``rb`` ``(nch // cpe, nsig,
+    nev)``)."""
     dev = samples.device
     lib = _library()
     cs = _c_spec(hs, ns, int(ns.st.nsources))
@@ -771,19 +831,20 @@ def _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
                           dtype=_acc_dtype(hs), device=dev)
     tail = (int(debug), _ptr(scratch), _ptr(partials), nblocks.value,
             _ptr(samples_out), _ptr(nlls_out), _ptr(acc_out), _stream(dev))
+    nev = rb.shape[-1]
     if kind == "blocked":
         err = lib.sx_blocked(
-            ctypes.byref(cs), nch, _ptr(samples), _ptr(hist_init), _ptr(rb),
-            rb.shape[1], _ptr(params0), _ptr(nll0), _ptr(width), _ptr(noise),
-            _ptr(log_u), nsteps, nsub, *tail)
+            ctypes.byref(cs), nch, cpe, _ptr(samples), _ptr(hist_init),
+            _ptr(rb), nev, _ptr(params0), _ptr(nll0), _ptr(width),
+            _ptr(noise), _ptr(log_u), nsteps, nsub, *tail)
     else:
         form = ((_TRIL if kind == "fused_tril" else 0)
                 | (_TEMPERED if kind == "fused_tempered" else 0)
                 | (_WEIGHTED if hs.weighted else 0))
         err = lib.sx_fused(
-            ctypes.byref(cs), nch, form, _ptr(samples), _ptr(hist_init),
-            _ptr(rb), rb.shape[1], _ptr(params0), _ptr(nll0), _ptr(width),
-            _ptr(beta), _ptr(noise), _ptr(log_u), nsteps, *tail)
+            ctypes.byref(cs), nch, cpe, form, _ptr(samples),
+            _ptr(hist_init), _ptr(rb), nev, _ptr(params0), _ptr(nll0),
+            _ptr(width), _ptr(beta), _ptr(noise), _ptr(log_u), nsteps, *tail)
     _check_cuda(lib, err, what)
 
 
@@ -1042,6 +1103,110 @@ def blocked_segment_batched(hs: HistSpec, ns: NLLSpec,
     return out
 
 
+def _experiment_groups(ns: NLLSpec, nexp: int, cpe: int):
+    """The launches of a grouped batch: ``[(first, end)]`` experiment
+    ranges, each as many whole experiments of ``cpe`` chains as the
+    kernels' caps take (chains, chains x parameters, chains x
+    signals)."""
+    per = min(MAXCHAINS // cpe, MAXCP // (cpe * ns.npar),
+              MAXCS // (cpe * ns.nsig))
+    if per < 1:
+        raise ValueError(
+            f"{cpe} chains per experiment x {ns.npar} parameters x "
+            f"{ns.nsig} signals exceed one launch (the kernels take up to "
+            f"{MAXCHAINS} chains, {MAXCP} chain-parameters and {MAXCS} "
+            f"chain-signals)")
+    return [(e, min(e + per, nexp)) for e in range(0, nexp, per)]
+
+
+def _segment_grouped(name, kind, hs, ns, samples, hist_init, rb, params0,
+                     nll0, width, noise, log_u, debug_mode):
+    """The grouped forms' shared body: check, then the plain version on
+    the CPU, or one launch per group of whole experiments (one for the
+    whole batch when it fits; each launch counts once)."""
+    dev = samples.device
+    nch = params0.shape[0]
+    blocked = kind == "blocked"
+    _check_fused(hs, ns, samples, hist_init, rb, params0, nch, grouped=True)
+    if blocked:
+        _check_unweighted(hs)
+    n, nsub = _check_segment(ns, params0, nll0, width, noise, log_u, nch,
+                             tril=kind == "fused_tril", blocked=blocked)
+    nexp = rb.shape[0]
+    cpe = nch // nexp
+    groups = _experiment_groups(ns, nexp, cpe)
+    if dev.type == "cpu":
+        plain = (blocked_segment_grouped_plain if blocked
+                 else fused_segment_grouped_plain)
+        return plain(hs, ns, samples, hist_init, rb, params0, nll0, width,
+                     noise, log_u, debug_mode)
+    axis = 2 if blocked else 1  # the chain axis of noise and log_u
+    outs = []
+    for e0, e1 in groups:
+        c0, c1 = e0 * cpe, e1 * cpe
+
+        def part(t, dim=0):
+            if len(groups) == 1:
+                return t
+            return t.narrow(dim, c0, c1 - c0).contiguous()
+
+        out = _segment_out(n, (c1 - c0,), ns.npar, dev)
+        _launch_fused(hs, ns, samples, hist_init, rb[e0:e1], part(params0),
+                      part(nll0), part(width), part(noise, axis),
+                      part(log_u, axis), n, debug_mode, *out, c1 - c0, name,
+                      kind=kind, nsub=nsub or 0, cpe=cpe)
+        _launched(name, hs)
+        outs.append(out)
+    if len(outs) == 1:
+        return outs[0]
+    return tuple(torch.cat([o[i] for o in outs], dim=1) for i in range(3))
+
+
+def fused_segment_grouped(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
+                          hist_init: torch.Tensor, rb: torch.Tensor,
+                          params0: torch.Tensor, nll0: torch.Tensor,
+                          width: torch.Tensor, noise: torch.Tensor,
+                          log_u: torch.Tensor, debug_mode: bool = False):
+    """B4, experiment-grouped (pallas_step.py:889-933): the lock-step
+    chains of :func:`fused_segment_batched` (``params0 (nch, npar)``,
+    ``noise (n, nch, npar)``, ...) over ``nexp`` experiments' read bins
+    ``rb (nexp, nsig, nev)``, ``nch = nexp * cpe`` chain-major by
+    experiment: chain c scores experiment c // cpe's events.  Each chain
+    decides as :func:`fused_segment_batched` would on its experiment's
+    rows; pad rows (sentinel read bins) add exactly 0."""
+    return _segment_grouped("fused_segment_grouped", "fused", hs, ns,
+                            samples, hist_init, rb, params0, nll0, width,
+                            noise, log_u, debug_mode)
+
+
+def fused_segment_tril_grouped(hs: HistSpec, ns: NLLSpec,
+                               samples: torch.Tensor,
+                               hist_init: torch.Tensor, rb: torch.Tensor,
+                               params0: torch.Tensor, nll0: torch.Tensor,
+                               tril: torch.Tensor, noise: torch.Tensor,
+                               log_u: torch.Tensor,
+                               debug_mode: bool = False):
+    """:func:`fused_segment_grouped` with full-covariance proposals,
+    ``tril`` ``(nch, npar, npar)`` (B4's grouped tril form)."""
+    return _segment_grouped("fused_segment_tril_grouped", "fused_tril", hs,
+                            ns, samples, hist_init, rb, params0, nll0, tril,
+                            noise, log_u, debug_mode)
+
+
+def blocked_segment_grouped(hs: HistSpec, ns: NLLSpec, samples: torch.Tensor,
+                            hist_init: torch.Tensor, rb: torch.Tensor,
+                            params0: torch.Tensor, nll0: torch.Tensor,
+                            width: torch.Tensor, noise: torch.Tensor,
+                            log_u: torch.Tensor, debug_mode: bool = False):
+    """B5, experiment-grouped (pallas_step.py:1307-1360): the chains of
+    :func:`blocked_segment_batched` (``noise (n, M + 1, nch, npar)``)
+    over ``rb (nexp, nsig, nev)``, chain c scoring experiment c // cpe's
+    events in every move.  Unweighted stacks only."""
+    return _segment_grouped("blocked_segment_grouped", "blocked", hs, ns,
+                            samples, hist_init, rb, params0, nll0, width,
+                            noise, log_u, debug_mode)
+
+
 def _check_unweighted(hs: HistSpec) -> None:
     if hs.weighted:
         raise ValueError("the blocked kernel B5 takes unweighted samples "
@@ -1061,7 +1226,9 @@ FORMS = (
     "fused_segment_tril", "fused_segment_tril_weighted",
     "fused_segment_tril_batched", "fused_segment_tril_batched_weighted",
     "fused_segment_tempered", "fused_segment_tempered_weighted",
-    "blocked_segment", "blocked_segment_batched",
+    "fused_segment_grouped", "fused_segment_grouped_weighted",
+    "fused_segment_tril_grouped", "fused_segment_tril_grouped_weighted",
+    "blocked_segment", "blocked_segment_batched", "blocked_segment_grouped",
 )
 _LAUNCHES = dict.fromkeys(FORMS, 0)
 

@@ -1,0 +1,563 @@
+"""Sharded ensemble: every fake experiment's chains as one batch.
+
+Port of ``sxmc_tpu/parallel/ensemble.py`` on one card (the JAX
+package's 1 x 1 mesh: the whole batch on the one device it is given;
+across cards, ``torch.distributed``, is ROADMAP queue A, item 14).
+It replaces the reference's serial experiment loop (sxmc.cpp:59-145):
+all ``nexperiments`` datasets are drawn and padded to a common event
+count (pad rows have zero coordinates and the dataset tag ``PAD_TAG``,
+which no signal uses, so every read bin of theirs is a sentinel: -1
+where zero lies outside the domain, else -2; either adds exactly 0 to
+the NLL), and the chains of all experiments run as one batch of
+``nexp x nchains``.
+
+Routes, as the JAX package chooses them (``_fused_route_ok``):
+  * **grouped**: floating systematics, the unbinned likelihood, and (for
+    ``rate_substeps``) an unweighted stack.  Each phase is one launch of
+    the experiment-grouped whole-segment kernel (B4, diagonal or tril,
+    unweighted or weighted; B5 for blocked cycles): chain c reads
+    experiment c // nchains's read bins and every chain shares each
+    read of the MC samples.  A batch past one launch's chain caps goes
+    out in launches of whole experiments (``ops.kernels``).
+  * **per experiment**: the other stacks (fixed systematics, binned
+    fits, weighted blocked fits) and debug mode run experiment by
+    experiment through ``mcmc.metropolis.run_chain`` on that
+    experiment's read bins (the JAX package's vmapped
+    ``_run_single_chain``), or ``run_segment`` when checkpointing.
+
+The initial state of each experiment comes from
+``metropolis.initial_state`` on its read bins: one B3 launch per
+experiment on the grouped route (the JAX package takes the split path
+here, B1 + B2; the NLLs agree to rounding).
+
+Checkpointing (``checkpoint_steps > 0`` with a ``checkpoint_path``
+prefix): the walk runs in fixed-size segments and the whole batched
+state (parameters, NLL pairs, widths or trils, the running phase
+moments the retunes need) is written atomically to
+``<path>.state.npz`` after every segment, the sampling segments' history
+to ``<path>.p{phase}s{seg}.npz``.  ``resume=True`` continues a killed
+run from its last completed segment, bit for bit: the datasets come
+from ``fc.seed`` and the experiment index, and each segment's streams
+from a ``torch.Generator`` seeded from ``(fc.seed, phase, segment)``.
+
+Differences from the JAX package: the streams are the port's own (the
+tests inject the JAX ones through ``stream_fn``, see
+``interop.segment_streams``); ``fit.binned`` is honoured (the JAX
+runner builds its MCMC without it and fits unbinned; the two
+likelihoods are equal, the binned one an exact regrouping); KDE signals
+raise when the PdfStack is built (ROADMAP queue A, item 12).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from sxmc_tpu_torch.ensemble import experiment_seeds
+from sxmc_tpu_torch.fitconfig import FitConfig
+from sxmc_tpu_torch.generator import make_fake_dataset
+from sxmc_tpu_torch.mcmc import metropolis
+from sxmc_tpu_torch.mcmc.metropolis import HAARIO, MCMC
+from sxmc_tpu_torch.observability import MetricsLogger, Stopwatch
+from sxmc_tpu_torch.stats.likelihood import LikelihoodSpace
+from sxmc_tpu_torch.utils import as_f32, median, resolve_device
+
+PAD_TAG = -999.0  # dataset tag no signal uses: sentinel read bins
+
+# (phase, segment, nsteps) -> (noise (n, [M + 1,] nexp, nchains, npar),
+# u (n, [M + 1,] nexp, nchains)) float32, u ~ U[0, 1).
+StreamFn = Callable[[int, int, int], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def pad_datasets(datasets: Sequence[np.ndarray],
+                 nevents: Optional[int] = None) -> np.ndarray:
+    """Stack ragged datasets into (nexp, nevents, ncols) with pad rows."""
+    if nevents is None:
+        nevents = max(d.shape[0] for d in datasets)
+    ncols = datasets[0].shape[1]
+    out = np.zeros((len(datasets), nevents, ncols), np.float32)
+    out[:, :, -1] = PAD_TAG
+    for i, d in enumerate(datasets):
+        out[i, :d.shape[0]] = d[:nevents]
+    return out
+
+
+def segment_seed(seed: int, phase: int, seg: int) -> int:
+    """The seed of one segment's streams (every experiment's and
+    chain's), the same whether or not the run was interrupted before."""
+    s = np.random.SeedSequence([seed, 7000 + phase, seg]).generate_state(
+        1, np.uint64)[0]
+    return int(s >> np.uint64(1))
+
+
+def default_streams(seed: int, nexp: int, nchains: int, npar: int, m: int,
+                    device) -> StreamFn:
+    """The port's segment streams: drawn on ``device`` from a
+    ``torch.Generator`` seeded by :func:`segment_seed`, in the grouped
+    layout (``M + 1`` axis for blocked cycles, row 0 the systematic
+    move)."""
+
+    def draw(phase: int, seg: int, n: int):
+        gen = torch.Generator(device).manual_seed(
+            segment_seed(seed, phase, seg))
+        noise, u = metropolis.presample(gen, n, npar, device,
+                                        nexp * nchains, m)
+        lead = (n,) + ((m + 1,) if m else ()) + (nexp, nchains)
+        return noise.reshape(lead + (npar,)), u.reshape(lead)
+
+    return draw
+
+
+def _sharded_retune(mcmc: MCMC, width, count, psum, psumsq):
+    """Batched jump-width retune from running phase moments: the
+    population std sqrt(E[x^2] - E[x]^2), so a checkpoint carries
+    (count, sum, sumsq) instead of the phase history (JAX
+    ensemble.py:196-210)."""
+    mean = psum / count
+    var = torch.clamp_min(psumsq / count - mean * mean, 0.0)
+    rms = torch.sqrt(var)
+    sf = HAARIO / max(mcmc.nfloat, 1)
+    fixed = torch.as_tensor(mcmc.parameter_fixed, device=width.device)
+    new = torch.where(rms > 0, sf * rms, width)
+    return torch.where(fixed, torch.full_like(new, -1.0), new)
+
+
+def _sharded_retune_cov(mcmc: MCMC, tril, count, psum, pcross):
+    """Batched Haario full-covariance retune from running CENTERED
+    phase moments (JAX ensemble.py:213-230): ``psum`` / ``pcross``
+    accumulate (x - c) and (x - c)(x - c)^T around the phase-start point
+    c, so the one-pass covariance (pcross - n mu mu^T) / (n - 1) keeps
+    its precision in float32; then ``metropolis._tril_from_cov`` per
+    chain."""
+    free = torch.as_tensor(~mcmc.parameter_fixed, dtype=torch.float32,
+                           device=tril.device)
+    mu = psum / count
+    cov = ((pcross - count * mu[..., :, None] * mu[..., None, :])
+           / torch.clamp_min(count - 1.0, 1.0))
+    cov = cov * (free[:, None] * free[None, :])
+    return metropolis._tril_from_cov(mcmc, tril, cov)
+
+
+def _fused_route_ok(mcmc: MCMC, rate_substeps: int) -> bool:
+    """True when the runner can drive the experiment-grouped kernels: a
+    fused-eligible stack, and for blocked cycles B5's unweighted stack
+    (JAX ensemble.py:233-246; its mesh divisibility holds on one
+    device)."""
+    if metropolis._blocked_enabled(mcmc, rate_substeps):
+        return metropolis._blocked_fused_ok(mcmc)
+    return metropolis._fused_ok(mcmc)
+
+
+def other_cards_note(device: torch.device) -> Optional[str]:
+    """What to tell the user when more cards are visible than the one
+    the run uses, else None."""
+    if device.type != "cuda" or torch.cuda.device_count() <= 1:
+        return None
+    return (f"{torch.cuda.device_count()} cards visible; the sharded "
+            f"ensemble runs on {device} alone (across cards: ROADMAP queue "
+            "A, item 14)")
+
+
+def _ensemble_setup(fc: FitConfig, nsteps: int, device,
+                    dataset_fn: Optional[Callable[[int], np.ndarray]]):
+    """Model, datasets and their padded read bins ``(nexp, nsignals,
+    nevents)``: a pure function of the FitConfig, so a resumed run
+    rebuilds them identically.  Experiment i's dataset is the one
+    ``run_ensemble`` draws for it (its first attempt's data seed), or
+    ``dataset_fn(i)``."""
+    mcmc = MCMC(fc.sources, fc.signals, fc.systematics, fc.observables,
+                device=device, binned=fc.binned)
+    datasets = []
+    for i in range(fc.nexperiments):
+        if dataset_fn is not None:
+            datasets.append(np.asarray(dataset_fn(i), np.float32))
+            continue
+        data_seed, _ = experiment_seeds(fc.seed, i, 0)
+        datasets.append(make_fake_dataset(
+            torch.Generator().manual_seed(data_seed), fc.signals,
+            fc.systematics, fc.observables, stack=mcmc.stack, poisson=True))
+    rb = mcmc.stack.compute_read_bins(pad_datasets(datasets))
+    return mcmc, rb, max(fc.nchains, 1), int(nsteps * fc.burnin_fraction)
+
+
+def _initial_batch(mcmc: MCMC, rb: torch.Tensor, nchains: int,
+                   full_cov: bool):
+    """``(params, (hi, lo), width)`` of the ``(nexp, nchains)`` batch:
+    every chain at the means with the initial widths (or the initial
+    diagonal tril), and each experiment's NLL there from
+    ``metropolis.initial_state`` on its read bins (B3 on the fused
+    route; B1, and B2 with fixed systematics, otherwise)."""
+    nexp = rb.shape[0]
+    npar = mcmc.nparameters
+    starts = [metropolis.initial_state(mcmc, rb[e]) for e in range(nexp)]
+    lead = (nexp, nchains)
+
+    def batch(x):  # (nexp, ...) per experiment -> (nexp, nchains, ...)
+        return x[:, None].expand(lead + tuple(x.shape[1:])).contiguous()
+
+    params = batch(starts[0][0].expand(nexp, npar))
+    hi = batch(torch.stack([s[1][0] for s in starts]))
+    lo = batch(torch.stack([s[1][1] for s in starts]))
+    if full_cov:
+        width = batch(metropolis._initial_scale_tril(mcmc).expand(
+            nexp, npar, npar))
+    else:
+        width = batch(starts[0][2].expand(nexp, npar))
+    return params, (hi, lo), width
+
+
+def _segment(mcmc: MCMC, params, nll_pair, width, rb, noise, u,
+             debug_mode: bool, m: int, full_cov: bool, grouped: bool):
+    """One fixed-proposal segment of the ``(nexp, nchains)`` batch.
+
+    Grouped: one call of the stack's grouped kernel (B5 for ``m``
+    blocked rate moves, B4-tril for ``full_cov``, else B4) on ``log(u)``.
+    Otherwise experiment by experiment through
+    ``metropolis.run_segment`` (lock-step chains on that experiment's
+    read bins, the stepper's accept on ``u``).  Returns ``(params, (hi,
+    lo), samples (nexp, nchains, n, npar), (hi, lo) (nexp, nchains,
+    n))``."""
+    if grouped:
+        stack = mcmc.stack
+        if m:
+            run = stack.blocked_segment_grouped
+        elif full_cov:
+            run = stack.fused_segment_tril_grouped
+        else:
+            run = stack.fused_segment_grouped
+        samples, nlls, _ = run(params, torch.stack(nll_pair, dim=-1), width,
+                               rb, noise, torch.log(u), mcmc.nll_spec,
+                               debug_mode)
+        samples = samples.movedim(0, 2)
+        hi, lo = nlls[..., 0].movedim(0, 2), nlls[..., 1].movedim(0, 2)
+        return (samples[:, :, -1], (hi[:, :, -1], lo[:, :, -1]), samples,
+                (hi, lo))
+    proposal = "full_cov" if full_cov else "diagonal"
+    outs = []
+    for e in range(rb.shape[0]):
+        outs.append(metropolis.run_segment(
+            mcmc, params[e], (nll_pair[0][e], nll_pair[1][e]), width[e],
+            rb[e], noise[..., e, :, :].contiguous(),
+            u[..., e, :].contiguous(), debug_mode, m, proposal))
+    # run_segment's histories are (n, nchains, ...): chains first here.
+    return (torch.stack([o[0] for o in outs]),
+            (torch.stack([o[1][0] for o in outs]),
+             torch.stack([o[1][1] for o in outs])),
+            torch.stack([o[2].movedim(0, 1) for o in outs]),
+            (torch.stack([o[3][0].movedim(0, 1) for o in outs]),
+             torch.stack([o[3][1].movedim(0, 1) for o in outs])))
+
+
+def _check_streams(noise, u, n, nexp, nchains, npar, m, phase, seg):
+    lead = (n,) + ((m + 1,) if m else ()) + (nexp, nchains)
+    if tuple(noise.shape) != lead + (npar,) or tuple(u.shape) != lead:
+        raise ValueError(
+            f"segment ({phase}, {seg}) streams are noise "
+            f"{tuple(noise.shape)}, u {tuple(u.shape)}; the batch takes "
+            f"{lead + (npar,)} and {lead}")
+
+
+def _ckpt_file(path: str) -> str:
+    return path + ".state.npz"
+
+
+def _seg_file(path: str, phase: int, seg: int) -> str:
+    return f"{path}.p{phase}s{seg}.npz"
+
+
+def _save_state(path: str, **arrays) -> None:
+    # np.savez appends ".npz" when missing, so the tmp name must end
+    # with it for the atomic rename to find the file it wrote.
+    tmp = _ckpt_file(path) + ".tmp.npz"
+    np.savez(tmp, **{k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                         else v) for k, v in arrays.items()})
+    os.replace(tmp, _ckpt_file(path))
+
+
+def _run_segmented(fc: FitConfig, mcmc: MCMC, rb, nchains: int,
+                   burnin_steps: int, nsteps: int, m: int, full_cov: bool,
+                   grouped: bool, streams: StreamFn,
+                   checkpoint_path: Optional[str], checkpoint_steps: int,
+                   resume: bool):
+    """The segmented batched walk (JAX ensemble.py:429-616): two burn-in
+    phases, each followed by a retune of every chain from its running
+    phase moments, then the sampling phase.  Without a checkpoint path
+    each phase is one segment held in memory; with one, the state is
+    written after every segment (see the module docstring).  Returns the
+    sampling phase's ``samples (nexp, nchains, nkeep, npar)`` and NLL
+    pairs ``(nexp, nchains, nkeep)`` as numpy."""
+    nexp = rb.shape[0]
+    npar = mcmc.nparameters
+    dev = mcmc.device
+    remaining = max(nsteps - (2 * burnin_steps if burnin_steps > 0 else 0),
+                    1)
+    phases = [(burnin_steps, True)] * (2 if burnin_steps > 0 else 0)
+    phases.append((remaining, False))
+
+    state_file = _ckpt_file(checkpoint_path) if checkpoint_path else None
+    if resume and state_file and os.path.exists(state_file):
+        st = dict(np.load(state_file))
+        params = as_f32(st["params"], dev)
+        nll = (as_f32(st["nll_hi"], dev), as_f32(st["nll_lo"], dev))
+        width = as_f32(st["width"], dev)
+        phase0, done0 = int(st["phase"]), int(st["done"])
+        count = as_f32(st["count"], dev)
+        psum = as_f32(st["psum"], dev)
+        psumsq = as_f32(st["psumsq"], dev) if "psumsq" in st else None
+        pcross = as_f32(st["pcross"], dev) if "pcross" in st else None
+        cref = as_f32(st["cref"], dev) if "cref" in st else None
+    else:
+        params, nll, width = _initial_batch(mcmc, rb, nchains, full_cov)
+        phase0, done0 = 0, 0
+        count = torch.zeros((), dtype=torch.float32, device=dev)
+        psum = torch.zeros((nexp, nchains, npar), dtype=torch.float32,
+                           device=dev)
+        psumsq = None if full_cov else torch.zeros_like(psum)
+        pcross = (torch.zeros((nexp, nchains, npar, npar),
+                              dtype=torch.float32, device=dev)
+                  if full_cov else None)
+        cref = params if full_cov else None
+
+    def moments():
+        if full_cov:
+            return dict(count=count, psum=psum, pcross=pcross, cref=cref)
+        return dict(count=count, psum=psum, psumsq=psumsq)
+
+    mem_segments = []
+    for phase in range(phase0, len(phases)):
+        phase_len, retune_after = phases[phase]
+        ck = checkpoint_steps if checkpoint_steps > 0 else phase_len
+        done = done0 if phase == phase0 else 0
+        seg_idx = done // ck
+        while done < phase_len:
+            seg_len = min(ck, phase_len - done)
+            noise, u = streams(phase, seg_idx, seg_len)
+            _check_streams(noise, u, seg_len, nexp, nchains, npar, m, phase,
+                           seg_idx)
+            params, nll, samples, hist = _segment(
+                mcmc, params, nll, width, rb, noise, u, fc.debug_mode, m,
+                full_cov, grouped)
+            if retune_after:
+                count = count + float(seg_len)
+                if full_cov:
+                    xc = samples - cref[:, :, None, :]
+                    psum = psum + xc.sum(dim=2)
+                    pcross = pcross + torch.einsum("ecsi,ecsj->ecij", xc, xc)
+                else:
+                    psum = psum + samples.sum(dim=2)
+                    psumsq = psumsq + (samples * samples).sum(dim=2)
+            elif checkpoint_path:
+                np.savez(_seg_file(checkpoint_path, phase, seg_idx),
+                         samples=samples.cpu().numpy(),
+                         nll_hi=hist[0].cpu().numpy(),
+                         nll_lo=hist[1].cpu().numpy())
+            else:
+                mem_segments.append((samples, hist[0], hist[1]))
+            done += seg_len
+            seg_idx += 1
+            if checkpoint_path:
+                _save_state(checkpoint_path, params=params, nll_hi=nll[0],
+                            nll_lo=nll[1], width=width, phase=phase,
+                            done=done, **moments())
+        if retune_after:
+            if full_cov:
+                width = _sharded_retune_cov(mcmc, width, count, psum, pcross)
+                pcross = torch.zeros_like(pcross)
+                cref = params
+            else:
+                width = _sharded_retune(mcmc, width, count, psum, psumsq)
+                psumsq = torch.zeros_like(psumsq)
+            count = torch.zeros_like(count)
+            psum = torch.zeros_like(psum)
+            if checkpoint_path:
+                _save_state(checkpoint_path, params=params, nll_hi=nll[0],
+                            nll_lo=nll[1], width=width, phase=phase + 1,
+                            done=0, **moments())
+        done0 = 0
+
+    # The sampling phase's history: persisted segments, or in memory.
+    if checkpoint_path:
+        parts, seg = [], 0
+        sampling = len(phases) - 1
+        while os.path.exists(_seg_file(checkpoint_path, sampling, seg)):
+            d = np.load(_seg_file(checkpoint_path, sampling, seg))
+            parts.append((d["samples"], d["nll_hi"], d["nll_lo"]))
+            seg += 1
+    else:
+        parts = [tuple(t.cpu().numpy() for t in p) for p in mem_segments]
+    samples = np.concatenate([p[0] for p in parts], axis=2)
+    nlls = (np.concatenate([p[1] for p in parts], axis=2).astype(np.float64)
+            + np.concatenate([p[2] for p in parts], axis=2))
+    return samples, nlls
+
+
+def _run_per_experiment(fc: FitConfig, mcmc: MCMC, rb, nchains: int,
+                        burnin_steps: int, nsteps: int, m: int,
+                        streams: StreamFn):
+    """Experiment by experiment through ``metropolis.run_chain`` (its
+    lock-step chains, per-chain retunes from each burn-in phase's
+    samples; the burn-in phases kept in debug mode), each phase's
+    streams those of segment 0 of the grouped layout.  Returns ``samples
+    (nexp, nchains, nkeep, npar)`` and NLLs ``(nexp, nchains, nkeep)``."""
+    npar = mcmc.nparameters
+    nexp = rb.shape[0]
+    drawn = {}
+
+    def phase_streams(k, n):
+        if (k, n) not in drawn:
+            noise, u = streams(k, 0, n)
+            _check_streams(noise, u, n, nexp, nchains, npar, m, k, 0)
+            drawn[(k, n)] = noise, u
+        return drawn[(k, n)]
+
+    samples, nlls = [], []
+    for e in range(nexp):
+        def presampler(k, n, e=e):
+            noise, u = phase_streams(k, n)
+            noise, u = noise[..., e, :, :], u[..., e, :]
+            if nchains == 1:  # run_chain's single chain has no chain axis
+                noise, u = noise[..., 0, :], u[..., 0]
+            return noise.contiguous(), u.contiguous()
+
+        s, (hi, lo), _ = metropolis.run_chain(
+            mcmc, rb[e], nsteps, burnin_steps, fc.debug_mode, presampler,
+            nchains, m, fc.proposal)
+        samples.append(s.reshape(nchains, -1, npar).cpu().numpy())
+        nlls.append(metropolis.nll_history_to_f64((hi, lo)).reshape(
+            nchains, -1))
+    return np.stack(samples), np.stack(nlls)
+
+
+def _collect_results(fc: FitConfig, mcmc: MCMC, samples, nll_vals,
+                     verbose: bool):
+    """(nexp, nchains, nkeep, ...) histories -> likelihood spaces and the
+    upper limits on ``fc.signal_name`` (JAX ensemble.py:343-360)."""
+    lspaces, limits = [], []
+    for i in range(fc.nexperiments):
+        ls = LikelihoodSpace.from_arrays(
+            samples[i].reshape(-1, mcmc.nparameters),
+            nll_vals[i].reshape(-1), mcmc.parameter_names,
+            cl=fc.confidence, error_type=fc.error_type)
+        lspaces.append(ls)
+        if fc.signal_name and fc.signal_name in mcmc.parameter_names:
+            bf = ls.get_best_fit()
+            limits.append(bf[fc.signal_name].upper)
+            if verbose:
+                print(f"experiment {i}: {fc.signal_name}: "
+                      f"{bf[fc.signal_name]}")
+    return lspaces, limits
+
+
+def run_sharded_ensemble(
+    fc: FitConfig,
+    nsteps: Optional[int] = None,
+    verbose: bool = True,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_steps: int = 0,
+    resume: bool = False,
+    device="cuda",
+    stream_fn: Optional[StreamFn] = None,
+    dataset_fn: Optional[Callable[[int], np.ndarray]] = None,
+    metrics: Optional[MetricsLogger] = None,
+) -> Tuple[List[LikelihoodSpace], List[float]]:
+    """Generate and fit every experiment as one batch on ``device`` (the
+    card unless the caller asks for the CPU).
+
+    ``checkpoint_steps > 0`` (with a ``checkpoint_path`` prefix) runs the
+    walk in persisted segments; ``resume=True`` continues a killed run
+    from its last completed segment.  ``stream_fn(phase, seg, n)`` and
+    ``dataset_fn(i)``, when given, replace the segment streams and the
+    fake datasets (how the tests feed both packages the same inputs).
+    ``metrics`` gets the set-up time, the fit's wall and chain-steps/s
+    (``nsteps * nexp * nchains / wall``, host clock around the fit, ending
+    in a device synchronisation) and each experiment's limit.  Returns
+    the likelihood spaces and the upper limits on ``fc.signal_name``.
+    """
+    nsteps = nsteps or fc.nsteps
+    dev = resolve_device(device)
+    if checkpoint_steps > 0 and not checkpoint_path:
+        raise ValueError("checkpoint_steps > 0 requires checkpoint_path")
+    metropolis.check_proposal(fc.proposal, fc.rate_substeps)
+    note = other_cards_note(dev)
+    if note and verbose:
+        print(f"sxmc_tpu_torch: {note}")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    sw = Stopwatch()
+    mcmc, rb, nchains, burnin_steps = _ensemble_setup(fc, nsteps, dev,
+                                                      dataset_fn)
+    sync()
+    setup_s = sw.real_time()
+    nexp = fc.nexperiments
+    full_cov = fc.proposal == "full_cov"
+    m = (fc.rate_substeps
+         if metropolis._blocked_enabled(mcmc, fc.rate_substeps) else 0)
+    grouped = _fused_route_ok(mcmc, fc.rate_substeps)
+    streams = stream_fn or default_streams(fc.seed, nexp, nchains,
+                                           mcmc.nparameters, m, dev)
+
+    sw.start()
+    # Debug (accept-all) fits keep the per-experiment runner, whose
+    # history includes the burn-in phases; the segmented runner keeps
+    # only the sampling phase.
+    if checkpoint_steps > 0 or (grouped and not fc.debug_mode):
+        route = "grouped" if grouped else "per experiment, segmented"
+        samples, nlls = _run_segmented(
+            fc, mcmc, rb, nchains, burnin_steps, nsteps, m, full_cov,
+            grouped, streams, checkpoint_path, checkpoint_steps, resume)
+    else:
+        route = "per experiment"
+        samples, nlls = _run_per_experiment(fc, mcmc, rb, nchains,
+                                            burnin_steps, nsteps, m, streams)
+    sync()
+    wall = sw.real_time()
+    if metrics is not None:
+        metrics.log("sharded_setup", nexperiments=nexp,
+                    nevents=int(rb.shape[-1]), seconds=setup_s)
+        metrics.log("sharded_fit", route=route, nexperiments=nexp,
+                    nchains=nchains, nsteps=nsteps, rate_substeps=m,
+                    proposal=fc.proposal, wall_seconds=wall,
+                    steps_per_sec=nsteps * nexp * nchains / max(wall, 1e-9),
+                    device=str(dev))
+    lspaces, limits = _collect_results(fc, mcmc, samples, nlls, verbose)
+    if metrics is not None:
+        for i, x in enumerate(limits):
+            metrics.log("experiment_limit", experiment=i,
+                        signal=fc.signal_name, upper=x)
+    return lspaces, limits
+
+
+def main_sharded(config_file: str, output_path: str, device="cuda",
+                 data_root: Optional[str] = None,
+                 binned: Optional[bool] = None,
+                 rate_substeps: Optional[int] = None) -> List[float]:
+    """``--sharded`` (JAX cli.py:145-162): fit every experiment as one
+    batch, write ``<prefix>_<i>.<format>`` for each, print the best fits
+    and the median upper limit; metrics go to
+    ``<output_path>/<prefix>_metrics.jsonl``.  ``binned`` and
+    ``rate_substeps``, when given, override the config."""
+    fc = FitConfig.from_json_file(config_file, data_root=data_root)
+    if binned is not None:
+        fc.binned = binned
+    if rate_substeps is not None:
+        fc.rate_substeps = rate_substeps
+    print(fc.print())
+    os.makedirs(output_path, exist_ok=True)
+    metrics = MetricsLogger(os.path.join(
+        output_path, f"{fc.output_prefix}_metrics.jsonl"))
+    print(f"sxmc_tpu_torch: Running the sharded ensemble on {device}...")
+    lspaces, limits = run_sharded_ensemble(fc, device=device,
+                                           metrics=metrics)
+    for i, ls in enumerate(lspaces):
+        ls.save(os.path.join(output_path,
+                             f"{fc.output_prefix}_{i}.{fc.output_format}"))
+        print(ls.print_best_fit())
+    if limits:
+        print(f"sxmc_tpu_torch: Median upper limit: {median(limits)}")
+    return limits

@@ -19,7 +19,11 @@ and :meth:`fused_segment_batch` for lock-step chains, and
 :meth:`fused_segment_tril` / :meth:`fused_segment_tril_batch` for
 full-covariance proposals, :meth:`fused_segment_tempered` for a
 tempering ladder; :meth:`blocked_segment` and
-:meth:`blocked_segment_batch` (B5); and the binned likelihood's data counts
+:meth:`blocked_segment_batch` (B5); the experiment-grouped forms of the
+sharded ensemble (:meth:`fused_segment_grouped`,
+:meth:`fused_segment_tril_grouped`, :meth:`blocked_segment_grouped`),
+whose read bins come from :meth:`compute_read_bins` of a padded
+``(nexp, nevents, ncols)`` batch; and the binned likelihood's data counts
 (:meth:`data_bin_counts`, :meth:`counts_from_read_bins`).  KDE signals
 are not ported yet and raise.
 
@@ -197,8 +201,19 @@ class PdfStack:
 
     def compute_read_bins(self, data) -> torch.Tensor:
         """``(nsignals, nevents)`` int32 read bins with the -1/-2
-        sentinels; an unknown dataset tag gets -2 in every row."""
+        sentinels; an unknown dataset tag gets -2 in every row where the
+        point is in the domain (the pad rows of
+        ``parallel.ensemble.pad_datasets`` get one or the other).  A
+        batch of experiments ``(nexp, nevents, ncols)`` gives ``(nexp,
+        nsignals, nevents)``, the grouped forms' layout."""
         pts = as_f32(data, self.device)
+        if pts.dim() == 3:
+            nexp, nev = pts.shape[:2]
+            rb = read_bins_for(pts.reshape(nexp * nev, -1),
+                               self.nobservables, self.lower_host,
+                               self.upper_host, self.nbins, self.datasets)
+            return rb.reshape(self.nsignals, nexp, nev).transpose(
+                0, 1).contiguous()
         return read_bins_for(pts, self.nobservables, self.lower_host,
                              self.upper_host, self.nbins, self.datasets)
 
@@ -386,6 +401,58 @@ class PdfStack:
         return kernels.blocked_segment_batched(
             self.hist_spec, ns, self.samples, self.hist_init, read_bins,
             params0, nll0, width, noise, log_u, debug_mode)
+
+    def _grouped(self, kernel, params0, nll0, width, read_bins, noise,
+                 log_u, ns, debug_mode):
+        """The grouped layout (JAX stack.py:471-545): ``params0 (nexp,
+        cpe, npar)``, ``nll0 (nexp, cpe, 2)``, ``width`` with the same
+        two leading axes, ``noise`` / ``log_u`` with them after the step
+        (and, blocked, the M + 1) axes -> histories ``(n, nexp, cpe,
+        ...)``.  The kernels take the chains flat, chain-major by
+        experiment."""
+        self._require_fused()
+        nexp, cpe, npar = params0.shape
+        nch = nexp * cpe
+        lead = noise.shape[:noise.dim() - 3]  # (n,) or (n, M + 1)
+        samples, nlls, accs = kernel(
+            self.hist_spec, ns, self.samples, self.hist_init, read_bins,
+            params0.reshape(nch, npar), nll0.reshape(nch, 2),
+            width.reshape((nch,) + tuple(width.shape[2:])),
+            noise.reshape(lead + (nch, npar)),
+            log_u.reshape(lead + (nch,)), debug_mode)
+        n = samples.shape[0]
+        return (samples.reshape(n, nexp, cpe, npar),
+                nlls.reshape(n, nexp, cpe, 2), accs.reshape(n, nexp, cpe))
+
+    def fused_segment_grouped(self, params0, nll0, width, read_bins, noise,
+                              log_u, ns: kernels.NLLSpec,
+                              debug_mode: bool = False):
+        """A whole fixed-width segment of every experiment's chains in
+        one launch (B4's experiment-grouped form; more launches only
+        past the chain caps): ``read_bins`` ``(nexp, nsignals,
+        nevents)``, the rest in the grouped layout of :meth:`_grouped`.
+        Each chain walks as :meth:`fused_segment_batch` would on its
+        experiment's read bins."""
+        return self._grouped(kernels.fused_segment_grouped, params0, nll0,
+                             width, read_bins, noise, log_u, ns, debug_mode)
+
+    def fused_segment_tril_grouped(self, params0, nll0, tril, read_bins,
+                                   noise, log_u, ns: kernels.NLLSpec,
+                                   debug_mode: bool = False):
+        """:meth:`fused_segment_grouped` with full-covariance proposals,
+        ``tril`` ``(nexp, cpe, npar, npar)``."""
+        return self._grouped(kernels.fused_segment_tril_grouped, params0,
+                             nll0, tril, read_bins, noise, log_u, ns,
+                             debug_mode)
+
+    def blocked_segment_grouped(self, params0, nll0, width, read_bins, noise,
+                                log_u, ns: kernels.NLLSpec,
+                                debug_mode: bool = False):
+        """B5's experiment-grouped form: ``noise`` ``(n, M + 1, nexp, cpe,
+        npar)``, ``log_u`` ``(n, M + 1, nexp, cpe)``; unweighted stacks
+        only."""
+        return self._grouped(kernels.blocked_segment_grouped, params0, nll0,
+                             width, read_bins, noise, log_u, ns, debug_mode)
 
 
 def _desc(s: Systematic) -> SystematicDesc:

@@ -23,6 +23,7 @@ from sxmc_tpu_torch.mcmc import metropolis as tm
 from sxmc_tpu_torch.ops import nll as t_nll
 
 from test_torch_chains import _phase_xs
+from test_torch_fullcov import _presample
 from test_torch_pdf import make_data, make_stack_inputs
 
 # Small shapes: one intra-op thread is as fast, and pytest workers that
@@ -104,7 +105,7 @@ def test_mcmc_binned_one_chain_fed_jax_streams(fits):
     lengths = (burnin, burnin, nsteps - 2 * burnin)
     streams = []
     for k, n in zip(jax.random.split(chain_key, 3), lengths):
-        noise, u = jm._presample(jax.random.split(k, n), jmc.nparameters, 0)
+        noise, u = _presample(jax.random.split(k, n), jmc.nparameters, 0)
         streams.append((np.asarray(noise), np.asarray(u)))
     tls = tmc(make_data(), nsteps, frac,
               presampler=interop.presampler(streams))

@@ -20,6 +20,7 @@ blocked runners against the JAX package on identical inputs.
   tests/data/golden/, binned with three chains among them.
 """
 
+import functools
 import json
 import os
 
@@ -129,9 +130,12 @@ def test_plain_blocked_debug_accepts_all(pallas_pair):
                                atol=1e-6)
 
 
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
 def _phase_xs_blocked(ks, n, npar, m):
     """_run_chains_batched's phase_xs (metropolis.py:1102-1114) with m
-    rate moves: noise (n, nchains, m + 1, npar), u (n, nchains, m + 1)."""
+    rate moves: noise (n, nchains, m + 1, npar), u (n, nchains, m + 1);
+    under jit, as the JAX runner draws them (op by op every new shape
+    compiles anew)."""
     kpc = 2 * (m + 1)
     split = jax.vmap(lambda k: jax.random.split(k, kpc * n).reshape(
         n, m + 1, 2, -1))(ks)
@@ -139,8 +143,10 @@ def _phase_xs_blocked(ks, n, npar, m):
         lambda k: jax.random.normal(k, (npar,)))))(split[:, :, :, 0])
     u = jax.vmap(jax.vmap(jax.vmap(
         lambda k: jax.random.uniform(k, ()))))(split[:, :, :, 1])
-    return (np.asarray(jnp.moveaxis(noise, 0, 1)),
-            np.asarray(jnp.moveaxis(u, 0, 1)))
+    return jnp.moveaxis(noise, 0, 1), jnp.moveaxis(u, 0, 1)
+
+
+_presample = jax.jit(jm._presample, static_argnums=(1, 2))
 
 
 def _streams(key, nch, lengths, npar, m):
@@ -149,12 +155,13 @@ def _streams(key, nch, lengths, npar, m):
     _run_chains_batched's phase_xs for several."""
     chain_keys = jax.random.split(key, nch)
     if nch == 1:
-        return [tuple(np.asarray(x) for x in jm._presample(
+        return [tuple(np.asarray(x) for x in _presample(
                     jax.random.split(k, n), npar, m))
                 for k, n in zip(jax.random.split(chain_keys[0], 3),
                                 lengths)]
     keys3 = jax.vmap(lambda k: jax.random.split(k, 3))(chain_keys)
-    return [_phase_xs_blocked(keys3[:, p], n, npar, m)
+    return [tuple(np.asarray(x) for x in _phase_xs_blocked(
+                keys3[:, p], n, npar, m))
             for p, n in enumerate(lengths)]
 
 

@@ -19,6 +19,7 @@ the batched runner, against the JAX package on identical inputs.
   systematics, on tests/data/golden/.
 """
 
+import functools
 import json
 import os
 
@@ -130,16 +131,22 @@ def test_plain_segment_batched_matches_pallas(pallas_pair):
     assert torch.equal(s0, t_s[:, 0]) and torch.equal(a0, t_a[:, 0])
 
 
-def _phase_xs(ks, n, npar):
-    """_run_chains_batched's phase_xs (metropolis.py:1102-1114), m = 0."""
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _phase_xs_jit(ks, n, npar):
     split = jax.vmap(lambda k: jax.random.split(k, 2 * n).reshape(
         n, 1, 2, -1))(ks)
     noise = jax.vmap(jax.vmap(jax.vmap(
         lambda k: jax.random.normal(k, (npar,)))))(split[:, :, :, 0])
     u = jax.vmap(jax.vmap(jax.vmap(
         lambda k: jax.random.uniform(k, ()))))(split[:, :, :, 1])
-    return (np.asarray(jnp.moveaxis(noise, 0, 1)),
-            np.asarray(jnp.moveaxis(u, 0, 1)))
+    return jnp.moveaxis(noise, 0, 1), jnp.moveaxis(u, 0, 1)
+
+
+def _phase_xs(ks, n, npar):
+    """_run_chains_batched's phase_xs (metropolis.py:1102-1114), m = 0,
+    drawn under jit as the JAX runner draws them (op by op every new
+    shape compiles anew)."""
+    return tuple(np.asarray(x) for x in _phase_xs_jit(ks, n, npar))
 
 
 @pytest.mark.parametrize("fixed", [False, True])

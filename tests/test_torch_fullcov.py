@@ -195,10 +195,14 @@ def same_walk(got, want, nch):
     assert stayed(got).any() and not stayed(got).all()
 
 
+_presample = jax.jit(jm._presample, static_argnums=(1, 2))
+
+
 def _single_streams(chain_key, lengths, npar):
     """_run_single_chain(_fullcov)'s per-phase streams of one chain:
-    split(key, 3), then the scan's per-step split (_presample, m = 0)."""
-    return [jm._presample(jax.random.split(k, n), npar, 0)
+    split(key, 3), then the scan's per-step split (_presample, m = 0,
+    under jit as the JAX runner draws them)."""
+    return [_presample(jax.random.split(k, n), npar, 0)
             for k, n in zip(jax.random.split(chain_key, 3), lengths)]
 
 

@@ -1,6 +1,6 @@
 """Kernels B1/B3/B4: plain versions against the JAX Pallas kernels, and
 (on a card) the CUDA kernels B1, B2, B3, B4 (diagonal and tril) and B5,
-single and batched, against their plain versions.
+single, batched and experiment-grouped, against their plain versions.
 
 The JAX side runs as its own CPU tests run it: a PdfStack built under
 ``force_pallas_interpret`` takes the per-segment Pallas path, kernels
@@ -422,3 +422,94 @@ def test_cuda_weighted_and_tempered_segments_match_plain(cuda_pair,
         assert torch.equal(a, pa) and torch.equal(s, ps)
         assert (n.double().sum(-1) - pn.double().sum(-1)).abs().max() \
             <= NLL_TOL
+
+
+def _grouped_inputs(mcmc, nexp, cpe, n, sub=(), tril=False):
+    """Experiment-grouped inputs on the card: the read bins of nexp
+    datasets of different sizes, padded ``(nexp, nsig, nev)``, and a
+    start and streams of n steps (with the blocked ``(M + 1,)`` axis
+    ``sub``) for nexp * cpe chains around the means."""
+    from sxmc_tpu_torch.parallel.ensemble import pad_datasets
+
+    dev = mcmc.device
+    nch = nexp * cpe
+    rb = mcmc.stack.compute_read_bins(pad_datasets(
+        [make_data(seed=40 + e, nev=400 - 37 * e) for e in range(nexp)]))
+    # Every chain at the means with its experiment's NLL (B3 per
+    # experiment: a batch may exceed B3-batched's caps).
+    params, _, width = initial_state(mcmc, rb[0])
+    params, width = (x.expand(nch, -1).contiguous() for x in (params, width))
+    nll0 = torch.stack([torch.stack(initial_state(mcmc, rb[e])[1])
+                        for e in range(nexp) for _ in range(cpe)])
+    rng = np.random.default_rng(31)
+    noise = torch.as_tensor(rng.normal(0, 1, (n,) + sub + (
+        nch, mcmc.nparameters)).astype(np.float32), device=dev)
+    log_u = torch.as_tensor(np.log(rng.uniform(0, 1, (n,) + sub + (nch,)))
+                            .astype(np.float32), device=dev)
+    if tril:
+        w = width.clamp_min(0)
+        low = torch.tril(torch.full(w.shape[-1:] * 2, 0.2, device=dev), -1)
+        width = (torch.diag_embed(w) + low * w[..., :, None]).contiguous()
+    return rb, params, nll0, width, noise, log_u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["diagonal", "tril", "weighted", "blocked"])
+def test_cuda_grouped_segments_match_plain(cuda_pair, cuda_weighted, form):
+    """The experiment-grouped forms of B4 (diagonal, tril, weighted) and
+    B5, 3 experiments x 2 chains, against their plain versions; and each
+    experiment's chains decide as the batched form on its read bins."""
+    mcmc, dev = cuda_weighted if form == "weighted" else cuda_pair
+    st = mcmc.stack
+    blocked = form == "blocked"
+    rb, params, nll0, width, noise, log_u = _grouped_inputs(
+        mcmc, 3, 2, 80, sub=(3,) if blocked else (), tril=form == "tril")
+    name = {"diagonal": "fused_segment_grouped",
+            "tril": "fused_segment_tril_grouped",
+            "weighted": "fused_segment_grouped",
+            "blocked": "blocked_segment_grouped"}[form]
+    counted = name + ("_weighted" if form == "weighted" else "")
+    args = (st.hist_spec, mcmc.nll_spec, st.samples, st.hist_init, rb,
+            params, nll0, width, noise, log_u)
+    before = kernels.launch_counts()[counted]
+    s, n, a = getattr(kernels, name)(*args)
+    plain = (kernels.blocked_segment_grouped_plain if blocked
+             else kernels.fused_segment_grouped_plain)
+    ps, pn, pa = plain(*args)
+    assert kernels.launch_counts()[counted] == before + 1
+    assert torch.equal(a, pa) and torch.equal(s, ps)
+    assert (n.double().sum(-1) - pn.double().sum(-1)).abs().max() <= NLL_TOL
+    assert 0 < float(a.sum()) < a.numel()
+    batched = getattr(kernels, {"tril": "fused_segment_tril_batched",
+                                "blocked": "blocked_segment_batched"}.get(
+        form, "fused_segment_batched"))
+    ax = 2 if blocked else 1
+    for e in range(3):
+        c = slice(2 * e, 2 * e + 2)
+
+        def part(t, dim=0):
+            return t.narrow(dim, 2 * e, 2).contiguous()
+
+        bs, _, ba = batched(st.hist_spec, mcmc.nll_spec, st.samples,
+                            st.hist_init, rb[e], part(params), part(nll0),
+                            part(width), part(noise, ax), part(log_u, ax))
+        assert torch.equal(ba, a[:, c]) and torch.equal(bs, s[:, c])
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_batch_splits_into_launches(cuda_pair):
+    """5 experiments x 8 chains exceed one launch's 32 chains: two
+    launches of whole experiments (4, then 1), equal to the plain
+    version."""
+    mcmc, dev = cuda_pair
+    st = mcmc.stack
+    rb, params, nll0, width, noise, log_u = _grouped_inputs(mcmc, 5, 8, 40)
+    args = (st.hist_spec, mcmc.nll_spec, st.samples, st.hist_init, rb,
+            params, nll0, width, noise, log_u)
+    before = kernels.launch_counts()["fused_segment_grouped"]
+    s, n, a = kernels.fused_segment_grouped(*args)
+    ps, pn, pa = kernels.fused_segment_grouped_plain(*args)
+    assert kernels.launch_counts()["fused_segment_grouped"] == before + 2
+    assert s.shape == (40, 40, mcmc.nparameters)
+    assert torch.equal(a, pa) and torch.equal(s, ps)
+    assert (n.double().sum(-1) - pn.double().sum(-1)).abs().max() <= NLL_TOL

@@ -30,6 +30,10 @@ torch.set_num_threads(1)
 
 NLL_TOL = 1e-3
 
+# The JAX noise streams, drawn under jit as the JAX runner draws them
+# (op by op every new shape compiles anew).
+_presample = jax.jit(jm._presample, static_argnums=(1, 2))
+
 
 @pytest.fixture(scope="module")
 def chains():
@@ -88,8 +92,8 @@ def test_run_segment_fed_jax_streams(chains, nsteps, seed):
     key = jax.random.PRNGKey(seed)
     jp, jn, js, jnl, jacc = jm.run_segment(jmc, p0, nll0, w0, rb, dd, key,
                                            nsteps)
-    noise, u = jm._presample(jax.random.split(key, nsteps),
-                             jmc.nparameters, 0)
+    noise, u = _presample(jax.random.split(key, nsteps), jmc.nparameters,
+                          0)
     t_noise, t_u = interop.stream(noise, u)
     tp, tnll, tw = interop.chain_state(p0, nll0, w0)
     _, _, ts, (thi, tlo), tacc = tm.run_segment(
@@ -147,7 +151,7 @@ def test_fixed_systematics_raise():
     key = jax.random.PRNGKey(4)
     _, _, js, jnl, jacc = jm.run_segment(jmc, p0, nll0, w0, rb, dd, key,
                                          24)
-    noise, u = jm._presample(jax.random.split(key, 24), jmc.nparameters, 0)
+    noise, u = _presample(jax.random.split(key, 24), jmc.nparameters, 0)
     tp, tnll, tw = tm.initial_state(tmc, tmc.stack.read_bins)
     assert abs(float(tnll[0].double() + tnll[1].double())
                - float(np.float64(nll0[0]) + np.float64(nll0[1]))) <= NLL_TOL

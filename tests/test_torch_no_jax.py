@@ -30,6 +30,7 @@ import sxmc_tpu_torch
 for m in pkgutil.walk_packages(sxmc_tpu_torch.__path__, "sxmc_tpu_torch."):
     importlib.import_module(m.name)
 assert not any(k.split(".")[0] in ("jax", "sxmc_tpu") for k in sys.modules)
+assert "sxmc_tpu_torch.parallel.ensemble" in sys.modules
 print("imported", len(sys.modules))
 
 import torch
@@ -71,14 +72,15 @@ def test_imports_with_jax_blocked_and_cuda_is_explicit(tmp_path):
                                   ["--gof"], ["--bias-study", "5"],
                                   ["--checkpoint-steps", "100"],
                                   ["--rate-substeps", "2"], ["--binned"],
-                                  ["--sampler", "hmc"]])
+                                  ["--sampler", "hmc"],
+                                  ["--num-processes", "2"]])
 def test_out_of_slice_cli_flags_raise(tmp_path, flag):
-    """Flags off the port raise naming their ROADMAP item; --binned and
-    --rate-substeps, ported since, run a binned or a blocked fit of the
-    golden configuration."""
+    """Flags off the port raise naming their ROADMAP item; --binned,
+    --rate-substeps and --sharded, ported since, run a binned, a blocked
+    or a sharded fit of the golden configuration."""
     from sxmc_tpu_torch.cli import main
 
-    if flag in (["--binned"], ["--rate-substeps", "2"]):
+    if flag in (["--binned"], ["--rate-substeps", "2"], ["--sharded"]):
         cfg = json.loads((REPO / "tests" / "data" / "golden" /
                           "config.json").read_text())
         cfg["fit"].update(nexperiments=1, nsteps=200, output_format="npz")
@@ -99,28 +101,49 @@ def test_out_of_slice_cli_flags_raise(tmp_path, flag):
 
 
 @pytest.mark.parametrize("entry", ["MCMC", "PdfStack", "EvalHist",
-                                   "TemperedMCMC"])
-def test_entry_points_default_to_the_card(entry):
-    """MCMC, TemperedMCMC, PdfStack and EvalHist take the card unless the
-    caller asks for the CPU: without CUDA, constructing one with no
-    device raises (naming --device cpu) instead of quietly running on
-    the CPU."""
+                                   "TemperedMCMC", "run_sharded_ensemble"])
+def test_entry_points_default_to_the_card(entry, monkeypatch):
+    """MCMC, TemperedMCMC, PdfStack, EvalHist and the sharded ensemble
+    (``run_sharded_ensemble``) take the card unless the caller asks for
+    the CPU: without CUDA, calling one with no device raises (naming
+    --device cpu) instead of quietly running on the CPU."""
     import torch
 
+    from sxmc_tpu_torch.fitconfig import FitConfig
     from sxmc_tpu_torch.mcmc.metropolis import MCMC
     from sxmc_tpu_torch.mcmc.tempered import TemperedMCMC
+    from sxmc_tpu_torch.parallel import ensemble
     from sxmc_tpu_torch.pdf.evalhist import EvalHist
     from sxmc_tpu_torch.pdf.stack import PdfStack
     from test_torch_pdf import make_stack_inputs
 
     srcs, sigs, systs, obs = make_stack_inputs("sxmc_tpu_torch", n_mc=200)
+
+    class Built(Exception):  # the ensemble's set-up reached: its device
+        pass
+
+    def setup(fc, nsteps, device, dataset_fn):
+        raise Built(device)
+
+    def sharded():
+        monkeypatch.setattr(ensemble, "_ensemble_setup", setup)
+        fc = FitConfig(sources=srcs, signals=sigs, systematics=systs,
+                       observables=obs, nexperiments=2, nsteps=10,
+                       nchains=2)
+        try:
+            ensemble.run_sharded_ensemble(fc, verbose=False)
+        except Built as e:
+            return e.args[0]
+
     build = {"MCMC": lambda: MCMC(srcs, sigs, systs, obs),
              "TemperedMCMC": lambda: TemperedMCMC(srcs, sigs, systs, obs),
              "PdfStack": lambda: PdfStack(sigs, obs, systs),
              "EvalHist": lambda: EvalHist(
-                 np.zeros((4, 1), np.float32), 1, 1, [0.0], [1.0], [2])}
+                 np.zeros((4, 1), np.float32), 1, 1, [0.0], [1.0], [2]),
+             "run_sharded_ensemble": lambda: sharded()}
     if torch.cuda.is_available():
-        assert build[entry]().device.type == "cuda"
+        got = build[entry]()
+        assert getattr(got, "device", got).type == "cuda"
         return
     with pytest.raises(RuntimeError, match="--device cpu"):
         build[entry]()

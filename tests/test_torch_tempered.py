@@ -72,12 +72,17 @@ def _draws(npar):
     return normal, uniform
 
 
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
+def _interval_keys(k, n, ntemps, npar):
+    ks = jax.random.split(k, ntemps)
+    return jax.vmap(lambda kk: jax.random.split(kk, 2 * n).reshape(
+        n, 2, -1))(ks)
+
+
 def _interval_xs(k, n, ntemps, npar):
     """tempered.py's interval_xs, returning u (the port takes log(u))."""
     normal, uniform = _draws(npar)
-    ks = jax.random.split(k, ntemps)
-    split = jax.vmap(lambda kk: jax.random.split(kk, 2 * n).reshape(
-        n, 2, -1))(ks)
+    split = _interval_keys(k, n, ntemps, npar)
     return (np.moveaxis(np.asarray(normal(split[:, :, 0])), 0, 1),
             np.moveaxis(np.asarray(uniform(split[:, :, 1])), 0, 1))
 

@@ -31,7 +31,7 @@ from sxmc_tpu_torch import interop
 from sxmc_tpu_torch.mcmc import metropolis as tm
 from sxmc_tpu_torch.ops.nll import nll_pair as t_nll_pair
 
-from test_torch_fullcov import same_walk
+from test_torch_fullcov import _presample, same_walk
 from test_torch_pdf import make_data, make_stack_inputs
 
 torch.set_num_threads(1)
@@ -223,8 +223,8 @@ def test_weighted_segment_fed_jax_streams(m):
     key = jax.random.PRNGKey(37 + m)
     _, _, js, jnl, jacc = jm.run_segment(jmc, p0, nll0, w0, rb, dd, key,
                                          nsteps, rate_substeps=m)
-    noise, u = interop.stream(*jm._presample(jax.random.split(key, nsteps),
-                                             jmc.nparameters, m))
+    noise, u = interop.stream(*_presample(jax.random.split(key, nsteps),
+                                          jmc.nparameters, m))
     _, _, ts, (thi, tlo), tacc = tm.run_segment(
         tmc, *interop.chain_state(p0, nll0, w0), tmc.stack.read_bins, noise,
         u, rate_substeps=m)

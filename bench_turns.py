@@ -6,12 +6,19 @@ from the root of a checkout, on a machine with one Hopper card.  It runs
 four fresh processes in this order: OTHER, THIS, THIS, OTHER, each with
 that checkout's sxmc_tpu_torch first on sys.path (its kernels built from
 its own csrc/ into its own build/), and each measures on the reference
-example (chip_smoke.write_example: 2 signals x 500k MC rows):
+example (chip_smoke.write_example: 2 signals x 500k MC rows), set up
+and timed by this checkout's chip_smoke helpers:
 
-  * B4's single-chain diagonal form: us/step of a 500-step
-    ``kernels.fused_segment`` (CUDA events over 10 launches);
-  * the default path and the 8-chain path through the CLI (100,000
-    steps each): chain-steps/s from the ``experiment_fit`` record.
+  * B4's single-chain diagonal form and its 8-chain batched form: us a
+    step of a 500-step ``kernels.fused_segment`` /
+    ``fused_segment_batched`` (CUDA events over 10 launches), the
+    batched form also at 1,000 energy bins (histograms too large for
+    the shared-memory replicas);
+  * B5's 8-chain batched form at M = 4 rate moves: us a cycle of a
+    500-cycle ``kernels.blocked_segment_batched`` (10 launches);
+  * the default path, the 8-chain path and the blocked 8-chain path
+    ("rate_substeps": 4) through the CLI (100,000 steps or cycles
+    each): chain-steps/s from the ``experiment_fit`` record.
 
 Each run prints one JSON line; ``--json`` also writes them all to a
 file.  Compare two versions only within one such call: the card and its
@@ -19,6 +26,7 @@ power limit are printed beside the numbers.
 """
 
 import argparse
+import importlib.util
 import json
 import os
 import pathlib
@@ -27,9 +35,19 @@ import sys
 import tempfile
 
 HERE = pathlib.Path(__file__).resolve().parent
-SEGMENT_STEPS = 500
 FULL_STEPS = 100_000
 NCHAINS = 8
+RATE_SUBSTEPS = 4
+
+
+def _smoke():
+    """This checkout's chip_smoke (its helpers drive either tree's
+    package: they import sxmc_tpu_torch when called)."""
+    spec = importlib.util.spec_from_file_location("_turns_smoke",
+                                                  HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _measure(tree: str) -> dict:
@@ -37,57 +55,45 @@ def _measure(tree: str) -> dict:
     sys.path.insert(0, tree)
     import torch
     import sxmc_tpu_torch
-    from chip_smoke import write_example
 
     pkg = pathlib.Path(sxmc_tpu_torch.__file__).resolve()
     if pathlib.Path(tree).resolve() not in pkg.parents:
         raise SystemExit(f"imported {pkg}, not the package of {tree}")
     from sxmc_tpu_torch.cli import main as cli_main
-    from sxmc_tpu_torch.fitconfig import FitConfig
-    from sxmc_tpu_torch.generator import make_fake_dataset
-    from sxmc_tpu_torch.mcmc.metropolis import MCMC, initial_state
     from sxmc_tpu_torch.ops import kernels
 
-    dev = torch.device("cuda")
+    smoke = _smoke()
     kernels.build()
     out = {"tree": tree}
     with tempfile.TemporaryDirectory() as workdir:
-        cfg_path = write_example(workdir)
-        fc = FitConfig.from_json_file(cfg_path, data_root=workdir)
-        mcmc = MCMC(fc.sources, fc.signals, fc.systematics, fc.observables,
-                    device=dev)
-        st = mcmc.stack
-        st.set_data(make_fake_dataset(torch.Generator().manual_seed(3),
-                                      fc.signals, fc.systematics,
-                                      fc.observables, stack=st))
-        params, nll0, width = initial_state(mcmc, st.read_bins)
-        gen = torch.Generator(dev).manual_seed(11)
-        noise = torch.randn((SEGMENT_STEPS, mcmc.nparameters),
-                            generator=gen, device=dev)
-        log_u = torch.log(torch.rand(SEGMENT_STEPS, generator=gen,
-                                     device=dev))
-        args = (st.hist_spec, mcmc.nll_spec, st.samples, st.hist_init,
-                st.read_bins, params, torch.stack(nll0), width, noise, log_u)
-        kernels.fused_segment(*args)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(10):
-            kernels.fused_segment(*args)
-        stop.record()
-        torch.cuda.synchronize()
-        out["b4_us_per_step"] = (start.elapsed_time(stop) / 10
-                                 / SEGMENT_STEPS * 1e3)
+        cfg_path = smoke.write_example(workdir)
+        path_1000 = smoke.write_example_variant(cfg_path, workdir, bins=1000)
+        mcmcs = {}
+        for key, fn, path, nch, sub in (
+                ("b4_us_per_step", kernels.fused_segment, cfg_path, 1, ()),
+                ("b4_batched_us_per_step", kernels.fused_segment_batched,
+                 cfg_path, NCHAINS, ()),
+                ("b4_batched_1000_bins_us_per_step",
+                 kernels.fused_segment_batched, path_1000, NCHAINS, ()),
+                ("b5_batched_us_per_cycle", kernels.blocked_segment_batched,
+                 cfg_path, NCHAINS, (RATE_SUBSTEPS + 1,))):
+            if path not in mcmcs:
+                mcmcs[path] = smoke.example_mcmc(torch, path, workdir)[0]
+            args = smoke.segment_args(torch, mcmcs[path], nch, 11, sub)
+            ms = smoke.cuda_ms(torch, lambda: fn(*args), 10)
+            out[key] = ms / smoke.SEGMENT_STEPS * 1e3
 
         with open(cfg_path) as f:
             cfg = json.load(f)
-        for tag, nch in (("default", 1), ("nchains=8", NCHAINS)):
-            cfg["fit"].update(nsteps=FULL_STEPS, nchains=nch)
-            path = os.path.join(workdir, f"turns_{nch}.json")
+        for tag, nch, m in (("default", 1, 0), ("nchains=8", NCHAINS, 0),
+                            ("rate_substeps=4, nchains=8", NCHAINS,
+                             RATE_SUBSTEPS)):
+            cfg["fit"].update(nsteps=FULL_STEPS, nchains=nch,
+                              rate_substeps=m)
+            path = os.path.join(workdir, f"turns_{nch}_{m}.json")
             with open(path, "w") as f:
                 json.dump(cfg, f)
-            res = os.path.join(workdir, f"out_{nch}")
+            res = os.path.join(workdir, f"out_{nch}_{m}")
             rc = cli_main([path, res, "--data-root", workdir, "--device",
                            "cuda", "--max-retries", "0"])
             with open(os.path.join(res, "example_metrics.jsonl")) as f:

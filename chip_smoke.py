@@ -22,7 +22,9 @@ from the root of a checkout, on a machine with one Hopper card.  It
        B4 fused_segment / fused_segment_batched: a 500-step segment,
           and one of 8 lock-step chains, fed identical noise; accept
           decisions and parameters identical, NLL history within
-          NLL_TOL;
+          NLL_TOL; B4-batched also at 32 chains (the most one launch
+          takes) and at 8 chains x 1,000 energy bins (histograms too
+          large for the shared-memory replicas);
        B4 fused_segment_tril / fused_segment_tril_batched (full-
           covariance proposals cur + L @ z): the same, with correlated
           lower-triangular scales, and the full_cov retune between
@@ -239,6 +241,19 @@ def weight_ops(hs, nchains: int = 1) -> float:
     return float(hs.n * nchains) if hs.weighted else 0.0
 
 
+def sample_bytes_read(hs) -> float:
+    """Bytes of the MC samples a rebuild must read: the observables and
+    the fields after them that a systematic transforms, the second field
+    of each other resolution systematic, and the weight row of weighted samples (other fields,
+    such as the dataset tag, are not read)."""
+    from sxmc_tpu_torch.ops.transforms import RESOLUTION_SCALE
+
+    fields = set(range(hs.nload)) | {
+        desc.extra_field for desc, mask in hs.systematics
+        if desc.type == RESOLUTION_SCALE and any(mask)}
+    return 4.0 * (len(fields) + int(hs.weighted)) * hs.n
+
+
 def event_ops(nsig: int, nev: int) -> float:
     """Per event: a multiply, a divide and an add per signal, one log."""
     return nev * (3 * nsig + 1)
@@ -387,7 +402,7 @@ def check_kernels(torch, kernels, config_path: str, workdir: str):
         torch, lambda: kernels.segmented_histogram_plain(hs, st.samples,
                                                          theta),
         lambda: kernels.segmented_histogram(hs, st.samples, theta), 5, 50)
-    sample_bytes = f4 * hs.nfields * hs.n
+    sample_bytes = sample_bytes_read(hs)
     hist_names = ("sx_hist_kernel", "sx_to_float")
     dms = device_ms(torch, lambda: kernels.segmented_histogram(
         hs, st.samples, theta), 50, hist_names)
@@ -552,7 +567,7 @@ def check_kernels(torch, kernels, config_path: str, workdir: str):
             ev_hs, ev.device_samples(), ev_th),
         lambda: ev.histogram(ev_theta), 5, 50)
     dms = device_ms(torch, lambda: ev.histogram(ev_theta), 50, hist_names)
-    b1a = bound(f4 * ev_hs.nfields * ev_hs.n + f4 * (ev_hs.total + 1),
+    b1a = bound(sample_bytes_read(ev_hs) + f4 * (ev_hs.total + 1),
                 binning_ops(ev_hs))
     print(f"B1a EvalHist.histogram, {ev_hs.n} rows, {ev_hs.total} bins: "
           f"counts and norm equal; kernel {ms:.4f} ms (on the card {dms} "
@@ -762,12 +777,150 @@ def check_kernels(torch, kernels, config_path: str, workdir: str):
         torch, kernels, "fused_segment_tempered", hs, ns, st, rb, t_args,
         beta, noise, log_u, sample_bytes, nsig, nev)
 
+    check_regimes(torch, kernels, config_path, workdir, data, out)
     check_weighted(torch, kernels, config_path, workdir, data, out, beta,
                    noise, log_u)
     check_grouped(torch, kernels, config_path, workdir, out)
     for v in out.values():
         v.setdefault("library_ms", None)
     return out
+
+
+def write_example_variant(config_path: str, workdir: str, bins: int = 0,
+                          wide: bool = False) -> str:
+    """The example's configuration with ``bins`` energy bins, or (wide)
+    with radius as a second observable (no cut) and two more
+    systematics, loaded in the order radius resolution (it appends
+    mc_energy to the sample fields), a shift of mc_energy, then the
+    energy scale and resolution: the binning's general case, two
+    observables and a transformed truth field that both resolutions
+    read.  Returns the new file's path."""
+    with open(config_path) as f:
+        cfg = json.load(f)
+    if bins:
+        cfg["pdfs"]["observables"]["energy"]["bins"] = bins
+    if wide:
+        cfg["fit"].update(observables=["energy", "radius"], cuts=[])
+        systs = cfg["pdfs"]["systematics"]
+        systs["radius_resolution"] = {
+            "title": "Radius resolution", "type": "resolution_scale",
+            "observable_field": "radius", "true_field": "mc_energy",
+            "mean": [0.0], "sigma": [1e-3]}
+        systs["truth_shift"] = {
+            "title": "True energy shift", "type": "shift",
+            "observable_field": "mc_energy", "mean": [0.0],
+            "sigma": [0.5]}
+        for sig in cfg["signals"].values():
+            sig["systematics"] = ["radius_resolution", "truth_shift"] + \
+                sig["systematics"]
+    path = os.path.join(workdir, f"example_{bins}_{int(wide)}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path
+
+
+def example_mcmc(torch, path: str, workdir: str, data=None):
+    """(MCMC on the card, its data): the configuration at ``path`` with
+    ``data``, or a fake dataset drawn from seed 3."""
+    from sxmc_tpu_torch.fitconfig import FitConfig
+    from sxmc_tpu_torch.generator import make_fake_dataset
+    from sxmc_tpu_torch.mcmc.metropolis import MCMC
+
+    fc = FitConfig.from_json_file(path, data_root=workdir)
+    mcmc = MCMC(fc.sources, fc.signals, fc.systematics, fc.observables,
+                device=torch.device("cuda"))
+    if data is None:
+        data = make_fake_dataset(torch.Generator().manual_seed(3),
+                                 fc.signals, fc.systematics, fc.observables,
+                                 stack=mcmc.stack)
+    mcmc.stack.set_data(data)
+    return mcmc, data
+
+
+def segment_args(torch, mcmc, nch: int, seed: int, sub=()):
+    """The arguments of a B4 (or, with ``sub`` = (M + 1,), B5) segment of
+    SEGMENT_STEPS steps for 1 or ``nch`` chains from their start, with
+    streams drawn on the card from ``seed``."""
+    from sxmc_tpu_torch.mcmc.metropolis import initial_state
+
+    dev = torch.device("cuda")
+    st = mcmc.stack
+    params, nll0, width = initial_state(mcmc, st.read_bins, nch)
+    gen = torch.Generator(dev).manual_seed(seed)
+    lead = (SEGMENT_STEPS,) + tuple(sub) + ((nch,) if nch > 1 else ())
+    noise = torch.randn(lead + (mcmc.nparameters,), generator=gen,
+                        device=dev)
+    log_u = torch.log(torch.rand(lead, generator=gen, device=dev))
+    return (st.hist_spec, mcmc.nll_spec, st.samples, st.hist_init,
+            st.read_bins, params, torch.stack(nll0, dim=-1), width, noise,
+            log_u)
+
+
+def check_regimes(torch, kernels, config_path, workdir, data, out):
+    """The lock-step rebuild's regimes, each against its plain version
+    (decisions and parameters identical, |dNLL| <= NLL_TOL) and timed:
+    B4-batched at MAXCHAINS chains (the most one launch takes; every
+    chain's histograms in the shared-memory replicas) on the example,
+    and at NCHAINS chains at 1,000 energy bins (too large for the
+    replicas: every count a global atomic); and B1-batched (counts
+    bit-exact), B4-batched and B5-batched at NCHAINS chains on the wide
+    example (two observables, a transformed truth field)."""
+    path_1000 = write_example_variant(config_path, workdir, bins=1000)
+    path_wide = write_example_variant(config_path, workdir, wide=True)
+    nsub = (RATE_SUBSTEPS + 1,)
+    res = {}
+    mcmcs = {}
+    for tag, path, name, nch, sub in (
+            ("maxchains", config_path, "fused_segment_batched",
+             kernels.MAXCHAINS, ()),
+            ("bins1000", path_1000, "fused_segment_batched", NCHAINS, ()),
+            ("wide", path_wide, "fused_segment_batched", NCHAINS, ()),
+            ("wide", path_wide, "blocked_segment_batched", NCHAINS, nsub)):
+        if path not in mcmcs:
+            mcmcs[path] = example_mcmc(
+                torch, path, workdir, data if path != path_wide else None)[0]
+        mcmc = mcmcs[path]
+        st = mcmc.stack
+        hs = st.hist_spec
+        if tag == "wide" and not sub:
+            # Systematic parameters drawn at their prior widths.
+            dev = torch.device("cuda")
+            nst = mcmc.nll_spec.st
+            widths = torch.as_tensor(np.asarray(
+                nst.sigmas[int(nst.nsources):], np.float32), device=dev)
+            gen = torch.Generator(dev).manual_seed(5)
+            th = widths * torch.randn((NCHAINS, widths.shape[0]),
+                                      generator=gen, device=dev)
+            got = kernels.segmented_histogram_batched(hs, st.samples, th)
+            want = kernels.segmented_histogram_plain(hs, st.samples, th)
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  "B1-batched (wide) counts or norms differ")
+            print(f"B1 segmented_histogram_batched (wide), {NCHAINS} chains, "
+                  f"{hs.nobs} observables x {hs.total} bins, {hs.nload} "
+                  "fields in registers: counts and norms equal")
+        args = segment_args(torch, mcmc, nch, 31, sub)
+        kern = getattr(kernels, name)
+        plain = (kernels.blocked_segment_plain if sub
+                 else kernels.fused_segment_plain)
+        got = kern(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        label = f"{name} ({tag})"
+        err = same_walk(torch, label, got, want)
+        check(0 < float(got[2].sum()) < got[2].numel(),
+              f"{label}: no walk ({float(got[2].mean())})")
+        ms = cuda_ms(torch, lambda: kern(*args), 10)
+        us = ms / SEGMENT_STEPS * 1e3
+        unit = "cycle" if sub else "step"
+        print(f"{'B5' if sub else 'B4'} {label}, {nch} chains x "
+              f"{SEGMENT_STEPS} {unit}s, {hs.total} bins: trajectories "
+              f"identical (accept rate {float(got[2].mean()):.3f}), |dNLL| "
+              f"{err:.3g}; kernel {ms:.4f} ms ({us:.2f} us/{unit})")
+        res[f"{name} {tag}"] = {"nchains": nch, "bins": hs.total,
+                                "max_abs_err": err, "ms": ms,
+                                f"us_per_{unit}": us}
+    out["fused_segment_batched"]["regimes"] = res
 
 
 def check_tempered(torch, kernels, name, hs, ns, st, rb, t_args, beta,
@@ -822,7 +975,7 @@ def check_weighted(torch, kernels, config_path, workdir, data, out, beta,
     rb = st.read_bins
     nsig, nev = rb.shape
     npar = mcmc.nparameters
-    sample_bytes = f4 * hs.nrows * hs.n
+    sample_bytes = sample_bytes_read(hs)
     hist_names = ("sx_hist_kernel", "sx_to_float")
     theta = torch.as_tensor(nominal_params(fc.systematics), device=dev)
     # The grid rule's blocks per SM with float64 replicas in shared
@@ -862,7 +1015,7 @@ def check_weighted(torch, kernels, config_path, workdir, data, out, beta,
         return {"max_abs_err": float((got[0] - want[0]).abs().max()),
                 "tie_bins": ties, "ms": ms, "plain_ms": plain_ms,
                 "device_ms": dms,
-                **bound(f4 * hs_.nrows * hs_.n
+                **bound(sample_bytes_read(hs_)
                         + f4 * nch * hs_.ndyn * (hs_.total + 1),
                         binning_ops(hs_, nch) + weight_ops(hs_, nch))}
 
@@ -912,7 +1065,7 @@ def check_weighted(torch, kernels, config_path, workdir, data, out, beta,
                                                         device=dev)),
         lambda: ev.histogram(ev_theta), 5, 50)
     dms = device_ms(torch, lambda: ev.histogram(ev_theta), 50, hist_names)
-    b1a = bound(f4 * ev_hs.nrows * ev_hs.n + f4 * (ev_hs.total + 1),
+    b1a = bound(sample_bytes_read(ev_hs) + f4 * (ev_hs.total + 1),
                 binning_ops(ev_hs) + weight_ops(ev_hs))
     print(f"B1a EvalHist.histogram, weighted, {ev_hs.n} rows: {ties} bins "
           f"or norms differ (rounding ties); kernel {ms:.4f} ms (on the "
@@ -1082,7 +1235,7 @@ def check_grouped(torch, kernels, config_path, workdir, out):
                                     .double().sum(-1)).abs().max()))
         ms, plain_ms = in_turns(torch, lambda: plain(*args),
                                 lambda: fn(*args), 1, 10)
-        seg_bytes = (f4 * hs.nrows * hs.n
+        seg_bytes = (sample_bytes_read(hs)
                      + f4 * (nsig * hs.total + NEXP * nsig * nev)
                      + f4 * nch * npar * (npar if tril else 1)
                      + f4 * SEGMENT_STEPS * nch * (
@@ -1180,7 +1333,7 @@ def bench_shape_turns(torch, kernels) -> dict:
     hs, npar, f4 = st.hist_spec, mcmc.nparameters, 4.0
     nsig = rb.shape[1]
     nevs = [d.shape[0] for d in datasets]
-    bnd = bound(f4 * hs.nrows * hs.n + f4 * (nsig * hs.total + rb.numel())
+    bnd = bound(sample_bytes_read(hs) + f4 * (nsig * hs.total + rb.numel())
                 + f4 * SEGMENT_STEPS * nch * (2 * npar + 4),
                 SEGMENT_STEPS * (binning_ops(hs, nch) + CPE * sum(
                     event_ops(nsig, n_e) for n_e in nevs)))

@@ -45,6 +45,10 @@ def main(argv=None) -> int:
         "gof": "ROADMAP queue A, item 10",
         "bias_study": "ROADMAP queue A, item 10",
         "checkpoint_steps": "ROADMAP queue A, item 8",
+        "profile": "ROADMAP queue A, item 7",
+        "process_id": "ROADMAP queue A, item 14",
+        "hypotest_band": "ROADMAP queue A, item 10",
+        "hypotest_asymptotic": "ROADMAP queue A, item 10",
     }
     parser.add_argument("--sharded", action="store_true",
                         help="fit every experiment's chains as one batch "
@@ -53,8 +57,16 @@ def main(argv=None) -> int:
     parser.add_argument("--num-processes", type=int, default=1,
                         metavar="N", help="not ported")
     parser.add_argument("--coordinator", default=None, help="not ported")
+    parser.add_argument("--process-id", type=int, default=None,
+                        help="not ported")
+    parser.add_argument("--profile", metavar="LOGDIR", default=None,
+                        help="not ported")
     parser.add_argument("--hypotest", metavar="NTOYS", nargs="?", const=200,
                         type=int, default=0, help="not ported")
+    parser.add_argument("--hypotest-band", action="store_true",
+                        help="not ported")
+    parser.add_argument("--hypotest-asymptotic", action="store_true",
+                        help="not ported")
     parser.add_argument("--gof", metavar="NTOYS", nargs="?", const=0,
                         type=int, default=None, help="not ported")
     parser.add_argument("--bias-study", metavar="NTOYS", type=int,
@@ -77,7 +89,7 @@ def main(argv=None) -> int:
         v = getattr(args, key)
         if key == "num_processes":
             return v > 1
-        if key == "coordinator":
+        if key in ("coordinator", "process_id", "profile"):
             return v is not None
         return v is True or (v is not None and v is not False
                              and (v > 0 or key == "gof"))

@@ -26,20 +26,24 @@
 //                      pallas_fused_segment_blocked, single-chain,
 //                      batched and experiment-grouped forms.
 //
-// B1 -- what bounds it.  Per sample it reads nfields floats (12 bytes on
-// the reference example), does a few float ops and one atomic increment
-// per chain: a memory-bound pass with one chain, except that at few bins
-// (the example has 10) every warp hits the same few counters; with
-// chains the binning work grows nchains-fold over one read.  Design:
-// one privatised unsigned histogram per warp group in shared memory (up
-// to 8 replicas per block, chosen to fit 36 KB), flushed with one global
-// atomicAdd per nonzero cell; measured on an H100, the rebuild then
-// costs about the same at 10 bins as at 1000.  Batched, every replica
-// holds all chains' histograms; when they do not fit (8 chains x 2
-// signals x 1000 bins is 64 KB) the counts go to global memory per
-// chain.  The TPU's two-level one-hot matmul, trash cell and chunk
-// padding exist only because the TPU has no atomics; they are not
-// carried over.  Segments are addressed by offsets, not padding.
+// B1 -- what bounds it.  Per sample it reads the fields the binning
+// uses (8 bytes on the reference example: the energy and, for the
+// resolution systematic, the true energy), does a few float ops and one
+// atomic increment per chain: a memory-bound pass with one chain,
+// except that at few bins (the example has 10) every warp hits the same
+// few counters; with chains the binning work grows nchains-fold over one
+// read, and the binning's instructions bound it (measured on an H100).
+// Design: one privatised unsigned histogram per warp group in shared
+// memory (up to 8 replicas per block, chosen to fit 36 KB), flushed with
+// one global atomicAdd per nonzero cell; measured on an H100, the
+// rebuild then costs about the same at 10 bins as at 1000.  Batched,
+// every replica holds all chains' histograms; when they do not fit (8
+// chains x 2 signals x 1000 bins is 64 KB) the counts go to global
+// memory per chain.  The binning keeps a sample in registers and reads
+// the spec's entries as constant operands (sx_bin_row).  The TPU's
+// two-level one-hot matmul, trash cell and chunk padding exist only
+// because the TPU has no atomics; they are not carried over.  Segments
+// are addressed by offsets, not padding.
 //
 // B2 -- what bounds it.  One gather per output: read a read bin, read a
 // count (the table is small and stays in L1/L2), divide, write: memory-
@@ -72,9 +76,10 @@
 // order, so the result is the same from run to run.  Lock-step chains
 // (nchains > 1) share each step's sample reads and both barriers: each
 // sample is loaded once and binned for every chain, each chain has its
-// own double-buffered histograms and its own per-block partials, and
-// every block reduces every chain's partials and takes every chain's
-// decision.
+// own double-buffered histograms, its events are swept by its own range
+// of blocks (the chains' sweeps side by side, one partial slot per block
+// of the range), and every block reduces every chain's few slots and
+// takes every chain's decision.
 //
 // Weighted forms (a float32 weight per MC row): bins and norms sum the
 // weights in float64 (shared and global atomics, native on sm_90) and
@@ -104,8 +109,8 @@
 namespace cg = cooperative_groups;
 
 // Dynamic shared memory for histogram replicas; with sx_fused_kernel's
-// up to ~8.4 KB of static arrays a block stays under the 48 KB a launch
-// gets without an opt-in.
+// and sx_blocked_kernel's up to ~8.8 KB of static arrays (sx_hist_kernel's
+// 8 KB) a block stays under the 48 KB a launch gets without an opt-in.
 static const int kSmemBudget = 36 * 1024;
 
 // Bytes of one histogram cell or norm: an unsigned count, or a float64
@@ -145,23 +150,30 @@ static cudaError_t sx_num_sms(int* nsm) {
   extern __shared__ __align__(8) unsigned sx_smem[];   \
   Acc* name = reinterpret_cast<Acc*>(sx_smem)
 
+// The launch holds at most 4 blocks per SM (sx_histogram), so a thread
+// may use 64 registers, as in the fused kernels.  The parameters are
+// copied to shared memory, where the binning reads them.
 template <bool kChains, bool kW>
-__global__ void __launch_bounds__(SX_THREADS)
+__global__ void __launch_bounds__(SX_THREADS, 4)
 sx_hist_kernel(const SxSpec sp, const float* __restrict__ samples,
                const float* __restrict__ par, int nchains, int pstride,
                SxAcc<kW>* g_hist, SxAcc<kW>* g_norm, int nrep) {
   using Acc = SxAcc<kW>;
   SX_DYN_SMEM(Acc, sh);
+  __shared__ float s_par[SX_MAXCHAINS * SX_MAXPAR];
   const int nh = nchains * sp.ndyn * sp.total;
   Acc* sh_norm = sh + nrep * nh;
   for (int t = threadIdx.x; t < nrep * nh + nchains * sp.ndyn;
        t += blockDim.x)
     sh[t] = Acc(0);
+  for (int t = threadIdx.x; t < nchains * pstride; t += blockDim.x)
+    s_par[t] = par[t];
   __syncthreads();
-  sx_accumulate<kChains, false, kW>(sp, samples, par, nchains, pstride, sh,
+  sx_accumulate<kChains, false, kW>(sp, samples, s_par, nchains, pstride, sh,
                                     sh_norm, g_hist, nrep);
   __syncthreads();
-  sx_flush<false, kW>(sp, nchains, sh, sh_norm, nrep, g_hist, g_norm);
+  sx_flush<kChains, false, kW>(sp, nchains, sh, sh_norm, nrep, g_hist,
+                               g_norm);
 }
 
 // Counts or float64 sums -> float32 (round to nearest, once).
@@ -283,8 +295,7 @@ sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
   __shared__ float s_norm[SX_MAXCS];
   __shared__ float s_pair[2 * SX_MAXCHAINS];
   __shared__ int s_accept[SX_MAXCHAINS];
-  __shared__ double s_warp[kChains ? SX_MAXCHAINS * (SX_THREADS / 32) : 1];
-  __shared__ double s_red[kChains ? 1 : SX_THREADS];
+  __shared__ double s_red[kChains ? SX_THREADS / 32 : SX_THREADS];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -294,6 +305,7 @@ sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
   const int ncp = nch * np;
   const int nh = nch * sp.ndyn * sp.total;  // every chain's histograms
   const int buf = nh + nch * sp.ndyn;       // one buffer + its norms
+  const int nslot = sx_event_slots(kChains, nch, nev);  // per chain
   Acc* sh_norm = sh + nrep * nh;
   const long long gtid = (long long)blockIdx.x * blockDim.x + tid;
   const long long gstride = (long long)gridDim.x * blockDim.x;
@@ -343,7 +355,8 @@ sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
     sx_accumulate<kChains, false, kW>(sp, samples, s_prop, nch, np, sh,
                                       sh_norm, cur_hist, nrep);
     __syncthreads();
-    sx_flush<false, kW>(sp, nch, sh, sh_norm, nrep, cur_hist, cur_norm);
+    sx_flush<kChains, false, kW>(sp, nch, sh, sh_norm, nrep, cur_hist,
+                                 cur_norm);
     grid.sync();
 
     sx_weights(sp, nch, s_prop,
@@ -353,14 +366,14 @@ sx_fused_kernel(const SxSpec sp, int nch, const float* __restrict__ samples,
         sp, nch, [&](int c) { return cur_hist + c * sp.ndyn * sp.total; },
         hist_init,
         [&](int c) { return sx_chain_rb<kGrp>(sp, rb, nev, cpe, c); }, nev,
-        s_w, s_norm, s_warp, s_red, partials);
+        s_w, s_norm, s_red, partials);
     grid.sync();
 
     // Every block: for each chain (warp w takes chains w, w + 8, ...)
     // the same fixed-order reduction, finish and decision.
     for (int c = warp; c < nch; c += nwarps) {
       float hi, lo;
-      sx_finish(sp, partials + (long long)c * gridDim.x, s_prop + c * np,
+      sx_finish(sp, partials + (long long)c * nslot, nslot, s_prop + c * np,
                 s_w + c * sp.nsig, &hi, &lo);
       if (lane == 0) {
         if (eval_only) {
@@ -453,8 +466,7 @@ sx_blocked_kernel(const SxSpec sp, int nch,
   __shared__ int s_accn[SX_MAXCHAINS];  // accepted decisions this cycle
   __shared__ int s_cb[SX_MAXCHAINS];    // each chain's current buffer
   __shared__ int s_off[SX_MAXCHAINS];   // each chain's rebuild target
-  __shared__ double s_warp[kChains ? SX_MAXCHAINS * (SX_THREADS / 32) : 1];
-  __shared__ double s_red[kChains ? 1 : SX_THREADS];
+  __shared__ double s_red[kChains ? SX_THREADS / 32 : SX_THREADS];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -464,6 +476,7 @@ sx_blocked_kernel(const SxSpec sp, int nch,
   const int ncp = nch * np;
   const int nh = nch * sp.ndyn * sp.total;
   const int per = sp.ndyn * sp.total + sp.ndyn;  // one buffer of a chain
+  const int nslot = sx_event_slots(kChains, nch, nev);  // per chain
   unsigned* sh_norm = sh + nrep * nh;
   const long long gtid = (long long)blockIdx.x * blockDim.x + tid;
   const long long gstride = (long long)gridDim.x * blockDim.x;
@@ -485,7 +498,8 @@ sx_blocked_kernel(const SxSpec sp, int nch,
   sx_accumulate<kChains, true>(sp, samples, s_cur, nch, np, sh, sh_norm,
                                scratch, nrep, s_off);
   __syncthreads();
-  sx_flush<true>(sp, nch, sh, sh_norm, nrep, scratch, nullptr, s_off);
+  sx_flush<kChains, true>(sp, nch, sh, sh_norm, nrep, scratch, nullptr,
+                          s_off);
   __syncthreads();
 
   for (int s = 0; s < ncycles; ++s) {
@@ -513,7 +527,8 @@ sx_blocked_kernel(const SxSpec sp, int nch,
         sx_accumulate<kChains, true>(sp, samples, s_prop, nch, np, sh,
                                      sh_norm, scratch, nrep, s_off);
         __syncthreads();
-        sx_flush<true>(sp, nch, sh, sh_norm, nrep, scratch, nullptr, s_off);
+        sx_flush<kChains, true>(sp, nch, sh, sh_norm, nrep, scratch, nullptr,
+                                s_off);
         grid.sync();
         sx_weights(sp, nch, s_prop,
                    [&](int c) { return scratch + s_off[c] + per - sp.ndyn; },
@@ -521,7 +536,7 @@ sx_blocked_kernel(const SxSpec sp, int nch,
         __syncthreads();
         sx_event_partials<kChains>(
             sp, nch, [&](int c) { return scratch + s_off[c]; }, hist_init,
-            rb_of, nev, s_w, s_norm, s_warp, s_red, part);
+            rb_of, nev, s_w, s_norm, s_red, part);
       } else {
         __syncthreads();
         sx_weights(sp, nch, s_prop,
@@ -530,7 +545,7 @@ sx_blocked_kernel(const SxSpec sp, int nch,
         __syncthreads();
         sx_event_partials<kChains>(
             sp, nch, [&](int c) { return buffer(c, s_cb[c]); }, hist_init,
-            rb_of, nev, s_w, s_norm, s_warp, s_red, part);
+            rb_of, nev, s_w, s_norm, s_red, part);
       }
       grid.sync();
 
@@ -538,7 +553,7 @@ sx_blocked_kernel(const SxSpec sp, int nch,
       // w, w + 8, ...), as B4 does.
       for (int c = warp; c < nch; c += nwarps) {
         float hi, lo;
-        sx_finish(sp, part + (long long)c * gridDim.x, s_prop + c * np,
+        sx_finish(sp, part + (long long)c * nslot, nslot, s_prop + c * np,
                   s_w + c * sp.nsig, &hi, &lo);
         if (lane == 0) {
           const float delta =
@@ -640,22 +655,23 @@ static cudaError_t sx_occupancy(const SxSpec& sp, int nchains, bool weighted,
 // The grid rule of the persistent kernels (B4 and B5), given the blocks
 // per SM that the kernel's resources allow.  More resident blocks hide
 // more of the rebuild's latency, but every block adds to the grid
-// barriers and the partial reductions of each step.  Measured on an
-// H100 with one chain (see PERF.md), the best grid gives each thread
-// about two samples to bin per step, up to 4 blocks per SM (8 was slower
-// at 1M samples): 1 block per SM at 20k samples, 3 at 200k, 4 at 1M and
-// 4M.  Lock-step chains bin each loaded sample nchains times, so a
-// thread's work per sample grows nchains-fold: the rule counts binnings
-// (samples x nchains), not samples.
-static cudaError_t sx_grid_rule(const SxSpec& sp, int nchains, int occ,
-                                int* nblocks) {
+// barriers and the reductions of each step.  Measured on an H100
+// (probe_fused_grid.py, PERF.md), the best grid gives each thread about
+// two MC rows to load per step, 1 to 4 blocks per SM: with one chain 1
+// block per SM at 20k rows, 2-3 at 200k, 3-4 at 1M; with 8 lock-step
+// chains 1 at 20k, 3 at 200k, 4 at 1M (and 4 for 32 chains at 1M).  A
+// lock-step thread bins each row it loads for every chain, so the rule
+// counts rows, not binnings: counting binnings, as the rule did before
+// the binning kept rows in registers, took 3 blocks per SM at 20k rows x
+// 8 chains and 4 at 200k, 14% and 9% slower than the best.
+static cudaError_t sx_grid_rule(const SxSpec& sp, int occ, int* nblocks) {
   int nsm = 0;
   cudaError_t err = sx_num_sms(&nsm);
   if (err != cudaSuccess) return err;
   if (occ < 1) return cudaErrorCooperativeLaunchTooLarge;
-  // Binnings one block on every SM covers at two per thread.
+  // MC rows one block on every SM covers at two per thread.
   const long long layer = 2LL * nsm * SX_THREADS;
-  const long long work = (long long)sp.seg_off[sp.ndyn] * nchains;
+  const long long work = (long long)sp.seg_off[sp.ndyn];
   long long per_sm = (work + layer - 1) / layer;
   per_sm = per_sm < 1 ? 1 : (per_sm > 4 ? 4 : per_sm);
   *nblocks = nsm * (int)(per_sm < occ ? per_sm : occ);
@@ -708,7 +724,9 @@ int sx_histogram(const SxSpec* sp, int nchains, int weighted,
                  const float* samples, const float* par, int pstride,
                  void* scratch, float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (nchains < 1 || nchains > SX_MAXCHAINS) return cudaErrorInvalidValue;
+  if (nchains < 1 || nchains > SX_MAXCHAINS || pstride < 0 ||
+      pstride > SX_MAXPAR)
+    return cudaErrorInvalidValue;
   const bool w = weighted != 0;
   const int nh = nchains * sp->ndyn * sp->total;
   const int nall = nh + nchains * sp->ndyn;
@@ -785,7 +803,7 @@ int sx_fused_grid(const SxSpec* sp, int nchains, int weighted,
     if (err != cudaSuccess) return err;
     if (o < occ) occ = o;
   }
-  return sx_grid_rule(*sp, nchains, occ, nblocks);
+  return sx_grid_rule(*sp, occ, nblocks);
 }
 
 // B3 (nsteps == 0: NLL of each chain at params0 into nlls_out (nchains,
@@ -838,7 +856,7 @@ int sx_blocked_grid(const SxSpec* sp, int nchains, int* nblocks) {
   cudaError_t err =
       sx_occupancy(*sp, nchains, false, sx_blocked_fn(nchains, false), &occ);
   if (err != cudaSuccess) return err;
-  return sx_grid_rule(*sp, nchains, occ, nblocks);
+  return sx_grid_rule(*sp, occ, nblocks);
 }
 
 // B5: ncycles blocked cycles of nsub >= 2 decisions (one systematic

@@ -40,9 +40,6 @@ def check_slice(fc: FitConfig, sampler: str = "metropolis") -> None:
         todo.append(f"sampler {sampler!r} (ROADMAP queue A, item 11)")
     elif sampler == "mle":
         todo.append("sampler 'mle' (ROADMAP queue A, item 10)")
-    if fc.plots:
-        todo.append("fit.plots (plots.py, ROADMAP queue A, item 7); set "
-                    '"plots": false')
     if todo:
         raise NotImplementedError(
             "not ported to sxmc_tpu_torch yet: " + "; ".join(todo))
@@ -101,12 +98,25 @@ def run_ensemble(
         mcmc = MCMC(fc.sources, fc.signals, fc.systematics,
                     fc.observables, device=device, binned=fc.binned)
 
+    # Export the nominal PDFs (sxmc.cpp:45-55) from the fit's stack.
+    if fc.plots and not fc.samples:
+        from sxmc_tpu_torch.signal import nominal_params
+
+        hists, norms = mcmc.stack.histograms(nominal_params(fc.systematics))
+        hists = hists.cpu().numpy()
+        norms = norms.cpu().numpy()
+        for i, sig in enumerate(fc.signals):
+            dens = hists[i].reshape(mcmc.stack.nbins) / max(
+                float(norms[i]) * mcmc.stack.bin_volume, 1e-30)
+            np.save(os.path.join(output_path, f"{sig.name}_pdf.npy"), dens)
+
     limits: List[float] = []
     failures: List[dict] = []
 
     def _run_experiment(i: int, attempt: int) -> None:
         lspace_file = os.path.join(
             output_path, f"{fc.output_prefix}_{i}.{fc.output_format}")
+        samples_data = None
         if resume and os.path.exists(lspace_file):
             log(f"ensemble: Resuming from {lspace_file}")
             ls = LikelihoodSpace.load(lspace_file, fc.confidence,
@@ -174,6 +184,16 @@ def run_ensemble(
                       for n, iv in ls.get_best_fit().items()},
             ess={n: d["ess"] for n, d in diag.items()},
             rhat={n: d["rhat"] for n, d in diag.items()})
+
+        if fc.plots and samples_data is not None:
+            try:
+                from sxmc_tpu_torch import plots
+
+                plots.plot_fit(ls.get_best_fit(), fc, samples_data,
+                               output_path, suffix=f"_{i}",
+                               formats=fc.plot_formats)
+            except Exception as e:  # noqa: BLE001 — never fatal to a fit
+                log(f"ensemble: plotting failed: {e}")
 
         # The upper limit on the signal of interest (sxmc.cpp:110-127).
         best_fit = ls.get_best_fit()

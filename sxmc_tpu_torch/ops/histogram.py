@@ -74,11 +74,12 @@ def compute_bin_ids(
 
 
 def bin_ids_of_columns(cols, lower: Sequence[float], upper: Sequence[float],
-                       nbins: Sequence[int]
+                       nbins: Sequence[int], dtype=torch.int64
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`compute_bin_ids` of observables given as one float32 tensor
     each (``cols[i]`` the i-th observable, all of one shape, or
-    broadcasting to one): ``(ids, valid)`` of that shape."""
+    broadcasting to one): ``(ids, valid)`` of that shape, the ids of
+    integer type ``dtype``."""
     strides = bin_strides(nbins)
     scales = bin_scales(lower, upper, nbins)
     ids = valid = None
@@ -88,8 +89,10 @@ def bin_ids_of_columns(cols, lower: Sequence[float], upper: Sequence[float],
         up = float(np.float32(upper[i]))
         ok = (x >= lo) & (x < up)
         # float32 ops, in the JAX package's order: (x - lo) * scale.
-        axis = torch.floor((x - lo) * float(scales[i])).to(torch.int64)
-        axis = axis.clamp(0, nbins[i] - 1) * strides[i]
+        axis = torch.floor((x - lo) * float(scales[i])).to(dtype)
+        axis = axis.clamp(0, nbins[i] - 1)
+        if strides[i] != 1:
+            axis = axis * strides[i]
         valid = ok if valid is None else valid & ok
         ids = axis if ids is None else ids + axis
     return ids, valid

@@ -131,6 +131,13 @@ class HistSpec:
         return len(self.nbins)
 
     @property
+    def nload(self) -> int:
+        """Fields the kernels hold in registers: the observables, then
+        every field after them that a systematic transforms (a truth
+        field that a later resolution systematic reads)."""
+        return max([self.nobs] + [d.obs + 1 for d, _ in self.systematics])
+
+    @property
     def ndyn(self) -> int:
         return len(self.seg_off) - 1
 
@@ -156,8 +163,15 @@ class HistSpec:
             raise ValueError(f"{len(self.systematics)} systematics "
                              f"(kernels take up to {MAXSYST})")
         for desc, mask in self.systematics:
-            if not 1 <= desc.npars <= MAXPOW or len(mask) != self.ndyn:
+            if not 1 <= desc.npars <= MAXPOW or len(mask) != self.ndyn \
+                    or not 0 <= desc.obs < self.nfields \
+                    or not 0 <= desc.extra_field < self.nfields:
                 raise ValueError(f"bad systematic {desc} / mask {mask}")
+        if self.nload > MAXOBS:
+            raise ValueError(
+                f"a systematic transforms sample field {self.nload - 1}; "
+                f"the kernels transform fields 0..{MAXOBS - 1} only (the "
+                "observables and the truth fields right after them)")
         if list(self.seg_off) != sorted(self.seg_off) or \
                 self.seg_off[0] != 0 or self.n >= 2 ** 31:
             raise ValueError(f"bad segment offsets {self.seg_off}")
@@ -196,7 +210,8 @@ class _CSpec(ctypes.Structure):
 
     _fields_ = [
         ("nfields", ctypes.c_int), ("nobs", ctypes.c_int),
-        ("total", ctypes.c_int), ("ndyn", ctypes.c_int),
+        ("nload", ctypes.c_int), ("total", ctypes.c_int),
+        ("ndyn", ctypes.c_int),
         ("nsyst", ctypes.c_int),
         ("nbins", ctypes.c_int * MAXOBS), ("strides", ctypes.c_int * MAXOBS),
         ("seg_off", ctypes.c_int * (MAXSEG + 1)),
@@ -223,7 +238,8 @@ class _CSpec(ctypes.Structure):
 
 def _c_spec(hs: HistSpec, ns: Optional[NLLSpec], par_off: int) -> _CSpec:
     c = _CSpec()
-    c.nfields, c.nobs, c.total = hs.nfields, hs.nobs, hs.total
+    c.nfields, c.nobs, c.nload = hs.nfields, hs.nobs, hs.nload
+    c.total = hs.total
     c.ndyn, c.nsyst = hs.ndyn, len(hs.systematics)
     scales = hist_ops.bin_scales(hs.lower, hs.upper, hs.nbins)
     for a, (nb, st) in enumerate(zip(hs.nbins,
@@ -417,26 +433,39 @@ def _dyn_counts_plain(hs: HistSpec, samples: torch.Tensor,
                                          sizes)
             cols[desc.obs] = torch.where(on, new, cols[desc.obs])
     nch = par.shape[0] if batched else 1
+    # int32 ids: the same integers, converted and counted faster.
     ids, valid = hist_ops.bin_ids_of_columns(cols[:hs.nobs], hs.lower,
-                                             hs.upper, hs.nbins)
+                                             hs.upper, hs.nbins,
+                                             dtype=torch.int32)
     # Out-of-domain samples go to a spare bin (index total) of every
-    # (chain, segment) row, cut off below.
+    # (chain, segment) row, cut off below; one count over every row.
     width = hs.total + 1
-    ids = torch.where(valid, ids, hs.total).expand(nch, hs.n)
-    rows = torch.arange(nch, device=dev)[:, None] * width
-    out = []
-    for d in range(hs.ndyn):
-        a, b = hs.seg_off[d], hs.seg_off[d + 1]
-        flat = (ids[:, a:b] + rows).reshape(-1)
-        if hs.weighted:
-            w = samples[hs.nfields, a:b].to(torch.float64)
-            cnt = torch.zeros(nch * width, dtype=torch.float64, device=dev)
-            cnt.index_add_(0, flat, w.expand(nch, b - a).reshape(-1))
-        else:
-            cnt = torch.bincount(flat, minlength=nch * width)
-        out.append(cnt.reshape(nch, width)[:, :hs.total])
-    counts = torch.stack(out, dim=1)
+    flat = torch.where(valid, ids, hs.total) + _row_base(hs.seg_off, width,
+                                                         dev)
+    if batched:
+        flat = flat + torch.arange(nch, device=dev,
+                                   dtype=torch.int32)[:, None] * (
+            hs.ndyn * width)
+    flat = flat.expand(nch, hs.n).reshape(-1)
+    if hs.weighted:
+        w = samples[hs.nfields].to(torch.float64)
+        counts = torch.zeros(nch * hs.ndyn * width, dtype=torch.float64,
+                             device=dev)
+        counts.index_add_(0, flat, w.expand(nch, hs.n).reshape(-1))
+    else:
+        counts = torch.bincount(flat, minlength=nch * hs.ndyn * width)
+    counts = counts.reshape(nch, hs.ndyn, width)[..., :hs.total]
     return counts if batched else counts[0]
+
+
+@functools.lru_cache(maxsize=16)
+def _row_base(seg_off: Tuple[int, ...], width: int,
+              device: torch.device) -> torch.Tensor:
+    """``(n,)`` int32: each sample's segment times ``width``."""
+    sizes = torch.as_tensor(np.diff(seg_off), device=device)
+    return torch.repeat_interleave(
+        torch.arange(len(seg_off) - 1, device=device,
+                     dtype=torch.int32) * width, sizes)
 
 
 def segmented_histogram_plain(hs: HistSpec, samples: torch.Tensor,

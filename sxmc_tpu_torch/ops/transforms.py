@@ -78,9 +78,13 @@ def transform_field(desc: SystematicDesc, cols: List[torch.Tensor],
     float32 systematic-parameter vector.
     """
     x = cols[desc.obs]
-    p = torch.zeros_like(x)
-    xi = torch.ones_like(x)
-    for i, pidx in enumerate(desc.par_indices):
+    # p = sum_i theta[pidx_i] * x^i from 0.0 in ascending i, as the
+    # kernels sum it.  The first term, 0.0 + theta * 1.0, does not
+    # depend on x (and theta * 1.0 == theta), so it stays one value (one
+    # per chain) and broadcasts: the same bits in fewer array passes.
+    p = 0.0 + theta[desc.par_indices[0]]
+    xi = x
+    for i, pidx in enumerate(desc.par_indices[1:]):
         if i > 0:
             xi = xi * x
         p = p + theta[pidx] * xi

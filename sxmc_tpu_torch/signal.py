@@ -202,6 +202,12 @@ class Signal:
             histogram=hist,
             systematic_names=[s.name for s in systematics])
 
+    def get_efficiency(self, systematics: Sequence[Systematic]) -> float:
+        """norm / n_mc at nominal systematics (signal.cpp:172-199)."""
+        _, norm = self.histogram.histogram(nominal_params(systematics))
+        return float(norm) / float(self.n_mc)
+
+
 def nominal_params(systematics: Sequence[Systematic]) -> np.ndarray:
     """Global systematic-parameter vector at the means."""
     npars = sum(s.npars for s in systematics)

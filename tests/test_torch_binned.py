@@ -25,6 +25,7 @@ from sxmc_tpu_torch.ops import nll as t_nll
 from test_torch_chains import _phase_xs
 from test_torch_fullcov import _presample
 from test_torch_pdf import make_data, make_stack_inputs
+from test_torch_pdf import jax_compiles_unoptimised  # noqa: F401 (autouse)
 
 # Small shapes: one intra-op thread is as fast, and pytest workers that
 # share the cores do not oversubscribe them.
@@ -97,7 +98,7 @@ def _check_space(tls, jls):
 
 def test_mcmc_binned_one_chain_fed_jax_streams(fits):
     jmc, tmc = fits
-    nsteps, frac = 40, 0.2
+    nsteps, frac = 42, 0.34  # three phases of 14: one stream compile
     burnin = int(nsteps * frac)
     key = jax.random.PRNGKey(12)
     jls = jmc(make_data(), nsteps, frac, key=key)
@@ -116,7 +117,7 @@ def test_mcmc_binned_one_chain_fed_jax_streams(fits):
 
 def test_mcmc_binned_chains_fed_jax_streams(fits):
     jmc, tmc = fits
-    nsteps, frac, nch = 30, 0.2, 3
+    nsteps, frac, nch = 30, 0.34, 3  # three phases of 10
     burnin = int(nsteps * frac)
     key = jax.random.PRNGKey(13)
     jls = jmc(make_data(), nsteps, frac, key=key, nchains=nch)

@@ -36,6 +36,7 @@ from sxmc_tpu_torch.mcmc import metropolis as tm
 
 from test_torch_fullcov import same_walk
 from test_torch_pdf import make_data, make_stack_inputs
+from test_torch_pdf import jax_compiles_unoptimised  # noqa: F401 (autouse)
 
 # Small shapes: one intra-op thread is as fast, and pytest workers that
 # share the cores do not oversubscribe them.
@@ -167,7 +168,7 @@ def _streams(key, nch, lengths, npar, m):
 
 @pytest.mark.parametrize("nch,binned", [(1, False), (3, False), (3, True)])
 def test_mcmc_blocked_fed_jax_streams(nch, binned):
-    nsteps, frac = 40, 0.25
+    nsteps, frac = 42, 0.34  # three phases of 14: one stream compile
     burnin = int(nsteps * frac)
     lengths = (burnin, burnin, nsteps - 2 * burnin)
     jmc = jm.MCMC(*make_stack_inputs("sxmc_tpu"), binned=binned)

@@ -45,6 +45,7 @@ from sxmc_tpu_torch import interop
 from sxmc_tpu_torch.mcmc import metropolis as tm
 
 from test_torch_pdf import make_data, make_stack_inputs
+from test_torch_pdf import jax_compiles_unoptimised  # noqa: F401 (autouse)
 
 # Small shapes: one intra-op thread is as fast, and pytest workers that
 # share the cores do not oversubscribe them.
@@ -208,7 +209,7 @@ def _single_streams(chain_key, lengths, npar):
 
 @pytest.mark.parametrize("nch,fixed", [(1, False), (3, False), (3, True)])
 def test_mcmc_full_cov_fed_jax_streams(nch, fixed):
-    nsteps, frac = 60, 0.25
+    nsteps, frac = 60, 0.34  # three phases of 20: one stream compile
     burnin = int(nsteps * frac)
     lengths = (burnin, burnin, nsteps - 2 * burnin)
     jin, tin = make_stack_inputs("sxmc_tpu"), make_stack_inputs(

@@ -24,6 +24,7 @@ import torch
 
 from test_golden_e2e import FROZEN_BEST, FROZEN_LIMITS, FROZEN_NLL_MIN, \
     GOLDEN
+from test_torch_pdf import jax_compiles_unoptimised  # noqa: F401 (autouse)
 
 # Small shapes: one intra-op thread is as fast, and pytest workers that
 # share the cores do not oversubscribe them (with one thread per core

@@ -27,6 +27,7 @@ from sxmc_tpu_torch.mcmc.metropolis import MCMC, initial_state
 from sxmc_tpu_torch.ops import kernels
 
 from test_torch_pdf import make_data, make_stack_inputs
+from test_torch_pdf import jax_compiles_unoptimised  # noqa: F401 (autouse)
 
 # Small shapes: one intra-op thread is as fast, and pytest workers that
 # share the cores do not oversubscribe them (with one thread per core
@@ -284,6 +285,70 @@ def test_cuda_segment_batched_matches_plain(cuda_pair):
     ps, pn, pa = kernels.fused_segment_plain(*args)
     assert s.shape == (100, nch, mcmc.nparameters)
     assert torch.equal(a, pa) and torch.equal(s, ps)
+    assert (n.double().sum(-1) - pn.double().sum(-1)).abs().max() <= NLL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch, nbins", [(kernels.MAXCHAINS, 12), (8, 1000)])
+def test_cuda_segment_batched_regimes_match_plain(cuda_pair, nch, nbins):
+    """The lock-step rebuild's two regimes: the most chains one launch
+    takes (their histograms in the shared-memory replicas), and a
+    histogram too large for the replicas (8 chains x 1,000 bins: every
+    count a global atomic)."""
+    _, dev = cuda_pair
+    mcmc = MCMC(*make_stack_inputs("sxmc_tpu_torch", nbins=nbins),
+                device=dev)
+    mcmc.stack.set_data(make_data())
+    st = mcmc.stack
+    params, nll0, width, noise, log_u = _chains_inputs(mcmc, nch, 60)
+    args = (st.hist_spec, mcmc.nll_spec, st.samples, st.hist_init,
+            st.read_bins, params, nll0, width, noise, log_u)
+    s, n, a = kernels.fused_segment_batched(*args)
+    ps, pn, pa = kernels.fused_segment_plain(*args)
+    assert s.shape == (60, nch, mcmc.nparameters)
+    assert torch.equal(a, pa) and torch.equal(s, ps)
+    assert 0 < float(a.sum()) < a.numel()
+    assert (n.double().sum(-1) - pn.double().sum(-1)).abs().max() <= NLL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["histogram", "segment", "batched",
+                                  "blocked_batched"])
+def test_cuda_wide_layout_matches_plain(cuda_pair, form):
+    """The binning's general case: two observables and a shift of the
+    truth field that both resolutions read (counts bit-exact,
+    trajectories identical, |dNLL| <= NLL_TOL)."""
+    _, dev = cuda_pair
+    mcmc = MCMC(*make_stack_inputs("sxmc_tpu_torch", wide=True),
+                device=dev)
+    mcmc.stack.set_data(make_data(wide=True))
+    st = mcmc.stack
+    hs = st.hist_spec
+    assert hs.nobs == 2 and hs.nload == 3
+    if form == "histogram":
+        th = torch.as_tensor(np.asarray(
+            [[0.0, 0.0, 0.0, 0.0], [0.004, 0.7, 0.013, -0.004],
+             [-0.02, -1.3, -0.05, 0.02]], np.float32), device=dev)
+        got = kernels.segmented_histogram_batched(hs, st.samples, th)
+        want = kernels.segmented_histogram_plain(hs, st.samples, th)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        single = kernels.segmented_histogram(hs, st.samples, th[1])
+        assert all(torch.equal(g[1], s) for g, s in zip(got, single))
+        return
+    nch = 1 if form == "segment" else 8
+    sub = (4,) if form == "blocked_batched" else ()
+    params, nll0, width, noise, log_u = _chains_inputs(mcmc, nch, 60,
+                                                       sub=sub)
+    args = (hs, mcmc.nll_spec, st.samples, st.hist_init, st.read_bins,
+            params, nll0, width, noise, log_u)
+    name = {"segment": "fused_segment", "batched": "fused_segment_batched",
+            "blocked_batched": "blocked_segment_batched"}[form]
+    s, n, a = getattr(kernels, name)(*args)
+    plain = (kernels.blocked_segment_plain if sub
+             else kernels.fused_segment_plain)
+    ps, pn, pa = plain(*args)
+    assert torch.equal(a, pa) and torch.equal(s, ps)
+    assert 0 < float(a.sum()) < a.numel()
     assert (n.double().sum(-1) - pn.double().sum(-1)).abs().max() <= NLL_TOL
 
 

@@ -18,6 +18,7 @@ from sxmc_tpu.ops import pallas_hist
 from sxmc_tpu_torch.ops import kernels
 
 from test_torch_pdf import make_data, make_stack_inputs
+from test_torch_pdf import jax_compiles_unoptimised  # noqa: F401 (autouse)
 
 # Small shapes: one intra-op thread is as fast, and pytest workers that
 # share the cores do not oversubscribe them.

@@ -22,6 +22,7 @@ from sxmc_tpu_torch import interop
 from sxmc_tpu_torch.mcmc import metropolis as tm
 
 from test_torch_pdf import make_data, make_stack_inputs
+from test_torch_pdf import jax_compiles_unoptimised  # noqa: F401 (autouse)
 
 # Small shapes: one intra-op thread is as fast, and pytest workers that
 # share the cores do not oversubscribe them (with one thread per core

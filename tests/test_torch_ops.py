@@ -22,6 +22,8 @@ from sxmc_tpu_torch.ops import nll as t_nll
 from sxmc_tpu_torch.ops import transforms as t_tr
 from sxmc_tpu_torch.pdf.evalhist import eval_from_bins
 
+from test_torch_pdf import jax_compiles_unoptimised  # noqa: F401 (autouse)
+
 # Small shapes: one intra-op thread is as fast, and pytest workers that
 # share the cores do not oversubscribe them (with one thread per core
 # in every worker these tests ran ten times slower under xdist).

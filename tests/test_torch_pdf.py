@@ -24,50 +24,101 @@ EVAL_POINTS = np.array([[-0.1, 0], [0.1, 0], [0.2, 0], [0.6, 0], [0.7, 0],
                         [1.2, 0]], np.float32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_compiles_unoptimised():
+    """The JAX references of the port's tests are small programs, each
+    run once or twice: XLA's optimisation passes cost more than they
+    save, so a module that imports this fixture compiles them with most
+    optimisations off (``jax_disable_most_optimizations``: the same
+    functions, in interpret mode where they reach Pallas, at XLA's
+    lowest optimisation level).  The setting is restored and the
+    compile caches cleared when the module ends, so that no program
+    compiled this way outlives it.  Nothing to do where jax is not
+    installed."""
+    try:
+        import jax
+    except ImportError:
+        yield
+        return
+    before = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", before)
+        jax.clear_caches()
+
+
 def make_stack_inputs(pkg: str, seed: int = 3, n_mc: int = 3000,
-                      nbins: int = 12):
+                      nbins: int = 12, wide: bool = False):
     """Three signals in package ``pkg`` (sxmc_tpu or sxmc_tpu_torch):
     "a" carries a scale and a resolution systematic, "b" only the
-    scale, "c" none (a static row, on dataset 1).  Returns
-    ``(sources, signals, systematics, observables)``."""
+    scale, "c" none (a static row, on dataset 1).  ``wide``: a second
+    observable "r" (4 bins on [0, 10)), and "a" and "b" also carry a
+    resolution of r and a shift of the truth field "true" that both
+    resolutions read, in the order a config loads them (r's resolution
+    appends "true" to the sample fields, the shift acts on it, then
+    energy's): two observables and a transformed field after them.
+    Returns ``(sources, signals, systematics, observables)``."""
     sig = importlib.import_module(pkg + ".signal")
     rng = np.random.default_rng(seed)
-    obs = sig.Observable(name="energy", field="energy", bins=nbins,
-                         lower=5.0, upper=15.0, field_index=0)
+    obs = [sig.Observable(name="energy", field="energy", bins=nbins,
+                          lower=5.0, upper=15.0, field_index=0)]
+    nobs = 1
+    if wide:
+        obs.append(sig.Observable(name="r", field="r", bins=4, lower=0.0,
+                                  upper=10.0, field_index=1))
+        nobs = 2
+    pnext = iter(range(8))
+    pre = []
+    if wide:
+        pre = [sig.Systematic(name="rres", type=2, observable_field="r",
+                              truth_field="true", means=[0.0],
+                              sigmas=[0.01], observable_field_index=1,
+                              truth_field_index=2, pidx=[next(pnext)]),
+               sig.Systematic(name="tshift", type=0,
+                              observable_field="true", means=[0.0],
+                              sigmas=[0.5], observable_field_index=2,
+                              pidx=[next(pnext)])]
     scale = sig.Systematic(name="scale", type=1, observable_field="energy",
                            means=[0.0], sigmas=[0.02],
-                           observable_field_index=0, pidx=[0])
+                           observable_field_index=0, pidx=[next(pnext)])
     res = sig.Systematic(name="res", type=2, observable_field="energy",
                          truth_field="true", means=[0.0], sigmas=[0.01],
-                         observable_field_index=0, truth_field_index=1,
-                         pidx=[1])
-    fields = ["energy", "true", "DATASET"]
+                         observable_field_index=0, truth_field_index=nobs,
+                         pidx=[next(pnext)])
+    fields = [o.field for o in obs] + ["true", "DATASET"]
     tables = []
     for mu in (10.0, 8.0, 12.0):
         true = rng.normal(mu, 1.5, n_mc).astype(np.float32)
         reco = (true + rng.normal(0, 0.6, n_mc)).astype(np.float32)
-        tables.append(np.stack([reco, true], axis=1))
+        cols = [reco]
+        if wide:
+            cols.append(rng.uniform(0.0, 10.0, n_mc).astype(np.float32))
+        tables.append(np.stack(cols + [true], axis=1))
     srcs = [sig.Source(name=n, index=i, mean=1.0, sigma=s)
             for i, (n, s) in enumerate([("a", 0.0), ("b", 0.1),
                                         ("c", 0.05)])]
-    plan = [("a", 0, 400.0, [scale, res]), ("b", 0, 900.0, [scale]),
+    plan = [("a", 0, 400.0, pre + [scale, res]), ("b", 0, 900.0,
+                                                  pre + [scale]),
             ("c", 1, 300.0, [])]
-    signals = [sig.Signal.from_table(name, name, tables[i], ["energy",
-                                                             "true"],
-                                     ds, srcs[i], rate, fields, [obs], [],
+    signals = [sig.Signal.from_table(name, name, tables[i], fields[:-1],
+                                     ds, srcs[i], rate, fields, obs, [],
                                      systs)
                for i, (name, ds, rate, systs) in enumerate(plan)]
-    return srcs, signals, [scale, res], [obs]
+    return srcs, signals, pre + [scale, res], obs
 
 
-def make_data(seed: int = 9, nev: int = 400):
-    """Events on [4, 16) (some out of domain) with tags 0, 1 and 7 (a
-    tag no signal carries: -2 in every row)."""
+def make_data(seed: int = 9, nev: int = 400, wide: bool = False):
+    """Events on [4, 16) (some out of domain; wide: and r on [-1, 11))
+    with tags 0, 1 and 7 (a tag no signal carries: -2 in every row)."""
     rng = np.random.default_rng(seed)
-    x = rng.uniform(4.0, 16.0, nev).astype(np.float32)
+    cols = [rng.uniform(4.0, 16.0, nev)]
+    if wide:
+        cols.append(rng.uniform(-1.0, 11.0, nev))
     tags = rng.choice(np.asarray([0.0, 1.0, 7.0], np.float32), nev,
                       p=[0.6, 0.3, 0.1])
-    return np.stack([x, tags], axis=1).astype(np.float32)
+    return np.stack(cols + [tags], axis=1).astype(np.float32)
 
 
 class TestEvalHistGolden:
@@ -119,14 +170,23 @@ class TestEvalHistGolden:
             EvalHist(**args)
 
 
-@pytest.fixture(scope="module")
-def stacks():
+def _stack_pair(wide: bool):
     from sxmc_tpu.pdf.stack import PdfStack as JaxStack
     from sxmc_tpu_torch.pdf.stack import PdfStack
 
-    _, jsig, jsyst, jobs = make_stack_inputs("sxmc_tpu")
-    _, tsig, tsyst, tobs = make_stack_inputs("sxmc_tpu_torch")
+    _, jsig, jsyst, jobs = make_stack_inputs("sxmc_tpu", wide=wide)
+    _, tsig, tsyst, tobs = make_stack_inputs("sxmc_tpu_torch", wide=wide)
     return JaxStack(jsig, jobs, jsyst), PdfStack(tsig, tobs, tsyst, "cpu")
+
+
+@pytest.fixture(scope="module")
+def stacks():
+    return _stack_pair(False)
+
+
+@pytest.fixture(scope="module")
+def wide_stacks():
+    return _stack_pair(True)
 
 
 class TestPdfStackAgainstJax:
@@ -148,6 +208,36 @@ class TestPdfStackAgainstJax:
     def test_read_bins_match_jax(self, stacks):
         j, t = stacks
         data = make_data()
+        np.testing.assert_array_equal(
+            t.compute_read_bins(data).numpy(),
+            np.asarray(j.compute_read_bins(data)))
+
+    @pytest.mark.parametrize("theta", [[0.0, 0.0, 0.0, 0.0],
+                                       [0.004, 0.7, 0.013, -0.004],
+                                       [-0.02, -1.3, -0.05, 0.02]])
+    def test_wide_histograms_match_jax(self, wide_stacks, theta):
+        """Two observables, and a shift of the truth field that both
+        resolutions read (the kernels' general binning)."""
+        j, t = wide_stacks
+        assert t.hist_spec.nobs == 2 and t.hist_spec.nload == 3
+        jh, jn = j.histograms(np.asarray(theta, np.float32))
+        th, tn = t.histograms(np.asarray(theta, np.float32))
+        np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
+        np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+
+    def test_wide_truth_shift_moves_samples(self, wide_stacks):
+        """The truth shift changes what the resolutions read, so it
+        moves samples (else the cases above would not test it)."""
+        _, t = wide_stacks
+        th0, _ = t.histograms(np.asarray([0.02, 0.0, 0.0, 0.03],
+                                         np.float32))
+        th1, _ = t.histograms(np.asarray([0.02, 1.5, 0.0, 0.03],
+                                         np.float32))
+        assert not torch.equal(th0, th1)
+
+    def test_wide_read_bins_match_jax(self, wide_stacks):
+        j, t = wide_stacks
+        data = make_data(wide=True)
         np.testing.assert_array_equal(
             t.compute_read_bins(data).numpy(),
             np.asarray(j.compute_read_bins(data)))

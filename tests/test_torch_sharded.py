@@ -57,6 +57,7 @@ from sxmc_tpu_torch.ops import kernels
 from sxmc_tpu_torch.parallel import ensemble as tpe
 
 from test_torch_pdf import make_data
+from test_torch_pdf import jax_compiles_unoptimised  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -39,6 +39,7 @@ from sxmc_tpu_torch.mcmc import metropolis as tm
 from sxmc_tpu_torch.mcmc import tempered as tt
 
 from test_torch_pdf import make_data, make_stack_inputs
+from test_torch_pdf import jax_compiles_unoptimised  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -124,7 +125,8 @@ def test_tempered_runner_fed_jax_streams(pallas_pair, route):
     """Both routes against JAX _run_tempered; with fixed systematics both
     packages take the stepper, with floating ones (the Pallas-interpret
     stack) the fused route."""
-    nsteps, burnin, swap_every = (12, 0, 3) if route == "fused" else (40, 8,
+    # The stepper's three phases of 12: one stream compile.
+    nsteps, burnin, swap_every = (12, 0, 3) if route == "fused" else (36, 12,
                                                                        3)
     lengths = (burnin, burnin, nsteps - 2 * burnin)
     key = jax.random.PRNGKey(5)

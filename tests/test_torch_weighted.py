@@ -33,6 +33,7 @@ from sxmc_tpu_torch.ops.nll import nll_pair as t_nll_pair
 
 from test_torch_fullcov import _presample, same_walk
 from test_torch_pdf import make_data, make_stack_inputs
+from test_torch_pdf import jax_compiles_unoptimised  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -71,14 +71,23 @@ from the root of a checkout, on a machine with one Hopper card.  It
      "proposal": "full_cov", "rate_substeps": 4 and --binned (the
      stepper, experiment by experiment), and through
      run_sharded_ensemble with both signals weighted: diagonal and
-     full_cov: 23 paths.  Every launch counter is reset just before
-     each run and read just after; each run must launch exactly its
-     path's kernels, end with a finite limit (four on the sharded
-     paths) and no failed experiment, and fit sanely.  The runs on the
+     full_cov: 23 paths; then the frequentist tier, 200 toys each:
+     --sampler mle --gof 100, --sampler mle --binned, the default fit
+     with --hypotest 200 --hypotest-band --hypotest-asymptotic,
+     --sampler mle --bias-study 200, and FeldmanCousins.run through the
+     library (8 grid points x 200 toys): 28 paths.  Every launch counter
+     is reset just before each run and read just after; each run must
+     launch exactly its path's kernels, end with a finite limit (four on
+     the sharded paths; the tier's JSON outputs finite) and no failed
+     experiment, and fit sanely.  The runs on the
      stepper loop (fixed, binned) take fewer steps, printed as a cut;
      blocked runs also print parameter updates/s, sharded runs their
      fake-data set-up apart from the fit; a profiled tempered fit splits
      its wall into kernel and host time;
+     The MLE of the example with the kernels is held against
+     device="cpu" on the same data (best-fit NLL within NLL_TOL; free
+     rates, profile limit and Asimov limit within 1e-3 relative), and
+     the toys' dNLL with B2 against lut_eval_plain on the card;
   5. prints the kernels' JSON line (every kernel and form: launches on
      the paths, error, times, bound, library time), the card line, and
      as its last line {"ok": true, "device": {...}}.
@@ -913,13 +922,24 @@ def check_regimes(torch, kernels, config_path, workdir, data, out):
         ms = cuda_ms(torch, lambda: kern(*args), 10)
         us = ms / SEGMENT_STEPS * 1e3
         unit = "cycle" if sub else "step"
+        # The bound as the main rows take it: samples and tables read
+        # once, the histories written once; per step (cycle) a binning of
+        # every sample per chain and one event sweep per decision.
+        nsig, nev = mcmc.nsignals, st.read_bins.shape[1]
+        npar, ndec = mcmc.nparameters, sub[0] if sub else 1
+        bnd = bound(sample_bytes_read(hs) + 4.0 * (
+            nsig * hs.total + nsig * nev + SEGMENT_STEPS * nch * (
+                ndec * (npar + 1) + npar + 3)),
+            SEGMENT_STEPS * nch * (binning_ops(hs)
+                                   + ndec * event_ops(nsig, nev)))
         print(f"{'B5' if sub else 'B4'} {label}, {nch} chains x "
               f"{SEGMENT_STEPS} {unit}s, {hs.total} bins: trajectories "
               f"identical (accept rate {float(got[2].mean()):.3f}), |dNLL| "
-              f"{err:.3g}; kernel {ms:.4f} ms ({us:.2f} us/{unit})")
+              f"{err:.3g}; kernel {ms:.4f} ms ({us:.2f} us/{unit}), bound "
+              f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
         res[f"{name} {tag}"] = {"nchains": nch, "bins": hs.total,
                                 "max_abs_err": err, "ms": ms,
-                                f"us_per_{unit}": us}
+                                f"us_per_{unit}": us, **bnd}
     out["fused_segment_batched"]["regimes"] = res
 
 
@@ -1091,10 +1111,13 @@ def check_weighted(torch, kernels, config_path, workdir, data, out, beta,
         check(err <= NLL_TOL, f"{name}_weighted: NLL differs by {err}")
         ms, plain_ms = in_turns(torch, lambda: kernels.fused_nll_plain(*args),
                                 lambda: fn(*args), 3, 50)
+        dms = device_ms(torch, lambda: fn(*args), 50, ("sx_fused_kernel",))
         print(f"B3 {name}_weighted, {nch} chain(s): |dNLL| {err:.3g}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"kernel {ms:.4f} ms (on the card {dms} ms), plain "
+              f"{plain_ms:.4f} ms")
         out[f"{name}_weighted"] = {
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": dms,
             **bound(b3_bytes, nch * (binning_ops(hs) + weight_ops(hs)
                                      + event_ops(nsig, nev)))}
 
@@ -1656,6 +1679,286 @@ def sharded_paths(torch, kernels, config_path: str, workdir: str):
     return results
 
 
+# The frequentist tier's paths: the example at its full width, one
+# experiment, 200 toys (the JAX defaults; --gof 100).  Their launches
+# follow from the code (stats/mle.py, stats/hypotest.py, stats/gof.py,
+# stats/bias.py, stats/feldman_cousins.py):
+#   a fit: the systematics grid, 4 passes x 2 floating systematics, each
+#     one evaluate_batch of 9 thetas (B1-batched + B2; binned B1-batched
+#     alone), then the rate solve and the Hessian at the optimum (B1 + B2
+#     each; binned B1 each);
+#   a profile or a conditional fit: B1 + B2 at the fit's systematics;
+#   a toy ensemble: B1 to draw it, then B1 + B2 for every toy's LUT (one
+#     launch over all toys' events), B1 + B2 more for the conditional fit
+#     that sets the background rates of a hypothesis-test ensemble;
+#   the fake dataset: B1.
+NTOYS = 200
+GOF_TOYS = 100
+FC_GRID = 8
+NGRID = 8              # the CLs grid's points before refinement
+FIT = {"segmented_histogram": 2, "segmented_histogram_batched": 8,
+       "lut_eval": 10}
+FIT_BINNED = {"segmented_histogram": 2, "segmented_histogram_batched": 8}
+B12 = {"segmented_histogram": 1, "lut_eval": 1}
+B1 = {"segmented_histogram": 1}
+
+
+def launches(*parts) -> dict:
+    """The sum of launch counts ``(count, {kernel: n})`` or dicts."""
+    out = {}
+    for part in parts:
+        n, d = part if isinstance(part, tuple) else (1, part)
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + n * v
+    return out
+
+
+def hypotest_launches(ngrid: int, refined: bool) -> dict:
+    """The hypothesis-test path (--hypotest 200 --hypotest-band
+    --hypotest-asymptotic) beside the Metropolis fit: discovery (a fit, the
+    profile at 0, one b-only toy ensemble), the fit and profile limit that
+    set the grid, the CLs scan (a fit, the observed profile, two ensembles
+    a grid point, a second observed profile over the refinement points
+    when the scan brackets its crossing), the band (two ensembles a
+    point), the Asimov limit (a fit, a profile, a conditional fit, the
+    Asimov histograms, a weighted fit, its profile); then the Metropolis
+    fit (B3 once, B4 per phase) on the fake dataset (B1)."""
+    ensemble = launches(B1, (2, B12))  # draw, conditional fit, toys' LUT
+    return launches(
+        B1, FIT, B12, ensemble,                      # discovery
+        FIT, B12,                                    # grid from the limit
+        FIT, B12, (2 * ngrid, ensemble), (int(refined), B12),  # CLs
+        (2 * ngrid, ensemble),                       # band
+        FIT, B12, B12, B1, FIT, B12,                 # Asimov
+        {"fused_nll": 1, "fused_segment": 3})
+
+
+STATS_PATHS = [
+    # (tag, CLI flags, exact launches or None: from the hypotest JSON)
+    ("mle, gof 100", ["--sampler", "mle", "--gof", str(GOF_TOYS)],
+     launches(B1, FIT, B1, B1, B12, B1, (2, B12))),
+    ("mle, binned", ["--sampler", "mle", "--binned"],
+     launches(B1, FIT_BINNED, (2, B1))),
+    ("hypotest 200, band, asymptotic",
+     ["--hypotest", str(NTOYS), "--hypotest-band", "--hypotest-asymptotic"],
+     None),
+    ("mle, bias-study 200", ["--sampler", "mle", "--bias-study", str(NTOYS)],
+     launches(B1, B12, B1, FIT, (2, B12))),
+]
+
+
+def stats_paths(torch, kernels, config_path: str, workdir: str):
+    """Phase 4, the frequentist tier through the CLI: each path's launches
+    exact, its JSON outputs written and finite, no failed experiment; the
+    wall, the toy datasets and toy fits per second (host clock, ending
+    in a synchronisation) and the batched solver's ticks and host reads
+    beside them."""
+    from sxmc_tpu_torch.cli import main as cli_main
+    from sxmc_tpu_torch.stats import bfgs
+
+    results = []
+    for tag, flags, expect in STATS_PATHS:
+        cfg = path_config(config_path, workdir, tag, {}, FULL_STEPS)
+        out = os.path.join(workdir, "out_" + os.path.basename(cfg)[:-5])
+        kernels.reset_launch_counts()
+        bfgs.reset_solver_stats()
+        t0 = time.perf_counter()
+        rc = cli_main([cfg, out, "--data-root", workdir, "--device", "cuda",
+                       "--max-retries", "0"] + flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        solver = bfgs.solver_stats()
+        check(rc == 0, f"{tag}: cli returned {rc}")
+        with open(os.path.join(out, "example_metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        failed = [r for r in recs if r["event"] == "experiment_failed"]
+        check(not failed, f"{tag}: an experiment failed: {failed}")
+        toys = fits = 0
+        if "--hypotest" in flags:
+            with open(os.path.join(out, "example_hypotest_0.json")) as f:
+                ht = json.load(f)
+            ngrid = len(ht["r_grid"])
+            check(ngrid in (NGRID, NGRID + 4), f"{tag}: grid {ngrid}")
+            expect = hypotest_launches(ngrid, ngrid > NGRID)
+            for key in ("cls_limit", "profile_limit", "asymptotic_limit",
+                        "q0", "z_toys"):
+                check(math.isfinite(ht[key]), f"{tag}: {key} {ht[key]}")
+            band = list(ht["expected_limit"].values()) + list(
+                ht["asymptotic_expected"].values())
+            check(all(math.isfinite(x) for x in band), f"{tag}: bands {band}")
+            limit = next(r["upper"] for r in recs
+                         if r["event"] == "experiment_limit")
+            ensembles = 1 + 4 * ngrid
+            toys, fits = NTOYS * ensembles, 2 * NTOYS * ensembles
+            extra = (f"CLs limit {ht['cls_limit']:.6g}, expected (median) "
+                     f"{ht['expected_limit']['0.5']:.6g}, Asimov "
+                     f"{ht['asymptotic_limit']:.6g}, q0 {ht['q0']:.4g}, "
+                     f"grid {ngrid} points, Metropolis limit {limit:.6g}")
+        else:
+            with open(os.path.join(out, "example_mle_0.json")) as f:
+                res = json.load(f)
+            limit = res["upper_limit"]
+            check(res["converged"], f"{tag}: the fit did not converge")
+            check(math.isfinite(limit) and 0.7 < res["params"]["signal1"]
+                  < 1.3, f"{tag}: limit {limit}, fit {res['params']}")
+            extra = (f"profile limit {limit:.6g}, signal1 "
+                     f"{res['params']['signal1']:.6g} +- "
+                     f"{res['errors']['signal1']:.4g}, NLL {res['nll']!r}")
+            if "--gof" in flags:
+                gof = next(r for r in recs if r["event"] == "experiment_gof")
+                check(math.isfinite(gof["chi2"])
+                      and 0.0 <= gof["p_toys"] <= 1.0, f"{tag}: gof {gof}")
+                toys = fits = GOF_TOYS
+                extra += (f", chi2/ndof {gof['chi2']:.4g}/{gof['ndof']}, "
+                          f"p {gof['p_asymptotic']:.4g} (toys "
+                          f"{gof['p_toys']:.4g})")
+            if "--bias-study" in flags:
+                with open(os.path.join(out, "example_pulls.json")) as f:
+                    pulls = json.load(f)["summary"]
+                s1 = pulls["signal1"]
+                # signal1's Gaussian constraint (sigma 0.05) narrows its
+                # pulls below 1: their width is only held finite here.
+                check(s1["n_used"] > 0.9 * NTOYS
+                      and abs(s1["pull_mean"]) < 0.5
+                      and 0.05 < s1["pull_std"] < 1.5, f"{tag}: pulls {s1}")
+                toys = fits = NTOYS
+                extra += (f", signal1 pull mean {s1['pull_mean']:.4f} width "
+                          f"{s1['pull_std']:.4f} coverage {s1['coverage']}")
+        want = {k: expect.get(k, 0) for k in counts}
+        check(counts == want, f"{tag}: launches {counts}, expected {want}")
+        rate = (f", {toys / wall!r} toy datasets/s, {fits / wall!r} toy "
+                f"fits/s" if toys else "")
+        print(f"path {tag}: {extra}; whole run {wall:.2f} s{rate}; solver "
+              f"{solver['solves']} batched solves, {solver['ticks']} ticks, "
+              f"{solver['syncs']} host reads; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        results.append({"path": tag, "cli_seconds": wall, "limit": limit,
+                        "toys": toys, "toy_fits": fits, "solver": solver,
+                        "launches": counts})
+    return results
+
+
+def fc_path(torch, kernels, config_path: str, workdir: str) -> dict:
+    """FeldmanCousins.run through the library: FC_GRID grid points x NTOYS
+    toys of the example around its fake dataset (drawn first, outside the
+    counted run).  Launches: a B1 draw per grid point, B1 + B2 for the
+    toys' LUT, then the observed fit and profile."""
+    from sxmc_tpu_torch.fitconfig import FitConfig
+    from sxmc_tpu_torch.generator import make_fake_dataset
+    from sxmc_tpu_torch.stats import bfgs
+    from sxmc_tpu_torch.stats.feldman_cousins import FeldmanCousins
+    from sxmc_tpu_torch.stats.mle import MLE
+
+    dev = torch.device("cuda")
+    fc = FitConfig.from_json_file(config_path, data_root=workdir)
+    mle = MLE(fc.sources, fc.signals, fc.systematics, fc.observables,
+              device=dev)
+    data = make_fake_dataset(torch.Generator().manual_seed(3), fc.signals,
+                             fc.systematics, fc.observables, stack=mle.stack)
+    grid = np.linspace(0.85, 1.15, FC_GRID)  # ~1.5 sigma a step
+    kernels.reset_launch_counts()
+    bfgs.reset_solver_stats()
+    t0 = time.perf_counter()
+    iv = FeldmanCousins(mle, "signal1").run(
+        torch.Generator(dev).manual_seed(7), data, grid, ntoys=NTOYS, cl=0.9)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    solver = bfgs.solver_stats()
+    expect = launches((FC_GRID, B1), B12, FIT, B12)
+    want = {k: expect.get(k, 0) for k in counts}
+    check(counts == want, f"FC: launches {counts}, expected {want}")
+    check(math.isfinite(iv.lower) and math.isfinite(iv.upper)
+          and iv.lower < iv.point_estimate < iv.upper, f"FC: interval {iv}")
+    toys = FC_GRID * NTOYS
+    print(f"path FeldmanCousins.run: interval [{iv.lower:.6g}, "
+          f"{iv.upper:.6g}] around {iv.point_estimate:.6g} (90% CL), "
+          f"{FC_GRID} grid points x {NTOYS} toys in {wall:.3f} s = "
+          f"{toys / wall!r} toy datasets/s, {2 * toys / wall!r} toy fits/s; "
+          f"solver {solver['solves']} batched solves, {solver['ticks']} "
+          f"ticks, {solver['syncs']} host reads; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    return {"path": "FeldmanCousins.run", "cli_seconds": wall,
+            "limit": iv.upper, "toys": toys, "toy_fits": 2 * toys,
+            "solver": solver, "launches": counts}
+
+
+def check_mle_cpu(torch, kernels, config_path: str, workdir: str) -> dict:
+    """The MLE with the kernels against device="cpu" (the plain versions)
+    on the same data: best-fit NLL within NLL_TOL, every free rate, the
+    profile limit and the Asimov limit within 1e-3 relative; then
+    toy_dnll_batch on 64 fixed toys with its B2 launch against
+    lut_eval_plain on the card (dNLL within 2e-3, r-hat 1e-3 relative)."""
+    from sxmc_tpu_torch.fitconfig import FitConfig
+    from sxmc_tpu_torch.generator import (make_fake_dataset,
+                                          make_fake_dataset_batch)
+    from sxmc_tpu_torch.stats.feldman_cousins import toy_dnll_batch
+    from sxmc_tpu_torch.stats.hypotest import HypoTest
+    from sxmc_tpu_torch.stats.mle import MLE
+
+    fc = FitConfig.from_json_file(config_path, data_root=workdir)
+    out = {}
+    models = {}
+    t0 = time.perf_counter()
+    for name in ("cuda", "cpu"):
+        mle = MLE(fc.sources, fc.signals, fc.systematics, fc.observables,
+                  device=torch.device(name))
+        models[name] = mle
+    data = make_fake_dataset(torch.Generator().manual_seed(3), fc.signals,
+                             fc.systematics, fc.observables,
+                             stack=models["cuda"].stack)
+    for name, mle in models.items():
+        res = mle.fit(data)
+        lim = mle.upper_limit("signal1", 0.9, res)
+        out[name] = (res, lim)
+    (rg, lg), (rc, lc) = out["cuda"], out["cpu"]
+    hi = max(2.0 * lc, 1e-2)
+    grid = np.linspace(hi / 8.0, hi, 8)
+    asym = {name: HypoTest(mle, "signal1").asymptotic_upper_limit(
+        data, grid, cl=0.9).limit for name, mle in models.items()}
+    dn = float(abs(rg.nll - rc.nll))
+    check(dn <= NLL_TOL, f"MLE card vs CPU: NLL {rg.nll!r} vs {rc.nll!r}")
+    rel = {}
+    for i in models["cuda"]._free_rates:
+        n = rg.names[i]
+        rel[n] = float(abs(rg.params[i] - rc.params[i]) / abs(rc.params[i]))
+    rel["profile_limit"] = float(abs(lg - lc) / abs(lc))
+    rel["asimov_limit"] = float(abs(asym["cuda"] - asym["cpu"])
+                                / abs(asym["cpu"]))
+    check(max(rel.values()) <= 1e-3, f"MLE card vs CPU: relative {rel}")
+    check(rg.converged and rc.converged, "MLE card vs CPU: not converged")
+
+    mle = models["cuda"]
+    dev = mle.device
+    toys = make_fake_dataset_batch(torch.Generator(dev).manual_seed(11),
+                                   mle.signals, mle.systematics,
+                                   mle.observables, 64, mle.stack)
+    rb = mle.stack.compute_read_bins(toys)
+    r_values = np.linspace(0.5, 1.5, 64)
+    got = toy_dnll_batch(mle, r_values, rb, 0, mle._free_rates)
+    kernel = kernels.lut_eval
+    kernels.lut_eval = kernels.lut_eval_plain
+    try:
+        want = toy_dnll_batch(mle, r_values, rb, 0, mle._free_rates)
+    finally:
+        kernels.lut_eval = kernel
+    d_err = float(np.abs(got[0] - want[0]).max())
+    r_err = float((np.abs(got[1] - want[1]) / np.abs(want[1])).max())
+    check(d_err <= 2e-3 and r_err <= 1e-3,
+          f"toy_dnll_batch with B2 vs lut_eval_plain: dNLL {d_err}, "
+          f"r-hat {r_err}")
+    wall = time.perf_counter() - t0
+    print(f"MLE card vs CPU on the example: NLL {rg.nll!r} vs {rc.nll!r} "
+          f"(|d| {dn:.3g}), relative differences "
+          f"{ {k: float(f'{v:.3g}') for k, v in rel.items()} }, profile "
+          f"limit {lg:.6g}, Asimov limit {asym['cuda']:.6g}; toy_dnll_batch "
+          f"on 64 toys, B2 vs lut_eval_plain: max |d dNLL| {d_err:.3g}, max "
+          f"relative d r-hat {r_err:.3g} ({wall:.1f} s)")
+    return {"nll_abs": dn, "relative": rel, "toy_dnll_abs": d_err,
+            "toy_rhat_rel": r_err}
+
+
 def tempered_split(torch, config_path: str, workdir: str) -> dict:
     """The tempered fit's wall against its device time: the example at
     its full width through TemperedMCMC (SPLIT_STEPS steps), once on the
@@ -1745,7 +2048,11 @@ def main() -> int:
         measured = check_kernels(torch, kernels, config_path, workdir)
         paths = main_paths(torch, kernels, config_path, workdir)
         paths += sharded_paths(torch, kernels, config_path, workdir)
+        stats = stats_paths(torch, kernels, config_path, workdir)
+        stats.append(fc_path(torch, kernels, config_path, workdir))
+        mle_check = check_mle_cpu(torch, kernels, config_path, workdir)
         split = tempered_split(torch, config_path, workdir)
+    paths += stats
 
     rows = []
     for name, replaces in REPLACES.items():
@@ -1758,6 +2065,13 @@ def main() -> int:
                          **measured[name]))
     eight = next(p for p in paths if p["path"] == f"nchains={NCHAINS}")
     for p in paths:
+        if "toys" in p:
+            print(f"path {p['path']}: {p['cli_seconds']!r} s, "
+                  + (f"{p['toy_fits'] / p['cli_seconds']!r} toy fits/s "
+                     f"({p['toys']} toys), " if p["toys"] else "")
+                  + f"{p['solver']['syncs']} host reads of the solver on "
+                  f"{smi}")
+            continue
         extra = (f", {p['updates_per_sec']!r} parameter updates/s"
                  if p["updates_per_sec"] else "")
         if p["replica_steps_per_sec"]:
@@ -1768,7 +2082,7 @@ def main() -> int:
         print(f"path {p['path']}: {p['steps_per_sec']!r} chain-steps/s "
               f"({p['nsteps']} steps x {p['nchains']} chain(s){extra}) on "
               f"{smi}")
-    print(json.dumps({"tempered_split": split}))
+    print(json.dumps({"tempered_split": split, "mle_card_vs_cpu": mle_check}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,11 @@ pdfz.cpp:817-922), with bins outside the observable bounds excluded;
 each event is tagged with the signal's dataset id.
 
 All signals' histograms come from one ``PdfStack.histograms`` call
-(kernel B1 on the card).  The draws themselves are a few thousand
-numbers and run on the host, from an explicit CPU ``torch.Generator``.
+(kernel B1 on the card).  One dataset's draws are a few thousand numbers
+and run on the host, from an explicit CPU ``torch.Generator``; a batch
+of toy datasets (:func:`make_fake_dataset_batch`, the front end of the
+frequentist tier) is drawn on the stack's device, as batched tensor
+ops, from a ``torch.Generator`` on that device.
 """
 
 from __future__ import annotations
@@ -124,3 +127,106 @@ def make_fake_dataset(
                   f"events ({nevents} expected, efficiency = {eff})")
         chunks.append(events)
     return np.concatenate(chunks, axis=0)
+
+
+def _bounded_mask(stack, observables) -> np.ndarray:
+    """``(total_nbins,)`` bool: the bins inside the observables' bounds
+    (the bins :func:`bounded_probs` keeps)."""
+    ones = np.ones(stack.total_nbins)
+    return bounded_probs(ones, stack.nbins, stack.lower_host,
+                         stack.upper_host, [o.upper for o in observables],
+                         [o.lower for o in observables]) > 0
+
+
+def make_fake_dataset_batch(
+    gen: torch.Generator,
+    signals: Sequence[Signal],
+    systematics: Sequence[Systematic],
+    observables: Sequence[Observable],
+    ntoys: int,
+    stack,
+    poisson: bool = True,
+    rates=None,
+    fluctuate_systematics: bool = False,
+    theta=None,
+) -> torch.Tensor:
+    """``ntoys`` fake datasets as one padded batch (JAX
+    generator.py:114-235): per signal, the Poisson counts of every toy,
+    their bin choices (categorical over the bounded bins) and in-bin
+    positions are each one tensor op on ``stack``'s device, from ``gen``
+    (a ``torch.Generator`` on that device).
+
+    ``rates`` maps signal names to rate multipliers on the expected
+    count (default 1).  ``theta`` pins the systematic coefficients the
+    toys are generated at (default nominal).  ``fluctuate_systematics``
+    draws each toy's constrained coefficients from their Gaussian priors
+    (fixed or unconstrained ones stay put) and generates that toy from
+    the PDFs and efficiencies at its own theta: one B1-batched launch
+    per 32 toys.
+
+    Returns ``(ntoys, nev_max, nobs + 1)`` float32 on the device; padding
+    rows carry dataset tag -1, which no signal reads (read bin -2 or -1).
+    """
+    dev = stack.device
+    nobs = len(observables)
+    if not signals:
+        return torch.zeros((ntoys, 0, nobs + 1), dtype=torch.float32,
+                           device=dev)
+    theta = (nominal_params(systematics) if theta is None
+             else np.asarray(theta, np.float32))
+    sigmas = np.zeros_like(theta)
+    for syst in systematics:
+        if not syst.fixed:
+            for j, pidx in enumerate(syst.pidx):
+                sigmas[pidx] = syst.sigmas[j]
+    fluctuate = fluctuate_systematics and bool((sigmas > 0).any())
+    theta_t = torch.as_tensor(theta, device=dev)
+    if fluctuate:
+        z = torch.randn((ntoys, theta.shape[0]), generator=gen, device=dev,
+                        dtype=torch.float32)
+        hists, norms = stack.histograms_batch(
+            theta_t[None] + z * torch.as_tensor(sigmas, device=dev)[None])
+    else:
+        hists, norms = stack.histograms(theta_t)
+    inside = torch.as_tensor(_bounded_mask(stack, observables), device=dev)
+    strides = hist_ops.bin_strides(stack.nbins)
+    lo = np.asarray(stack.lower_host, np.float64)
+    widths = (np.asarray(stack.upper_host, np.float64) - lo) / np.asarray(
+        stack.nbins, np.float64)
+
+    chunks = []
+    for i, sig in enumerate(signals):
+        rate = 1.0 if rates is None else float(rates.get(sig.name, 1.0))
+        probs = torch.where(inside, hists[..., i, :].to(torch.float64), 0.0)
+        if float(probs.sum()) <= 0:
+            continue
+        eff = norms[..., i].to(torch.float64) / sig.n_mc
+        mu = (rate * sig.nexpected * eff).expand(ntoys).contiguous()
+        n = (torch.poisson(mu, generator=gen) if poisson
+             else torch.floor(mu + 0.5))
+        nmax = max(int(n.max()), 1)
+        if probs.dim() == 1:
+            bin_idx = torch.multinomial(probs, ntoys * nmax, replacement=True,
+                                        generator=gen).reshape(ntoys, nmax)
+        else:
+            # A toy whose bounded bins are all empty draws uniformly, as
+            # a categorical over equal logits does.
+            empty = probs.sum(-1, keepdim=True) <= 0
+            probs = torch.where(empty, torch.ones_like(probs), probs)
+            bin_idx = torch.multinomial(probs, nmax, replacement=True,
+                                        generator=gen)
+        u = torch.rand((ntoys, nmax, nobs), generator=gen, device=dev,
+                       dtype=torch.float64)
+        ev = torch.empty((ntoys, nmax, nobs + 1), dtype=torch.float32,
+                         device=dev)
+        for a, (st, nb) in enumerate(zip(strides, stack.nbins)):
+            axis_idx = (bin_idx // st) % nb
+            ev[..., a] = (lo[a] + (axis_idx + u[..., a]) * widths[a]).to(
+                torch.float32)
+        valid = torch.arange(nmax, device=dev)[None, :] < n[:, None]
+        ev[..., nobs] = torch.where(valid, float(sig.dataset), -1.0)
+        chunks.append(ev)
+    if not chunks:
+        return torch.zeros((ntoys, 0, nobs + 1), dtype=torch.float32,
+                           device=dev)
+    return torch.cat(chunks, dim=1)

@@ -85,6 +85,37 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported to sxmc_tpu_torch yet ({item})")
 
 
+def flatten_parameters(sources: Sequence[Source],
+                       systematics: Sequence[Systematic]):
+    """The parameter vector's ``(means, sigmas, fixed, names)``: source
+    rates, then each systematic's coefficients (mcmc.cpp:47-81)."""
+    means, sigmas, fixed, names = [], [], [], []
+    for src in sources:
+        means.append(src.mean)
+        sigmas.append(src.sigma)
+        fixed.append(src.fixed)
+        names.append(src.name)
+    for syst in systematics:
+        for j in range(syst.npars):
+            means.append(syst.means[j])
+            sigmas.append(syst.sigmas[j])
+            fixed.append(syst.fixed)
+            names.append(f"{syst.name}_{j}")
+    return (np.asarray(means, np.float32), np.asarray(sigmas, np.float32),
+            np.asarray(fixed, bool), names)
+
+
+def nll_static(sources: Sequence[Source], signals: Sequence[Signal],
+               systematics: Sequence[Systematic]) -> NLLStatic:
+    """The NLL's constants of a fit (mcmc.cpp:93-98)."""
+    means, sigmas, _, _ = flatten_parameters(sources, systematics)
+    return NLLStatic(
+        nexpected=np.asarray([s.nexpected for s in signals], np.float32),
+        n_mc=np.asarray([s.n_mc for s in signals], np.float32),
+        source_id=np.asarray([s.source.index for s in signals], np.int32),
+        means=means, sigmas=sigmas, nsources=len(sources))
+
+
 def check_proposal(proposal: str, rate_substeps: int = 0,
                    pool_adaptation: bool = False) -> None:
     """The JAX package's ValueErrors (metropolis.py:207-213)."""
@@ -120,25 +151,10 @@ class MCMC:
         self.systematics = list(systematics)
         self.observables = list(observables)
 
-        npars_syst = sum(s.npars for s in systematics)
-        self.nparameters = self.nsources + npars_syst
-        means = np.zeros(self.nparameters, np.float32)
-        sigmas = np.zeros(self.nparameters, np.float32)
-        fixed = np.zeros(self.nparameters, bool)
-        names = []
-        for i, src in enumerate(sources):
-            means[i], sigmas[i], fixed[i] = src.mean, src.sigma, src.fixed
-            names.append(src.name)
-        k = self.nsources
-        self.systematics_fixed = True
-        for syst in systematics:
-            if not syst.fixed:
-                self.systematics_fixed = False
-            for j in range(syst.npars):
-                means[k], sigmas[k] = syst.means[j], syst.sigmas[j]
-                fixed[k] = syst.fixed
-                names.append(f"{syst.name}_{j}")
-                k += 1
+        means, sigmas, fixed, names = flatten_parameters(sources,
+                                                         systematics)
+        self.nparameters = len(names)
+        self.systematics_fixed = all(s.fixed for s in systematics)
         self.parameter_means = means
         self.parameter_sigma = sigmas
         self.parameter_fixed = fixed
@@ -148,14 +164,7 @@ class MCMC:
 
         self.stack = PdfStack(signals, observables, systematics,
                               self.device)
-        self.static = NLLStatic(
-            nexpected=np.asarray([s.nexpected for s in signals],
-                                 np.float32),
-            n_mc=np.asarray([s.n_mc for s in signals], np.float32),
-            source_id=np.asarray([s.source.index for s in signals],
-                                 np.int32),
-            means=means.copy(), sigmas=sigmas.copy(),
-            nsources=self.nsources)
+        self.static = nll_static(sources, signals, systematics)
         # The constants on the device, made once: the fused kernels' spec
         # carries them for the plain versions and the stepper route.
         self.nll_spec = self.stack.nll_spec(self.static)

@@ -25,7 +25,7 @@ the chain's NLL history and every interface downstream carry pairs
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -176,7 +176,8 @@ def _log_pos(s: torch.Tensor) -> torch.Tensor:
 
 
 def nll_pair(pars: torch.Tensor, lut: torch.Tensor, norms: torch.Tensor,
-             c: NLLConsts) -> Tuple[torch.Tensor, torch.Tensor]:
+             c: NLLConsts, weights: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full extended-ML NLL as a float32 (hi, lo) pair.
 
     Args:
@@ -188,15 +189,25 @@ def nll_pair(pars: torch.Tensor, lut: torch.Tensor, norms: torch.Tensor,
         norms: ``(nsignals,)`` float32 in-domain MC counts (or
             ``(nchains, nsignals)``).
         c: fit constants on the device of ``pars``.
+        weights: optional ``(..., nevents)`` float32 per-event weights on
+            the log term (``sum_i w_i log s_i``): a weight of k is exactly
+            k identical events, which is how an Asimov dataset is fitted
+            (stats.asimov; JAX nll.py:202-206).
     """
     w = signal_weights(pars, norms, c)
-    ev_hi, ev_lo = df_sum(event_logs(w, lut), dim=-1)
+    logs = event_logs(w, lut)
+    if weights is not None:
+        logs = logs * weights
+    ev_hi, ev_lo = df_sum(logs, dim=-1)
     return finish_nll(pars, ev_hi, ev_lo, w, c)
 
 
-def nll(pars, lut, norms, c: NLLConsts) -> torch.Tensor:
-    """Scalar float32 NLL (see :func:`nll_pair`)."""
-    hi, lo = nll_pair(pars, lut, norms, c)
+def nll(pars, lut, norms, c: NLLConsts,
+        weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scalar float32 NLL (see :func:`nll_pair`).  Differentiable in
+    ``pars`` (the float64 sums carry the gradient; the MLE takes it with
+    ``torch.func``)."""
+    hi, lo = nll_pair(pars, lut, norms, c, weights)
     return hi + lo
 
 
@@ -246,3 +257,11 @@ def binned_nll_pair(pars: torch.Tensor, hists: torch.Tensor,
         s = s + mw[..., :, j, None] * dens[..., None, j, :]
     ev_hi, ev_lo = df_sum(_log_pos(s) * data_counts, dim=(-2, -1))
     return finish_nll(pars, ev_hi, ev_lo, w, c)
+
+
+def binned_nll(pars, hists, norms, c: NLLConsts, data_counts, ds_mask,
+               bin_volume: float) -> torch.Tensor:
+    """Scalar float32 form of :func:`binned_nll_pair`."""
+    hi, lo = binned_nll_pair(pars, hists, norms, c, data_counts, ds_mask,
+                             bin_volume)
+    return hi + lo

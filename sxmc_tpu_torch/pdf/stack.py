@@ -39,7 +39,7 @@ unweighted stacks only (``has_weights``), as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -240,17 +240,23 @@ class PdfStack:
     def histograms_batch(self, thetas) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(nchains, nsignals, total_nbins)`` counts + ``(nchains,
         nsignals)`` norms at ``(nchains, nsyst)`` thetas: the dynamic
-        rows of every chain from one B1-batched launch."""
+        rows of every chain from one B1-batched launch per MAXCHAINS
+        thetas."""
         thetas = as_f32(thetas, self.device)
         nch = thetas.shape[0]
         hists = self.hist_init.expand(nch, -1, -1).clone()
         norms = self._norm_init_t.expand(nch, -1).clone()
         if self._ndyn:
-            dyn, dyn_norms = kernels.segmented_histogram_batched(
-                self.hist_spec, self.samples,
-                thetas.reshape(nch, -1).contiguous())
-            hists[:, self._dyn_idx_t] = dyn
-            norms[:, self._dyn_idx_t] = dyn_norms
+            # One launch takes up to MAXCHAINS thetas: a larger batch (a
+            # systematics grid, fluctuated toys) goes out in launches of
+            # at most that many, each binning its own thetas exactly.
+            flat = thetas.reshape(nch, -1)
+            for a in range(0, nch, kernels.MAXCHAINS):
+                b = min(a + kernels.MAXCHAINS, nch)
+                dyn, dyn_norms = kernels.segmented_histogram_batched(
+                    self.hist_spec, self.samples, flat[a:b].contiguous())
+                hists[a:b, self._dyn_idx_t] = dyn
+                norms[a:b, self._dyn_idx_t] = dyn_norms
         return hists, norms
 
     def evaluate(self, theta_syst, read_bins=None
@@ -292,19 +298,44 @@ class PdfStack:
                 for ds in self.unique_datasets]
         return torch.stack(rows).to(torch.float32)
 
-    def counts_from_read_bins(self, read_bins: torch.Tensor
+    def counts_from_read_bins(self, read_bins: torch.Tensor,
+                              weights: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
         """Per-dataset data bin counts from per-signal read bins
-        ``(nsignals, nevents)`` -> ``(ndatasets, total_nbins)``: row j
-        of the read bins is >= 0 exactly for in-domain events carrying
-        signal j's dataset tag, so one representative row per dataset
-        gives :meth:`data_bin_counts` without the raw events."""
+        ``([ntoys,] nsignals, nevents)`` -> ``([ntoys,] ndatasets,
+        total_nbins)``: row j of the read bins is >= 0 exactly for
+        in-domain events carrying signal j's dataset tag, so one
+        representative row per dataset gives :meth:`data_bin_counts`
+        without the raw events (JAX stack.py:765-791).  ``weights``
+        ``([ntoys,] nevents)`` (an Asimov dataset's expected counts) are
+        summed per bin in float64 and rounded once; a batch of toys is
+        counted by one offset ``bincount``."""
+        lead = tuple(read_bins.shape[:-2])
+        ntoys = int(np.prod(lead)) if lead else 1
+        nev = read_bins.shape[-1]
+        total = self.total_nbins
         rows = []
         for d in self.unique_datasets:
-            rb = read_bins[self.datasets.index(d)]
-            rows.append(torch.bincount(rb[rb >= 0].to(torch.int64),
-                                       minlength=self.total_nbins))
-        return torch.stack(rows).to(torch.float32)
+            rb = read_bins[..., self.datasets.index(d), :].reshape(ntoys,
+                                                                   nev)
+            sel = rb >= 0
+            # Each toy's bins are offset by toy * (total + 1); the
+            # events of no bin go to a spare slot that is cut off below.
+            off = torch.arange(ntoys, device=rb.device,
+                               dtype=torch.int64)[:, None] * (total + 1)
+            flat = (torch.where(sel, rb.to(torch.int64), total)
+                    + off).reshape(-1)
+            if weights is None:
+                c = torch.bincount(flat, minlength=ntoys * (total + 1))
+            else:
+                w = torch.as_tensor(weights, device=rb.device).to(
+                    torch.float64).reshape(-1, nev).expand(ntoys, nev)
+                c = torch.zeros(ntoys * (total + 1), dtype=torch.float64,
+                                device=rb.device)
+                c.index_add_(0, flat, w.reshape(-1))
+            rows.append(c.reshape(ntoys, total + 1)[:, :total])
+        out = torch.stack(rows, dim=1).to(torch.float32)
+        return out.reshape(lead + out.shape[1:]) if lead else out[0]
 
     def _require_fused(self) -> None:
         if not self.supports_fused:

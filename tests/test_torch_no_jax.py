@@ -77,10 +77,12 @@ def test_imports_with_jax_blocked_and_cuda_is_explicit(tmp_path):
 def test_out_of_slice_cli_flags_raise(tmp_path, flag):
     """Flags off the port raise naming their ROADMAP item; --binned,
     --rate-substeps and --sharded, ported since, run a binned, a blocked
-    or a sharded fit of the golden configuration."""
+    or a sharded fit of the golden configuration, and --hypotest, --gof
+    and --bias-study the frequentist tier beside its Metropolis fit."""
     from sxmc_tpu_torch.cli import main
 
-    if flag in (["--binned"], ["--rate-substeps", "2"], ["--sharded"]):
+    if flag in (["--binned"], ["--rate-substeps", "2"], ["--sharded"],
+                ["--hypotest", "10"], ["--gof"], ["--bias-study", "5"]):
         cfg = json.loads((REPO / "tests" / "data" / "golden" /
                           "config.json").read_text())
         cfg["fit"].update(nexperiments=1, nsteps=200, output_format="npz")
@@ -95,16 +97,23 @@ def test_out_of_slice_cli_flags_raise(tmp_path, flag):
         assert "experiment_failed" not in [r["event"] for r in recs]
         limit = [r for r in recs if r["event"] == "experiment_limit"][0]
         assert np.isfinite(limit["upper"])
+        tier = {"--hypotest": "golden_hypotest_0.json",
+                "--bias-study": "golden_pulls.json"}
+        if flag[0] in tier:
+            assert (out / tier[flag[0]]).exists()
+        if flag == ["--gof"]:
+            assert "experiment_gof" in [r["event"] for r in recs]
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["config.json", str(tmp_path), "--device", "cpu"] + flag)
 
 
 @pytest.mark.parametrize("entry", ["MCMC", "PdfStack", "EvalHist",
-                                   "TemperedMCMC", "run_sharded_ensemble"])
+                                   "TemperedMCMC", "run_sharded_ensemble",
+                                   "MLE"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
-    """MCMC, TemperedMCMC, PdfStack, EvalHist and the sharded ensemble
-    (``run_sharded_ensemble``) take the card unless the caller asks for
+    """MCMC, TemperedMCMC, MLE, PdfStack, EvalHist and the sharded
+    ensemble (``run_sharded_ensemble``) take the card unless the caller asks for
     the CPU: without CUDA, calling one with no device raises (naming
     --device cpu) instead of quietly running on the CPU."""
     import torch
@@ -115,6 +124,7 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
     from sxmc_tpu_torch.parallel import ensemble
     from sxmc_tpu_torch.pdf.evalhist import EvalHist
     from sxmc_tpu_torch.pdf.stack import PdfStack
+    from sxmc_tpu_torch.stats.mle import MLE
     from test_torch_pdf import make_stack_inputs
 
     srcs, sigs, systs, obs = make_stack_inputs("sxmc_tpu_torch", n_mc=200)
@@ -137,6 +147,7 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
 
     build = {"MCMC": lambda: MCMC(srcs, sigs, systs, obs),
              "TemperedMCMC": lambda: TemperedMCMC(srcs, sigs, systs, obs),
+             "MLE": lambda: MLE(srcs, sigs, systs, obs),
              "PdfStack": lambda: PdfStack(sigs, obs, systs),
              "EvalHist": lambda: EvalHist(
                  np.zeros((4, 1), np.float32), 1, 1, [0.0], [1.0], [2]),

@@ -1,7 +1,7 @@
 """The repository's reference example through the port's CLI with its
 plots on (``fit.plots`` left at its default), the nominal-PDF export
 against the JAX package's, and the JAX CLI options that the port does
-not run yet.
+not run yet (and two it runs since).
 
 The example's configuration (``examples/reference_example.json``) is
 used as shipped but for ``nsteps``, cut to a few hundred; its MC tables
@@ -136,6 +136,28 @@ def test_plotting_failure_does_not_kill_the_fit(example_run, tmp_path,
 def test_jax_cli_options_raise_naming_their_item(tmp_path, flag, item):
     """Options of sxmc_tpu.cli that the port does not run raise
     NotImplementedError naming their ROADMAP item (not argparse's exit
-    2)."""
-    with pytest.raises(NotImplementedError, match=f"{flag[0]} .*{item}\\)"):
-        main(["config.json", str(tmp_path), "--device", "cpu"] + flag)
+    2).  The ported ones run, here beside the gradient MLE on the golden
+    configuration: --hypotest-band alone adds nothing (the band needs
+    --hypotest's toys, as in the JAX package), --hypotest-asymptotic
+    writes the Asimov limit (item 10, the statistics tier)."""
+    if item != "item 10":
+        with pytest.raises(NotImplementedError,
+                           match=f"{flag[0]} .*{item}\\)"):
+            main(["config.json", str(tmp_path), "--device", "cpu"] + flag)
+        return
+    golden = REPO / "tests" / "data" / "golden"
+    cfg = json.loads((golden / "config.json").read_text())
+    cfg["fit"].update(nexperiments=1, output_format="npz")
+    path = tmp_path / "config.json"
+    path.write_text(json.dumps(cfg))
+    out = tmp_path / "out"
+    assert main([str(path), str(out), "--device", "cpu", "--data-root",
+                 str(golden), "--sampler", "mle"] + flag) == 0
+    mle = json.loads((out / "golden_mle_0.json").read_text())
+    assert np.isfinite(mle["upper_limit"])
+    hypotest = out / "golden_hypotest_0.json"
+    if flag == ["--hypotest-band"]:
+        assert not hypotest.exists()
+    else:
+        assert np.isfinite(json.loads(hypotest.read_text())[
+            "asymptotic_limit"])

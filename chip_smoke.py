@@ -14,6 +14,15 @@ from the root of a checkout, on a machine with one Hopper card.  It
           rows, 10 bins, scale + resolution systematics) and the 10M-
           sample / 1000-bin / 1-shift shape; counts must be equal;
        B1 segmented_histogram_batched: 8 chains on the slice's layout;
+          then B1 at segment offsets and a total that are not multiples
+          of 4 with an empty segment, at 1, 8 and 32 chains, unweighted
+          and weighted, in shared-memory slots and (1,000 bins x 8 and 32
+          chains) with every count a global atomic; 18 calls back to back
+          without a synchronisation, layouts alternating (a stale
+          persistent accumulator would show); and one B1 call under
+          torch.profiler, which must show exactly one device operation;
+          each B1 form's times are printed, and on a line of their own
+          those before its redesign (B1_BEFORE, copied from PERF.md);
        B2 lut_eval: the reference example's LUT (2 signals x its
           events, 10 bins) and 2 signals x 1M events x 1000 bins; values
           equal; EvalHist.eval (B1 + B2) on signal1's 500k rows;
@@ -24,7 +33,12 @@ from the root of a checkout, on a machine with one Hopper card.  It
           decisions and parameters identical, NLL history within
           NLL_TOL; B4-batched also at 32 chains (the most one launch
           takes) and at 8 chains x 1,000 energy bins (histograms too
-          large for the shared-memory replicas);
+          large for the shared-memory replicas); B1, B3, B4-batched and
+          B5-batched on the wide example (two observables, a moved truth
+          field), and on the far one (a systematic moves sample field 4,
+          nload = 5: the forms that bin every field in registers) B1, B3
+          one chain and 8, B4 one chain (diagonal and tril), B5 one chain,
+          B4- and B5-batched, and weighted B1, B3 and B4-batched;
        B4 fused_segment_tril / fused_segment_tril_batched (full-
           covariance proposals cur + L @ z): the same, with correlated
           lower-triangular scales, and the full_cov retune between
@@ -123,11 +137,30 @@ NEXP, CPE = 4, 2       # the sharded paths: experiments x chains each
 NTEMPS, TMAX, SWAP_EVERY = 8, 32.0, 10  # the tempered sampler's defaults
 WEIGHT_SIGMA = 0.3     # log-normal per-row MC weights of the weighted runs
 
+# B1's times before its redesign (ms with calls back to back, CUDA
+# events; ms on the card, torch.profiler), copied from PERF.md's kernel
+# table (this script's run on an NVIDIA H100 80GB HBM3 at 700 W before
+# the redesign).  They are printed beside this run's times, on lines of
+# their own, and are not part of the kernels line: every number there is
+# this run's.
+B1_BEFORE = {
+    "one theta, 2 x 500k, 10 bins": (0.0565, 0.0119),
+    "one theta, 10M, 1,000 bins": (0.0708, 0.0576),
+    "8 chains, 2 x 500k": (0.0529, 0.0481),
+    "weighted, 2 x 500k": (0.0593, 0.0212),
+    "weighted, 10M, 1,000 bins": (0.1121, 0.1043),
+    "weighted, 8 chains": (0.1231, 0.1092),
+    "B1a, 500k, 10 bins": (0.1009, 0.0077),
+    "B1a weighted, 500k, 10 bins": (0.1598, 0.0133),
+}
+
 # The H100 SXM's published peaks: HBM bytes/s
 # and float32 operations/s outside the tensor cores, at 700 W.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-SRC = "sxmc_tpu_torch/csrc/sxmc_kernels.cu"
+SRC = "sxmc_tpu_torch/csrc/sxmc_kernels.cu"  # B2, and the C interface
+SRC_B1 = "sxmc_tpu_torch/csrc/sxmc_hist.cu"
+SRC_FUSED = "sxmc_tpu_torch/csrc/sxmc_fused.cuh"  # B3-B5
 REPLACES = {
     "segmented_histogram": "sxmc_tpu/ops/pallas_hist.py:416",
     "segmented_histogram_batched": "sxmc_tpu/ops/pallas_hist.py:416",
@@ -268,6 +301,20 @@ def event_ops(nsig: int, nev: int) -> float:
     return nev * (3 * nsig + 1)
 
 
+def b1_form(name: str, ms: float, dms, bnd: dict) -> dict:
+    """One B1 form's entry of the kernels line: its times in this run and
+    its bound.  The times before the redesign (B1_BEFORE, copied from
+    PERF.md) are printed on a line of their own, not returned."""
+    before, before_dev = B1_BEFORE[name]
+    print(f"B1 form {name}: {ms:.4f} ms with calls back to back, on the "
+          f"card {dms} ms, bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']})")
+    print(f"B1 form {name}, before the redesign (copied from PERF.md, not "
+          f"measured here): {before} ms back to back, {before_dev} ms on "
+          "the card")
+    return {name: {"ms": ms, "device_ms": dms, **bnd}}
+
+
 def lut_equal(torch, got, want) -> float:
     """Max |got - want| where both are finite; fails unless the NaNs sit
     in the same places and every value is equal."""
@@ -379,6 +426,124 @@ def write_example(workdir: str, nevents: int = 500_000) -> str:
     return path
 
 
+def b1_edge_layout(torch, kernels, nbins: int, weighted: bool, seed: int):
+    """A B1 layout whose offsets and total are not multiples of 4:
+    segments of 250,001, 2, 500,003, 0 and 250,002 rows (n =
+    1,000,008), three fields (energy, true, a spare one), a scale (segments 0,
+    2, 4), a resolution reading field 1 (0, 1, 4) and a two-term shift
+    (1, 2, 4: a per-row power series); theta is (scale, res, shift a0,
+    shift a1).  Samples drawn on the card from ``seed``."""
+    from sxmc_tpu_torch.ops.transforms import (RESOLUTION_SCALE, SCALE,
+                                               SHIFT, SystematicDesc)
+
+    dev = torch.device("cuda")
+    sizes = [250_001, 2, 500_003, 0, 250_002]
+    seg_off = [0] + list(np.cumsum(sizes))
+    n = seg_off[-1]
+    systs = [
+        (SystematicDesc(type=SCALE, obs=0, par_indices=(0,)),
+         (True, False, True, False, True)),
+        (SystematicDesc(type=RESOLUTION_SCALE, obs=0, extra_field=1,
+                        par_indices=(1,)), (True, True, False, False, True)),
+        (SystematicDesc(type=SHIFT, obs=0, par_indices=(2, 3)),
+         (False, True, True, False, True))]
+    hs = kernels.HistSpec.build(3, [5.0], [15.0], [nbins], systs, seg_off,
+                                weighted=weighted)
+    gen = torch.Generator(dev).manual_seed(seed)
+    true = torch.rand((1, n), generator=gen, device=dev) * 12.0 + 4.0
+    rows = [true + 0.6 * torch.randn((1, n), generator=gen, device=dev),
+            true, torch.rand((1, n), generator=gen, device=dev)]
+    if weighted:
+        rows.append(torch.exp(WEIGHT_SIGMA * torch.randn(
+            (1, n), generator=gen, device=dev)))
+    return hs, torch.cat(rows).contiguous()
+
+
+def b1_edge_thetas(torch, nch: int, seed: int):
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(seed)
+    scale = torch.as_tensor([0.02, 0.01, 0.3, 0.01], device=dev)
+    th = torch.randn((nch, 4), generator=gen, device=dev) * scale
+    return th[0] if nch == 1 else th
+
+
+def b1_equal(torch, got, want, weighted: bool, what: str) -> int:
+    """Counts and norms equal (weighted: but on rounding ties, counted)."""
+    if weighted:
+        return (equal_but_ties(torch, got[0], want[0], what + " bins")
+                + equal_but_ties(torch, got[1], want[1], what + " norms"))
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"{what}: counts or norms differ")
+    return 0
+
+
+def check_b1_edges(torch, kernels, st, theta):
+    """B1 at offsets and a total that are not multiples of 4, an empty
+    segment, 1, 8 and 32 chains, unweighted and weighted, the counts in
+    shared-memory slots or (8 and 32 chains x 1,000 bins) every count a
+    global atomic; then calls back to back on one stream without a
+    synchronisation, layouts, chain counts and weightedness alternating,
+    each against its plain version (an accumulator left dirty would
+    show); then one call of B1-batched on the example (``st``, 8 chains
+    around ``theta``) under torch.profiler: exactly one device operation
+    a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    ties = 0
+    for nch, nbins, weighted in ((1, 10, False), (8, 10, False),
+                                 (32, 10, False), (1, 1000, False),
+                                 (8, 1000, False), (32, 1000, False),
+                                 (1, 10, True), (8, 10, True),
+                                 (32, 10, True), (8, 1000, True)):
+        hs, x = b1_edge_layout(torch, kernels, nbins, weighted, 3)
+        th = b1_edge_thetas(torch, nch, 40 + nch)
+        fn = (kernels.segmented_histogram if nch == 1
+              else kernels.segmented_histogram_batched)
+        got = fn(hs, x, th)
+        want = kernels.segmented_histogram_plain(hs, x, th)
+        ties += b1_equal(torch, got, want, weighted,
+                         f"B1 edge layout, {nch} chain(s), {nbins} bins")
+        slots = hs._b1[(nch, x.device.index)][1]
+        if nbins == 1000 and nch > 1:
+            check(slots == 0, f"B1 {nch} x 1000 bins: {slots} slots, "
+                  "expected every count a global atomic")
+    calls = []
+    for k in range(3):
+        for nbins, weighted, nch in ((10, False, 1), (1000, False, 8),
+                                     (10, True, 8), (1000, True, 1),
+                                     (10, False, 32)):
+            hs, x = b1_edge_layout(torch, kernels, nbins, weighted, 10 + k)
+            th = b1_edge_thetas(torch, nch, 7 * k + nch)
+            fn = (kernels.segmented_histogram if nch == 1
+                  else kernels.segmented_histogram_batched)
+            calls.append((hs, x, th, weighted, fn(hs, x, th)))
+        th = theta + 0.01 * k
+        calls.append((st.hist_spec, st.samples, th, False,
+                      kernels.segmented_histogram(st.hist_spec, st.samples,
+                                                  th)))
+    for hs, x, th, weighted, got in calls:
+        ties += b1_equal(torch, got, kernels.segmented_histogram_plain(
+            hs, x, th), weighted, "B1 back to back")
+    del calls
+    print(f"B1 edge layouts (offsets and n not multiples of 4, an empty "
+          f"segment; 1, 8, 32 chains; unweighted and weighted; shared slots "
+          f"and global atomics) and {3 * 6} calls back to back: equal to the "
+          f"plain version ({ties} weighted values on rounding ties)")
+    thetas = theta + 0.01 * torch.arange(NCHAINS, device=dev)[:, None]
+    kernels.segmented_histogram_batched(st.hist_spec, st.samples, thetas)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        kernels.segmented_histogram_batched(st.hist_spec, st.samples, thetas)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    check(len(ops) == 1 and "sx_hist_kernel" in ops[0],
+          f"a B1 call showed {len(ops)} device operations: {ops}")
+    print(f"B1 call on the card: one device operation ({ops[0][:60]}), no "
+          "memset")
+    return ties
+
+
 def check_kernels(torch, kernels, config_path: str, workdir: str):
     """Phase 3: each kernel and form against its plain version."""
     from sxmc_tpu_torch.fitconfig import FitConfig
@@ -412,7 +577,7 @@ def check_kernels(torch, kernels, config_path: str, workdir: str):
                                                          theta),
         lambda: kernels.segmented_histogram(hs, st.samples, theta), 5, 50)
     sample_bytes = sample_bytes_read(hs)
-    hist_names = ("sx_hist_kernel", "sx_to_float")
+    hist_names = ("sx_hist_kernel",)
     dms = device_ms(torch, lambda: kernels.segmented_histogram(
         hs, st.samples, theta), 50, hist_names)
     print(f"B1 segmented_histogram, {hs.ndyn} x {hs.n // hs.ndyn} samples, "
@@ -422,6 +587,9 @@ def check_kernels(torch, kernels, config_path: str, workdir: str):
           "device_ms": dms,
           **bound(sample_bytes + f4 * hs.ndyn * (hs.total + 1),
                   binning_ops(hs))}
+    b1["forms"] = b1_form("one theta, 2 x 500k, 10 bins", ms, dms,
+                          bound(sample_bytes + f4 * hs.ndyn * (hs.total + 1),
+                                binning_ops(hs)))
 
     # B1 at 10M samples, 1000 bins, one shift systematic.
     n = 10_000_000
@@ -451,6 +619,14 @@ def check_kernels(torch, kernels, config_path: str, workdir: str):
               headline_device_ms=dms10,
               headline_bound_ms=b10["bound_ms"],
               headline_samples_per_s=n / ms10 * 1e3)
+    b1["forms"].update(b1_form("one theta, 10M, 1,000 bins", ms10, dms10,
+                               b10))
+    # The same rows for 8 chains (the binning of one field, batched).
+    th8 = th10 + 0.001 * torch.arange(NCHAINS, device=dev)[:, None]
+    check(all(torch.equal(g, w) for g, w in zip(
+        kernels.segmented_histogram_batched(hs10, x, th8),
+        kernels.segmented_histogram_plain(hs10, x, th8))),
+        "B1-batched 10M-sample counts or norms differ")
     out["segmented_histogram"] = b1
     del x
 
@@ -471,14 +647,17 @@ def check_kernels(torch, kernels, config_path: str, workdir: str):
         3, 50)
     dms = device_ms(torch, lambda: kernels.segmented_histogram_batched(
         hs, st.samples, thetas), 50, hist_names)
+    bb8 = bound(sample_bytes + f4 * NCHAINS * hs.ndyn * (hs.total + 1),
+                binning_ops(hs, NCHAINS))
     out["segmented_histogram_batched"] = {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "device_ms": dms,
-        **bound(sample_bytes + f4 * NCHAINS * hs.ndyn * (hs.total + 1),
-                binning_ops(hs, NCHAINS))}
+        "device_ms": dms, **bb8,
+        "forms": b1_form("8 chains, 2 x 500k", ms, dms, bb8)}
     print(f"B1 segmented_histogram_batched, {NCHAINS} chains: counts and "
           f"norms equal; kernel {ms:.4f} ms (on the card {dms} ms), plain "
           f"{plain_ms:.4f} ms")
+    out["segmented_histogram"]["edge_tie_values"] = check_b1_edges(
+        torch, kernels, st, theta)
 
     # A fake dataset: the example's read bins.
     data = make_fake_dataset(torch.Generator().manual_seed(3), fc.signals,
@@ -578,6 +757,8 @@ def check_kernels(torch, kernels, config_path: str, workdir: str):
     dms = device_ms(torch, lambda: ev.histogram(ev_theta), 50, hist_names)
     b1a = bound(sample_bytes_read(ev_hs) + f4 * (ev_hs.total + 1),
                 binning_ops(ev_hs))
+    out["segmented_histogram"]["forms"].update(
+        b1_form("B1a, 500k, 10 bins", ms, dms, b1a))
     print(f"B1a EvalHist.histogram, {ev_hs.n} rows, {ev_hs.total} bins: "
           f"counts and norm equal; kernel {ms:.4f} ms (on the card {dms} "
           f"ms), plain {plain_ms:.4f} ms, bound {b1a['bound_ms']:.4f} ms "
@@ -865,18 +1046,126 @@ def segment_args(torch, mcmc, nch: int, seed: int, sub=()):
             log_u)
 
 
+def far_example_mcmc(torch, workdir: str, weighted: bool = False):
+    """MCMC on the card for the example's two signals with the true
+    energy carried as sample field 4, behind three copies of the radius
+    (sample fields energy, radius, radius2, radius3, mc_energy, DATASET),
+    and a shift of it (sigma 0.5) ahead of the energy scale and
+    resolution: a systematic transforms field 4 (nload = 5), which the
+    kernels bin with every field in registers.  No cut; the data a fake
+    dataset drawn from seed 3.  ``weighted``: log-normal (sigma
+    WEIGHT_SIGMA) float32 weights per MC row, drawn from a seed."""
+    from sxmc_tpu_torch.generator import make_fake_dataset
+    from sxmc_tpu_torch.io import loaders
+    from sxmc_tpu_torch.mcmc.metropolis import MCMC
+    from sxmc_tpu_torch.signal import Observable, Signal, Source, Systematic
+
+    obs = [Observable(name="energy", field="energy", bins=10, lower=5.0,
+                      upper=15.0, field_index=0)]
+    systs = [Systematic(name="truth_shift", type=0,
+                        observable_field="mc_energy", means=[0.0],
+                        sigmas=[0.5], observable_field_index=4, pidx=[0]),
+             Systematic(name="energy_scale", type=1, observable_field="energy",
+                        means=[0.0], sigmas=[1e-2],
+                        observable_field_index=0, pidx=[1]),
+             Systematic(name="energy_resolution", type=2,
+                        observable_field="energy", truth_field="mc_energy",
+                        means=[0.0], sigmas=[1e-3], observable_field_index=0,
+                        truth_field_index=4, pidx=[2])]
+    sample_fields = ["energy", "radius", "radius2", "radius3", "mc_energy",
+                     "DATASET"]
+    srcs, sigs = [], []
+    for j, (name, nexp, sigma) in enumerate((("signal1", 1000.0, 0.05),
+                                             ("signal2", 500.0, 0.0))):
+        table, fields = loaders.read_float_table(
+            os.path.join(workdir, f"{name}.npz"))
+        radius = table[:, fields.index("radius")]
+        data = np.concatenate([table, radius[:, None], radius[:, None]], 1)
+        srcs.append(Source(name=name, index=j, mean=1.0, sigma=sigma))
+        sigs.append(Signal.from_table(
+            name, name, data, list(fields) + ["radius2", "radius3"], 0,
+            srcs[j], nexp, sample_fields, obs, [], systs))
+    if weighted:
+        rng = np.random.default_rng(29)
+        for sig in sigs:
+            sig.histogram.weights = rng.lognormal(
+                0.0, WEIGHT_SIGMA, sig.n_mc).astype(np.float32)
+    mcmc = MCMC(srcs, sigs, systs, obs, device=torch.device("cuda"))
+    check(mcmc.stack.hist_spec.nload == 5,
+          f"far example: nload {mcmc.stack.hist_spec.nload}, expected 5")
+    mcmc.stack.set_data(make_fake_dataset(
+        torch.Generator().manual_seed(3), sigs, systs, obs,
+        stack=mcmc.stack))
+    return mcmc
+
+
+def check_layout_b1_b3(torch, kernels, mcmc, tag: str):
+    """B1 (one theta and batched) and B3 (one chain and batched) on the
+    wide or a far layout, each against its plain version: counts and norms equal
+    (weighted: but on a counted rounding tie), |dNLL| <= NLL_TOL.
+    Systematic parameters drawn at their prior widths."""
+    st = mcmc.stack
+    hs, ns = st.hist_spec, mcmc.nll_spec
+    dev = st.samples.device
+    nsrc = int(ns.st.nsources)
+    widths = torch.as_tensor(np.asarray(ns.st.sigmas[nsrc:], np.float32),
+                             device=dev)
+    gen = torch.Generator(dev).manual_seed(5)
+    th = widths * torch.randn((NCHAINS, widths.shape[0]), generator=gen,
+                              device=dev)
+    got = kernels.segmented_histogram_batched(hs, st.samples, th)
+    want = kernels.segmented_histogram_plain(hs, st.samples, th)
+    one = kernels.segmented_histogram(hs, st.samples, th[1])
+    torch.cuda.synchronize()
+    if hs.weighted:
+        ties = sum(equal_but_ties(torch, g, w, f"B1-batched ({tag})")
+                   + equal_but_ties(torch, o, w[1], f"B1 ({tag})")
+                   for g, w, o in zip(got, want, one))
+    else:
+        ties = 0
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"B1-batched ({tag}) counts or norms differ")
+        check(all(torch.equal(w[1], o) for w, o in zip(want, one)),
+              f"B1 ({tag}) counts or norms differ")
+    p0 = torch.as_tensor(mcmc.parameter_means, device=dev)
+    pc = p0 + torch.cat([0.02 * torch.randn((NCHAINS, nsrc), generator=gen,
+                                            device=dev),
+                         th], dim=1)
+    errs = []
+    for p, fn in ((p0, kernels.fused_nll), (pc[1], kernels.fused_nll),
+                  (pc, kernels.fused_nll_batched)):
+        hi, lo = fn(hs, ns, st.samples, st.hist_init, st.read_bins, p)
+        phi, plo = kernels.fused_nll_plain(hs, ns, st.samples, st.hist_init,
+                                           st.read_bins, p)
+        errs.append(float((hi.double() + lo.double() - phi.double()
+                           - plo.double()).abs().max()))
+    err = max(errs)
+    check(err <= NLL_TOL, f"B3 ({tag}) NLL differs by {err} > {NLL_TOL}")
+    print(f"B1 segmented_histogram and _batched ({tag}), {NCHAINS} chains, "
+          f"{hs.nobs} observable(s) x {hs.total} bins, {hs.nfields} fields, "
+          f"nload {hs.nload}: counts and norms equal"
+          + (f" but {ties} rounding tie(s)" if hs.weighted else "")
+          + f"; B3 fused_nll and _batched: |dNLL| {err:.3g} <= {NLL_TOL}")
+
+
 def check_regimes(torch, kernels, config_path, workdir, data, out):
     """The lock-step rebuild's regimes, each against its plain version
     (decisions and parameters identical, |dNLL| <= NLL_TOL) and timed:
     B4-batched at MAXCHAINS chains (the most one launch takes; every
     chain's histograms in the shared-memory replicas) on the example,
     and at NCHAINS chains at 1,000 energy bins (too large for the
-    replicas: every count a global atomic); and B1-batched (counts
-    bit-exact), B4-batched and B5-batched at NCHAINS chains on the wide
-    example (two observables, a transformed truth field)."""
+    replicas: every count a global atomic); B1 (one theta and batched,
+    counts bit-exact), B4-batched and B5-batched at NCHAINS chains on
+    the wide example (two observables, a transformed truth field), with
+    B1 and B3 (check_layout_b1_b3); and on the far one (far_example_mcmc:
+    a transformed field 4, the forms that bin every field in registers)
+    B1 and B3, B4
+    one chain (diagonal and tril), B5 one chain, B4- and B5-batched, and
+    weighted, B1, B3 and B4-batched."""
     path_1000 = write_example_variant(config_path, workdir, bins=1000)
     path_wide = write_example_variant(config_path, workdir, wide=True)
     nsub = (RATE_SUBSTEPS + 1,)
+    far, far_w = "far", "far weighted"
     res = {}
     mcmcs = {}
     for tag, path, name, nch, sub in (
@@ -884,31 +1173,35 @@ def check_regimes(torch, kernels, config_path, workdir, data, out):
              kernels.MAXCHAINS, ()),
             ("bins1000", path_1000, "fused_segment_batched", NCHAINS, ()),
             ("wide", path_wide, "fused_segment_batched", NCHAINS, ()),
-            ("wide", path_wide, "blocked_segment_batched", NCHAINS, nsub)):
+            ("wide", path_wide, "blocked_segment_batched", NCHAINS, nsub),
+            (far, far, "fused_segment", 1, ()),
+            (far, far, "fused_segment_tril", 1, ()),
+            (far, far, "blocked_segment", 1, nsub),
+            (far, far, "fused_segment_batched", NCHAINS, ()),
+            (far, far, "blocked_segment_batched", NCHAINS, nsub),
+            (far_w, far_w, "fused_segment_batched", NCHAINS, ())):
         if path not in mcmcs:
-            mcmcs[path] = example_mcmc(
-                torch, path, workdir, data if path != path_wide else None)[0]
+            if path in (far, far_w):
+                mcmcs[path] = far_example_mcmc(torch, workdir,
+                                               weighted=path == far_w)
+                check_layout_b1_b3(torch, kernels, mcmcs[path], tag)
+            else:
+                mcmcs[path] = example_mcmc(
+                    torch, path, workdir,
+                    data if path != path_wide else None)[0]
+                if path == path_wide:
+                    check_layout_b1_b3(torch, kernels, mcmcs[path], tag)
         mcmc = mcmcs[path]
         st = mcmc.stack
         hs = st.hist_spec
-        if tag == "wide" and not sub:
-            # Systematic parameters drawn at their prior widths.
-            dev = torch.device("cuda")
-            nst = mcmc.nll_spec.st
-            widths = torch.as_tensor(np.asarray(
-                nst.sigmas[int(nst.nsources):], np.float32), device=dev)
-            gen = torch.Generator(dev).manual_seed(5)
-            th = widths * torch.randn((NCHAINS, widths.shape[0]),
-                                      generator=gen, device=dev)
-            got = kernels.segmented_histogram_batched(hs, st.samples, th)
-            want = kernels.segmented_histogram_plain(hs, st.samples, th)
-            torch.cuda.synchronize()
-            check(all(torch.equal(g, w) for g, w in zip(got, want)),
-                  "B1-batched (wide) counts or norms differ")
-            print(f"B1 segmented_histogram_batched (wide), {NCHAINS} chains, "
-                  f"{hs.nobs} observables x {hs.total} bins, {hs.nload} "
-                  "fields in registers: counts and norms equal")
         args = segment_args(torch, mcmc, nch, 31, sub)
+        if "tril" in name:
+            # Correlated lower-triangular scales from the widths.
+            w = args[7].clamp_min(0)
+            low = torch.tril(torch.full(w.shape[-1:] * 2, 0.3,
+                                        device=w.device), -1)
+            args = args[:7] + ((torch.diag_embed(w) + low * w[..., :, None])
+                               .contiguous(),) + args[8:]
         kern = getattr(kernels, name)
         plain = (kernels.blocked_segment_plain if sub
                  else kernels.fused_segment_plain)
@@ -996,7 +1289,7 @@ def check_weighted(torch, kernels, config_path, workdir, data, out, beta,
     nsig, nev = rb.shape
     npar = mcmc.nparameters
     sample_bytes = sample_bytes_read(hs)
-    hist_names = ("sx_hist_kernel", "sx_to_float")
+    hist_names = ("sx_hist_kernel",)
     theta = torch.as_tensor(nominal_params(fc.systematics), device=dev)
     # The grid rule's blocks per SM with float64 replicas in shared
     # memory (twice the unsigned counts' bytes), beside the unweighted.
@@ -1056,13 +1349,20 @@ def check_weighted(torch, kernels, config_path, workdir, data, out, beta,
               headline_device_ms=w10["device_ms"],
               headline_bound_ms=w10["bound_ms"],
               headline_tie_bins=w10["tie_bins"])
+    w1["forms"] = b1_form("weighted, 2 x 500k", w1["ms"], w1["device_ms"],
+                          {k: w1[k] for k in ("bound_ms", "bound_by")})
+    w1["forms"].update(b1_form(
+        "weighted, 10M, 1,000 bins", w10["ms"], w10["device_ms"],
+        {k: w10[k] for k in ("bound_ms", "bound_by")}))
     out["segmented_histogram_weighted"] = w1
     del x
     gen = torch.Generator(dev).manual_seed(31)
     thetas = theta + 0.01 * torch.randn((NCHAINS, theta.shape[0]),
                                         generator=gen, device=dev)
-    out["segmented_histogram_batched_weighted"] = b1_check(
+    bw = out["segmented_histogram_batched_weighted"] = b1_check(
         "segmented_histogram_batched", hs, st.samples, thetas, NCHAINS, 50)
+    bw["forms"] = b1_form("weighted, 8 chains", bw["ms"], bw["device_ms"],
+                          {k: bw[k] for k in ("bound_ms", "bound_by")})
 
     # B1a weighted: EvalHist.histogram on signal1's weighted rows.
     sig = fc.signals[0].histogram
@@ -1087,6 +1387,8 @@ def check_weighted(torch, kernels, config_path, workdir, data, out, beta,
     dms = device_ms(torch, lambda: ev.histogram(ev_theta), 50, hist_names)
     b1a = bound(sample_bytes_read(ev_hs) + f4 * (ev_hs.total + 1),
                 binning_ops(ev_hs) + weight_ops(ev_hs))
+    out["segmented_histogram_weighted"]["forms"].update(
+        b1_form("B1a weighted, 500k, 10 bins", ms, dms, b1a))
     print(f"B1a EvalHist.histogram, weighted, {ev_hs.n} rows: {ties} bins "
           f"or norms differ (rounding ties); kernel {ms:.4f} ms (on the "
           f"card {dms} ms), plain {plain_ms:.4f} ms, bound "
@@ -2058,7 +2360,9 @@ def main() -> int:
     for name, replaces in REPLACES.items():
         launches = sum(p["launches"][name] for p in paths)
         check(launches > 0, f"{name} was launched on none of the paths")
-        rows.append(dict(name=name, route="cuda", source=SRC,
+        source = (SRC_B1 if name.startswith("segmented_histogram") else
+                  SRC if name == "lut_eval" else SRC_FUSED)
+        rows.append(dict(name=name, route="cuda", source=source,
                          replaces=replaces, launches=launches,
                          launches_by_path={p["path"]: p["launches"][name]
                                            for p in paths},

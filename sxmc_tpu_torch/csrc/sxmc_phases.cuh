@@ -1,14 +1,14 @@
 // Shared device code of the sxmc_tpu_torch kernels (Hopper, sm_90a).
 //
-// The phase functions below are used by the segmented histogram (kernel
-// B1, single and batched, unweighted and weighted), the fused NLL /
-// whole-segment kernel (B3/B4, every form) and the blocked whole-segment
-// kernel (B5), the
-// way sxmc_tpu/ops/pallas_step.py::_phase_bodies shares its bodies
+// The phase functions below are used by the fused NLL / whole-segment
+// kernel (B3/B4, every form) and the blocked whole-segment kernel (B5),
+// the way sxmc_tpu/ops/pallas_step.py::_phase_bodies shares its bodies
 // between pallas_fused_step, pallas_fused_segment and
 // pallas_fused_segment_blocked: one copy of the systematics and bin-id
 // math, the event sweep and the NLL finish, so a proposal is binned and
-// scored identically by every kernel.
+// scored identically by every kernel.  The segmented histogram B1
+// (sxmc_hist.cu) is a one-shot pass over device memory with its own
+// loop, and repeats the same float operations in the same order.
 //
 // Arithmetic contract: every float operation is the JAX package's, in
 // its order, in float32, and the library is built with -fmad=false so
@@ -112,7 +112,7 @@ __device__ __forceinline__ float sx_pick(const float (&a)[N], int i) {
 
 // Systematic types whose transform reads a second field (the switch
 // in sx_bin_row sends every other type to the resolution form).
-__device__ __forceinline__ bool sx_reads_extra(int type) {
+__host__ __device__ __forceinline__ bool sx_reads_extra(int type) {
   return type != SX_SHIFT && type != SX_SCALE && type != SX_CTSCALE;
 }
 
@@ -123,8 +123,9 @@ __device__ __forceinline__ bool sx_reads_extra(int type) {
 // each masked resolution systematic k whose second field is not among
 // them (one that is is read after the earlier systematics moved it, in
 // sx_bin_row).  Other fields are never read.  kNobs is 1 (nload == 1:
-// one observable, no other field transformed) or SX_MAXOBS (any
-// nload, the unused entries left at 0).
+// one observable, no other field transformed), SX_MAXOBS (nload up to
+// 4) or SX_MAXFIELDS (any nload: a systematic may transform any sample
+// field, as in the JAX package), the unused entries left at 0.
 template <int kNobs>
 __device__ __forceinline__ void sx_load_row(const SxSpec& sp,
                                             const float* __restrict__ samples,
@@ -182,9 +183,11 @@ __device__ __forceinline__ int sx_bin_row(const SxSpec& sp, float (&x)[kNobs],
     for (int a = 0; a < kNobs; ++a)
       if (a == o) x[a] = nw;
   }
+  // The observables are the first nobs <= SX_MAXOBS fields.
+  constexpr int kBin = kNobs < SX_MAXOBS ? kNobs : SX_MAXOBS;
   int id = 0;
 #pragma unroll
-  for (int a = 0; a < kNobs; ++a) {
+  for (int a = 0; a < kBin; ++a) {
     if (a >= sp.nobs) break;
     const float v = x[a];
     if (!(v >= sp.lower[a] && v < sp.upper[a])) return -1;
@@ -222,6 +225,8 @@ __device__ __forceinline__ int sx_bin_row(const SxSpec& sp, float (&x)[kNobs],
 // and the binning once for one field in registers (nload == 1) and once
 // for several: measured on an H100, the general binning run at one
 // observable took 17% longer a B4 step with one chain and 36% with 8.
+// A layout whose systematics transform a field past the fourth takes
+// kernels of its own (kWide) whose binning holds SX_MAXFIELDS fields.
 //
 // kOff (the blocked kernel B5, unweighted): chain c's global histogram
 // starts at g_hist + choff[c] instead of g_hist + c * ndyn * total, so
@@ -328,13 +333,20 @@ __device__ __forceinline__ void sx_accumulate_obs(
   }
 }
 
-template <bool kChains, bool kOff = false, bool kW = false>
+// kWide: the binning of up to SX_MAXFIELDS fields (nload > SX_MAXOBS)
+// alone; else the one-field or the four-field binning, by nload.
+template <bool kChains, bool kOff = false, bool kW = false,
+          bool kWide = false>
 __device__ __forceinline__ void sx_accumulate(
     const SxSpec& sp, const float* __restrict__ samples, const float* par,
     int nchains, int pstride, SxAcc<kW>* sh_hist, SxAcc<kW>* sh_norm,
     SxAcc<kW>* g_hist, int nrep, const int* choff = nullptr) {
   static_assert(!(kOff && kW), "B5 takes unweighted samples only");
-  if (sp.nload == 1)
+  if constexpr (kWide)
+    sx_accumulate_obs<SX_MAXFIELDS, kChains, kOff, kW>(
+        sp, samples, par, nchains, pstride, sh_hist, sh_norm, g_hist, nrep,
+        choff);
+  else if (sp.nload == 1)
     sx_accumulate_obs<1, kChains, kOff, kW>(sp, samples, par, nchains,
                                             pstride, sh_hist, sh_norm,
                                             g_hist, nrep, choff);

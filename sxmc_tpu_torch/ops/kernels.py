@@ -48,9 +48,9 @@ kernel or raises.  There is no fallback from the card to the plain
 version.  Every launch, and nothing else, adds one to its form's
 count.
 
-The library is compiled with nvcc at first use, into
-``build/sxmc_kernels/<hash of the sources>/`` beside the package, and
-loaded with ctypes.
+The library is compiled at first use, one nvcc per source, all started
+together, into ``build/sxmc_kernels/<hash of the sources>/`` beside the
+package, and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -80,8 +80,7 @@ MAXCHAINS, MAXCP, MAXCS = 32, 512, 256  # chains; x params; x signals
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-               "-Xcompiler", "-fPIC")
+               "-O3", "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 
 # ---------------------------------------------------------------- specs
@@ -108,6 +107,10 @@ class HistSpec:
                        ...]
     seg_off: Tuple[int, ...]
     weighted: bool = False
+    # B1's per-layout state, made at its first launch: its C spec and
+    # each (chains, device)'s grid and slots (sx_hist_grid).
+    _b1: dict = dataclasses.field(default_factory=dict, init=False,
+                                  repr=False, compare=False, hash=False)
 
     @classmethod
     def build(cls, nfields, lower, upper, nbins, systematics, seg_off,
@@ -121,12 +124,12 @@ class HistSpec:
         spec.validate()
         return spec
 
-    @property
+    @functools.cached_property
     def nrows(self) -> int:
         """Rows of the samples tensor: the fields, and the weights."""
         return self.nfields + int(self.weighted)
 
-    @property
+    @functools.cached_property
     def nobs(self) -> int:
         return len(self.nbins)
 
@@ -137,15 +140,21 @@ class HistSpec:
         field that a later resolution systematic reads)."""
         return max([self.nobs] + [d.obs + 1 for d, _ in self.systematics])
 
-    @property
+    @functools.cached_property
+    def npar(self) -> int:
+        """Entries of theta the systematics read."""
+        return max((max(d.par_indices) + 1 for d, _ in self.systematics),
+                   default=0)
+
+    @functools.cached_property
     def ndyn(self) -> int:
         return len(self.seg_off) - 1
 
-    @property
+    @functools.cached_property
     def total(self) -> int:
         return hist_ops.total_bins(self.nbins)
 
-    @property
+    @functools.cached_property
     def n(self) -> int:
         return self.seg_off[-1]
 
@@ -167,11 +176,6 @@ class HistSpec:
                     or not 0 <= desc.obs < self.nfields \
                     or not 0 <= desc.extra_field < self.nfields:
                 raise ValueError(f"bad systematic {desc} / mask {mask}")
-        if self.nload > MAXOBS:
-            raise ValueError(
-                f"a systematic transforms sample field {self.nload - 1}; "
-                f"the kernels transform fields 0..{MAXOBS - 1} only (the "
-                "observables and the truth fields right after them)")
         if list(self.seg_off) != sorted(self.seg_off) or \
                 self.seg_off[0] != 0 or self.n >= 2 ** 31:
             raise ValueError(f"bad segment offsets {self.seg_off}")
@@ -302,7 +306,8 @@ def _sources_hash() -> str:
 
 def build() -> dict:
     """Compile the kernel library if needed; returns where it is, how
-    long the build took (0 when it was already built) and nvcc's log."""
+    long the build took (0 when it was already built) and nvcc's log.
+    One nvcc per source, all started together, then one link."""
     out_dir = _build_dir() / _sources_hash()
     lib = out_dir / "libsxmc_kernels.so"
     log = out_dir / "build.log"
@@ -310,16 +315,32 @@ def build() -> dict:
         return {"path": str(lib), "seconds": 0.0,
                 "log": log.read_text() if log.exists() else ""}
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libsxmc_kernels.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-           str(_CSRC / "sxmc_kernels.cu")]
+    tag = os.getpid()
+    nvcc = _nvcc()
+    srcs = sorted(_CSRC.glob("*.cu"))
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
+    tmp = out_dir / f"libsxmc_kernels.{tag}.tmp.so"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmds = [[nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    text = ""
+    for cmd, proc in zip(cmds, procs):
+        text += " ".join(cmd) + "\n" + proc.communicate()[0]
+    ok = all(proc.returncode == 0 for proc in procs)
+    if ok:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        text += " ".join(cmd) + "\n" + link.stdout + link.stderr
+        ok = link.returncode == 0
     seconds = time.perf_counter() - t0
-    text = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
     log.write_text(text)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if not ok:
+        raise RuntimeError(f"nvcc failed:\n{text}")
     os.replace(tmp, lib)
     return {"path": str(lib), "seconds": seconds, "log": text}
 
@@ -339,7 +360,12 @@ def _library() -> ctypes.CDLL:
     lib.sx_spec_size.argtypes, lib.sx_spec_size.restype = [], _I
     lib.sx_error_string.argtypes = [_I]
     lib.sx_error_string.restype = ctypes.c_char_p
-    lib.sx_histogram.argtypes = [_P, _I, _I, _P, _P, _I, _P, _P, _P]
+    lib.sx_hist_grid.argtypes = [_P, _I, _I, _P, _P]
+    lib.sx_hist_grid.restype = _I
+    # sx_histogram: spec, nchains, weighted, samples, par, pstride,
+    # nblocks, nslot, acc, ticket, out, stream.
+    lib.sx_histogram.argtypes = [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P,
+                                 _P]
     lib.sx_histogram.restype = _I
     lib.sx_eval_lut.argtypes = [_P, _P, _P, _I, _I, _I, ctypes.c_longlong,
                                 ctypes.c_float, _P, _P]
@@ -675,21 +701,12 @@ def blocked_segment_plain(hs, ns, samples, hist_init, rb, params0, nll0,
 # ------------------------------------------------------------ wrappers
 
 
-@functools.lru_cache(maxsize=64)
-def _hist_c_spec(hs: HistSpec) -> _CSpec:
-    """B1's C spec, built once per layout (B1 runs every step of the
-    binned likelihood)."""
-    return _c_spec(hs, None, 0)
-
-
 def _check_theta(hs: HistSpec, theta: torch.Tensor, ndim: int,
                  device) -> None:
-    npar = max((max(d.par_indices) + 1 for d, _ in hs.systematics),
-               default=0)
-    if theta.dim() != ndim or theta.shape[-1] < npar:
+    if theta.dim() != ndim or theta.shape[-1] < hs.npar:
         want = "(npar,)" if ndim == 1 else "(nchains, npar)"
         raise ValueError(f"theta has shape {tuple(theta.shape)}, needs "
-                         f"{want} with npar >= {npar}")
+                         f"{want} with npar >= {hs.npar}")
     _expect(theta, "theta", theta.shape, torch.float32, device)
 
 
@@ -699,22 +716,63 @@ def _acc_dtype(hs: HistSpec) -> torch.dtype:
     return torch.float64 if hs.weighted else torch.int32
 
 
+# B1's persistent accumulators, one per (device, stream): (int64 words,
+# their address, cells), the counts (unsigned or float64) from the first
+# word, the last word the blocks' ticket.  Zeroed when made; every launch
+# leaves them zeroed.  One per stream, because launches on two streams of
+# a device may run at once; each lives as long as the process, so B1 is
+# meant to be called from long-lived streams (the current stream, as the
+# port does), not from a new stream for every call.
+_B1_ACC: dict = {}
+
+
+def _b1_accumulator(dev: torch.device, stream: int, cells: int):
+    """(cells address, ticket address) of ``stream``'s accumulator, made
+    (or remade larger) for at least ``cells`` cells."""
+    key = (dev.index, stream)
+    got = _B1_ACC.get(key)
+    if got is None or got[2] < cells:
+        buf = torch.zeros(max(cells, 1024) + 1, dtype=torch.int64,
+                          device=dev)
+        got = _B1_ACC[key] = (buf, buf.data_ptr(), buf.shape[0] - 1)
+    return got[1], got[1] + 8 * got[2]
+
+
 def _launch_histogram(hs: HistSpec, samples: torch.Tensor,
-                      theta: torch.Tensor, nch: int, what: str):
+                      theta: torch.Tensor, nch: int, what: str,
+                      one: bool = False):
+    """One B1 launch: ``(counts (nch, ndyn, total), norms (nch, ndyn))``
+    float32, without the chain axis when ``one``, on the grid and slots
+    of sx_hist_grid's rule.  The per-layout state is made at the first
+    launch: the host cost of a call is what it must check and launch."""
     dev = samples.device
     lib = _library()
-    nh = nch * hs.ndyn * hs.total
+    plan = hs._b1.get((nch, dev.index))
+    if plan is None:
+        cs = hs._b1.get("spec")
+        if cs is None:
+            cs = hs._b1["spec"] = _c_spec(hs, None, 0)
+        nb, ns = ctypes.c_int(0), ctypes.c_int(0)
+        _check_cuda(lib, lib.sx_hist_grid(ctypes.byref(cs), nch,
+                                          int(hs.weighted), ctypes.byref(nb),
+                                          ctypes.byref(ns)), what)
+        plan = hs._b1[(nch, dev.index)] = (nb.value, ns.value,
+                                           nch * hs.ndyn * hs.total)
+    nblocks, nslot, nh = plan
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    acc, ticket = _b1_accumulator(dev, stream, nh)
     out = torch.empty(nh + nch * hs.ndyn, dtype=torch.float32, device=dev)
-    scratch = torch.empty(out.shape[0], dtype=_acc_dtype(hs), device=dev)
-    pstride = theta.shape[-1]
-    if pstride == 0:
-        theta = torch.zeros(1, dtype=torch.float32, device=dev)
-    err = lib.sx_histogram(ctypes.byref(_hist_c_spec(hs)), nch,
-                           int(hs.weighted), _ptr(samples), _ptr(theta),
-                           pstride, _ptr(scratch), _ptr(out), _stream(dev))
+    err = lib.sx_histogram(ctypes.byref(hs._b1["spec"]), nch,
+                           int(hs.weighted), samples.data_ptr(),
+                           theta.data_ptr(), theta.shape[-1], nblocks, nslot,
+                           acc, ticket, out.data_ptr(), stream)
     _check_cuda(lib, err, what)
-    return (out[:nh].view(nch, hs.ndyn, hs.total),
-            out[nh:].view(nch, hs.ndyn))
+    ndyn, total = hs.ndyn, hs.total
+    if one:
+        return (out.as_strided((ndyn, total), (total, 1)),
+                out.as_strided((ndyn,), (1,), nh))
+    return (out.as_strided((nch, ndyn, total), (ndyn * total, total, 1)),
+            out.as_strided((nch, ndyn), (ndyn, 1), nh))
 
 
 def segmented_histogram(hs: HistSpec, samples: torch.Tensor,
@@ -722,15 +780,16 @@ def segmented_histogram(hs: HistSpec, samples: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B1: ``(ndyn, total)`` float32 counts of the dynamic segments at
     systematic parameters ``theta`` and their ``(ndyn,)`` in-domain
-    counts (the norms), both exact integer counts."""
+    counts (the norms), both exact integer counts (weighted samples:
+    float64 weight sums, rounded once).  One kernel launch."""
     _check_samples(hs, samples)
     _check_theta(hs, theta, 1, samples.device)
     if samples.device.type == "cpu":
         return segmented_histogram_plain(hs, samples, theta)
-    counts, norms = _launch_histogram(hs, samples, theta, 1,
-                                      "segmented_histogram")
+    out = _launch_histogram(hs, samples, theta, 1, "segmented_histogram",
+                            one=True)
     _launched("segmented_histogram", hs)
-    return counts[0], norms[0]
+    return out
 
 
 def segmented_histogram_batched(hs: HistSpec, samples: torch.Tensor,
@@ -747,10 +806,10 @@ def segmented_histogram_batched(hs: HistSpec, samples: torch.Tensor,
         raise ValueError(f"{nch} chains (the kernel takes 1..{MAXCHAINS})")
     if samples.device.type == "cpu":
         return segmented_histogram_plain(hs, samples, theta)
-    counts, norms = _launch_histogram(hs, samples, theta, nch,
-                                      "segmented_histogram_batched")
+    out = _launch_histogram(hs, samples, theta, nch,
+                            "segmented_histogram_batched")
     _launched("segmented_histogram_batched", hs)
-    return counts, norms
+    return out
 
 
 def lut_eval(counts: torch.Tensor, norms: torch.Tensor,

@@ -121,10 +121,12 @@ class EvalHist:
                     f"{self.samples_host.shape[0]} samples")
         self._weights = weights
         self._samples_t = None
+        self._hist_spec = None
 
     def add_systematic(self, desc: transforms.SystematicDesc) -> None:
         """Attach a systematic (reference: Eval::AddSystematic)."""
         self.systematics = self.systematics + (desc,)
+        self._hist_spec = None
 
     def compute_read_bins(self, points) -> torch.Tensor:
         """Eval-point bin ids with the -1/-2 sentinels.
@@ -146,14 +148,17 @@ class EvalHist:
 
     def hist_spec(self):
         """The kernels' view of this PDF: one segment, every systematic
-        acting on it."""
+        acting on it (made once, until a systematic or the weights
+        change)."""
         from sxmc_tpu_torch.ops import kernels
 
-        return kernels.HistSpec.build(
-            nfields=self.nfields, lower=self.lower_host,
-            upper=self.upper_host, nbins=self.nbins,
-            systematics=[(d, (True,)) for d in self.systematics],
-            seg_off=(0, self.n_mc), weighted=self.weights is not None)
+        if self._hist_spec is None:
+            self._hist_spec = kernels.HistSpec.build(
+                nfields=self.nfields, lower=self.lower_host,
+                upper=self.upper_host, nbins=self.nbins,
+                systematics=[(d, (True,)) for d in self.systematics],
+                seg_off=(0, self.n_mc), weighted=self.weights is not None)
+        return self._hist_spec
 
     def device_samples(self) -> torch.Tensor:
         """The field-major ``(nfields, n)`` samples on ``device``, with
@@ -170,12 +175,11 @@ class EvalHist:
         """Build ``(bins, norm)`` at the given systematic parameters."""
         from sxmc_tpu_torch.ops import kernels
 
-        npar = max((max(d.par_indices) + 1 for d in self.systematics),
-                   default=0)
-        theta = (np.zeros(npar, np.float32) if params is None
+        hs = self.hist_spec()
+        theta = (np.zeros(hs.npar, np.float32) if params is None
                  else np.atleast_1d(np.asarray(params, np.float32)))
         bins, norms = kernels.segmented_histogram(
-            self.hist_spec(), self.device_samples(),
+            hs, self.device_samples(),
             torch.as_tensor(theta, device=self.device))
         return bins[0], norms[0]
 

@@ -38,8 +38,9 @@ NLL_TOL = 1e-3  # absolute; see the module docstring
 NSTEPS = 12
 
 
-def _port_mcmc(device, n_mc=3000):
-    srcs, sigs, systs, obs = make_stack_inputs("sxmc_tpu_torch", n_mc=n_mc)
+def _port_mcmc(device, n_mc=3000, **layout):
+    srcs, sigs, systs, obs = make_stack_inputs("sxmc_tpu_torch", n_mc=n_mc,
+                                               **layout)
     mcmc = MCMC(srcs, sigs, systs, obs, device=device)
     mcmc.stack.set_data(make_data())
     return mcmc
@@ -55,15 +56,20 @@ def _streams(npar, n=NSTEPS, seed=17):
 THETAS = [[0.0, 0.0], [0.011, -0.006]]
 PARAMS = [[1.0, 1.0, 1.0, 0.0, 0.0], [1.2, 0.85, 1.05, 0.011, -0.006],
           [-0.1, 1.0, 1.0, 0.0, 0.0]]
+# The far layout (test_torch_pdf.make_stack_inputs): a shift of sample
+# field 4 that the resolution reads, nload = 5.  Its theta is (tshift,
+# scale, res).
+FAR_THETAS = [[0.0, 0.0, 0.0], [0.7, 0.011, -0.006]]
+FAR_PARAMS = [[1.0, 1.0, 1.0, 0.0, 0.0, 0.0],
+              [1.2, 0.85, 1.05, -1.1, 0.011, -0.006]]
 
 
-@pytest.fixture(scope="module")
-def jax_side():
+def _jax_mcmc(**layout):
     pytest.importorskip("jax")
     from sxmc_tpu.mcmc.metropolis import MCMC as JaxMCMC
     from sxmc_tpu.pdf.stack import force_pallas_interpret
 
-    srcs, sigs, systs, obs = make_stack_inputs("sxmc_tpu")
+    srcs, sigs, systs, obs = make_stack_inputs("sxmc_tpu", **layout)
     with force_pallas_interpret():
         mcmc = JaxMCMC(srcs, sigs, systs, obs)
     assert mcmc.stack.supports_fused
@@ -72,12 +78,42 @@ def jax_side():
 
 
 @pytest.fixture(scope="module")
+def jax_side():
+    return _jax_mcmc()
+
+
+@pytest.fixture(scope="module")
 def port():
     return _port_mcmc("cpu")
 
 
-@pytest.mark.parametrize("theta", THETAS)
-def test_plain_histogram_matches_pallas(jax_side, port, theta):
+@pytest.fixture(scope="module")
+def jax_far():
+    return _jax_mcmc(far=True)
+
+
+@pytest.fixture(scope="module")
+def port_far():
+    mcmc = _port_mcmc("cpu", far=True)
+    assert mcmc.stack.hist_spec.nload == 5
+    return mcmc
+
+
+def _sides(request, layout):
+    """(JAX MCMC, port MCMC on the CPU) of ``layout``: "" or "far"."""
+    if layout:
+        return (request.getfixturevalue("jax_far"),
+                request.getfixturevalue("port_far"))
+    return (request.getfixturevalue("jax_side"),
+            request.getfixturevalue("port"))
+
+
+@pytest.mark.parametrize(
+    "layout, theta", [("", t) for t in THETAS] + [
+        ("far", t) for t in FAR_THETAS],
+    ids=["theta0", "theta1", "far-theta0", "far-theta1"])
+def test_plain_histogram_matches_pallas(request, layout, theta):
+    jax_side, port = _sides(request, layout)
     theta = np.asarray(theta, np.float32)
     jh, jn = jax_side.stack.histograms(theta)
     th, tn = port.stack.histograms(theta)
@@ -85,10 +121,14 @@ def test_plain_histogram_matches_pallas(jax_side, port, theta):
     np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
 
 
-@pytest.mark.parametrize("params", PARAMS)
-def test_plain_fused_nll_matches_pallas(jax_side, port, params):
+@pytest.mark.parametrize(
+    "layout, params", [("", p) for p in PARAMS] + [
+        ("far", p) for p in FAR_PARAMS],
+    ids=["params0", "params1", "params2", "far-params0", "far-params1"])
+def test_plain_fused_nll_matches_pallas(request, layout, params):
     import jax.numpy as jnp
 
+    jax_side, port = _sides(request, layout)
     p = np.asarray(params, np.float32)
     js = jax_side.stack
     jhi, jlo = js.fused_nll_pair(jnp.asarray(p), js._read_bins,
@@ -153,6 +193,24 @@ def test_wrapper_checks_inputs(port):
     with pytest.raises(ValueError):
         kernels.segmented_histogram(st.hist_spec, st.samples[:, :10],
                                     torch.zeros(2))
+
+
+@pytest.mark.parametrize("nfields, field, ok", [
+    (6, 4, True), (8, 7, True), (9, 4, False), (8, 8, False)])
+def test_hist_spec_takes_any_field(nfields, field, ok):
+    """A systematic may transform any of up to kernels.MAXFIELDS sample
+    fields (nload up to 8), as in the JAX package; more fields, or a
+    field past them, are refused."""
+    from sxmc_tpu_torch.ops.transforms import SHIFT, SystematicDesc
+
+    desc = SystematicDesc(type=SHIFT, obs=field, par_indices=(0,))
+    args = (nfields, [0.0], [1.0], [4], [(desc, (True,))], [0, 10])
+    if not ok:
+        with pytest.raises(ValueError):
+            kernels.HistSpec.build(*args)
+        return
+    hs = kernels.HistSpec.build(*args)
+    assert hs.nload == field + 1 and hs.npar == 1
 
 
 # ------------------------------------------------------------ on the card
@@ -313,43 +371,191 @@ def test_cuda_segment_batched_regimes_match_plain(cuda_pair, nch, nbins):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", ["histogram", "segment", "batched",
-                                  "blocked_batched"])
+                                  "blocked_batched", "far-histogram",
+                                  "far-segment", "far-tril", "far-blocked",
+                                  "far-batched", "far-blocked_batched",
+                                  "far-weighted"])
 def test_cuda_wide_layout_matches_plain(cuda_pair, form):
     """The binning's general case: two observables and a shift of the
-    truth field that both resolutions read (counts bit-exact,
-    trajectories identical, |dNLL| <= NLL_TOL)."""
+    truth field that both resolutions read; and (far) a shift of sample
+    field 4 that the resolution reads, nload = 5, through B1, B3, B4 and
+    B5 in the forms that bin every field in registers: one chain
+    (segment: B3 and B4; tril; blocked: B5) and 8 (batched, blocked
+    batched; weighted: B3 and B4).  Counts bit-exact, trajectories
+    identical, |dNLL| <= NLL_TOL."""
     _, dev = cuda_pair
-    mcmc = MCMC(*make_stack_inputs("sxmc_tpu_torch", wide=True),
-                device=dev)
-    mcmc.stack.set_data(make_data(wide=True))
+    far = form.startswith("far-")
+    form = form.removeprefix("far-")
+    layout = {"far": True} if far else {"wide": True}
+    inputs = make_stack_inputs("sxmc_tpu_torch", **layout)
+    if form == "weighted":
+        rng = np.random.default_rng(8)
+        for sig in inputs[1]:
+            sig.histogram.weights = rng.lognormal(0, 0.3, sig.n_mc).astype(
+                np.float32)
+    mcmc = MCMC(*inputs, device=dev)
+    mcmc.stack.set_data(make_data(wide=not far))
     st = mcmc.stack
     hs = st.hist_spec
-    assert hs.nobs == 2 and hs.nload == 3
+    assert (hs.nobs, hs.nload) == ((1, 5) if far else (2, 3))
+    assert hs.weighted == (form == "weighted")
     if form == "histogram":
-        th = torch.as_tensor(np.asarray(
-            [[0.0, 0.0, 0.0, 0.0], [0.004, 0.7, 0.013, -0.004],
-             [-0.02, -1.3, -0.05, 0.02]], np.float32), device=dev)
+        thetas = ([[0.0, 0.0, 0.0], [0.7, 0.013, -0.004],
+                   [-1.3, -0.05, 0.02]] if far else
+                  [[0.0, 0.0, 0.0, 0.0], [0.004, 0.7, 0.013, -0.004],
+                   [-0.02, -1.3, -0.05, 0.02]])
+        th = torch.as_tensor(np.asarray(thetas, np.float32), device=dev)
         got = kernels.segmented_histogram_batched(hs, st.samples, th)
         want = kernels.segmented_histogram_plain(hs, st.samples, th)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
         single = kernels.segmented_histogram(hs, st.samples, th[1])
         assert all(torch.equal(g[1], s) for g, s in zip(got, single))
         return
-    nch = 1 if form == "segment" else 8
-    sub = (4,) if form == "blocked_batched" else ()
+    nch = 1 if form in ("segment", "tril", "blocked") else 8
+    sub = (4,) if form.startswith("blocked") else ()
     params, nll0, width, noise, log_u = _chains_inputs(mcmc, nch, 60,
                                                        sub=sub)
+    if form in ("segment", "weighted"):
+        # B3 at the chains' start and at a moved point.
+        moved = params + 0.5 * width
+        for p in (params, moved):
+            nll = kernels.fused_nll_batched if nch > 1 else kernels.fused_nll
+            hi, lo = nll(hs, mcmc.nll_spec, st.samples, st.hist_init,
+                         st.read_bins, p)
+            phi, plo = kernels.fused_nll_plain(hs, mcmc.nll_spec,
+                                               st.samples, st.hist_init,
+                                               st.read_bins, p)
+            assert ((hi.double() + lo.double() - phi.double()
+                     - plo.double()).abs().max() <= NLL_TOL)
+    if form == "tril":
+        # Correlated lower-triangular scales from the widths.
+        w = width.clamp_min(0)
+        low = torch.tril(torch.full(w.shape[-1:] * 2, 0.3, device=dev), -1)
+        width = (torch.diag_embed(w) + low * w[..., :, None]).contiguous()
     args = (hs, mcmc.nll_spec, st.samples, st.hist_init, st.read_bins,
             params, nll0, width, noise, log_u)
-    name = {"segment": "fused_segment", "batched": "fused_segment_batched",
+    name = {"segment": "fused_segment", "tril": "fused_segment_tril",
+            "blocked": "blocked_segment", "batched": "fused_segment_batched",
+            "weighted": "fused_segment_batched",
             "blocked_batched": "blocked_segment_batched"}[form]
+    # A weighted launch counts under its weighted form's name.
+    counted = name + ("_weighted" if hs.weighted else "")
+    before = kernels.launch_counts()[counted]
     s, n, a = getattr(kernels, name)(*args)
+    assert kernels.launch_counts()[counted] == before + 1
     plain = (kernels.blocked_segment_plain if sub
              else kernels.fused_segment_plain)
     ps, pn, pa = plain(*args)
     assert torch.equal(a, pa) and torch.equal(s, ps)
     assert 0 < float(a.sum()) < a.numel()
     assert (n.double().sum(-1) - pn.double().sum(-1)).abs().max() <= NLL_TOL
+
+
+def _edge_layout(dev, nbins, weighted, seed=0, one_field=False):
+    """A B1 layout whose offsets are not multiples of 4: segments of
+    1001, 2, 4003, 0 and 4990 rows (n = 9999), three fields (energy,
+    true, a spare one), a scale (segments 0, 2, 4), a resolution reading
+    field 1 (0, 1, 4; none with ``one_field``: the binning then reads
+    one field) and a two-term shift (1, 2, 4: a per-row power series);
+    theta is (scale, res, shift a0, shift a1).  Samples drawn on the
+    card from ``seed``."""
+    from sxmc_tpu_torch.ops.transforms import (RESOLUTION_SCALE, SCALE,
+                                               SHIFT, SystematicDesc)
+
+    seg_off = [0, 1001, 1003, 5006, 5006, 9999]
+    n = seg_off[-1]
+    systs = [
+        (SystematicDesc(type=SCALE, obs=0, par_indices=(0,)),
+         (True, False, True, False, True)),
+        (SystematicDesc(type=RESOLUTION_SCALE, obs=0, extra_field=1,
+                        par_indices=(1,)), (True, True, False, False, True)),
+        (SystematicDesc(type=SHIFT, obs=0, par_indices=(2, 3)),
+         (False, True, True, False, True))]
+    if one_field:
+        del systs[1]
+    hs = kernels.HistSpec.build(3, [5.0], [15.0], [nbins], systs, seg_off,
+                                weighted=weighted)
+    gen = torch.Generator(dev).manual_seed(seed)
+    true = torch.rand((1, n), generator=gen, device=dev) * 12.0 + 4.0
+    rows = [true + 0.6 * torch.randn((1, n), generator=gen, device=dev),
+            true, torch.rand((1, n), generator=gen, device=dev)]
+    if weighted:
+        rows.append(torch.exp(0.3 * torch.randn((1, n), generator=gen,
+                                                device=dev)))
+    return hs, torch.cat(rows).contiguous()
+
+
+def _edge_thetas(dev, nch, seed):
+    gen = torch.Generator(dev).manual_seed(seed)
+    scale = torch.as_tensor([0.02, 0.01, 0.3, 0.01], device=dev)
+    return (torch.randn((nch, 4), generator=gen, device=dev) * scale)
+
+
+def _b1_equal(got, want, weighted):
+    """Counts and norms equal (weighted: but on a rounding tie)."""
+    if weighted:
+        return all(_within_ties(g, w) for g, w in zip(got, want))
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nch, nbins, weighted, one_field", [
+    (1, 10, False, False), (8, 10, False, False), (32, 10, False, False),
+    (1, 1000, False, False), (8, 1000, False, False),
+    (32, 1000, False, False), (1, 10, True, False), (8, 10, True, False),
+    (32, 10, True, False), (8, 1000, True, False), (1, 10, False, True),
+    (8, 10, False, True), (8, 10, True, True)])
+def test_cuda_histogram_edges_equal_plain(cuda_pair, nch, nbins, weighted,
+                                          one_field):
+    """B1 at offsets and a total that are not multiples of 4, an empty
+    segment, 1, 8 and 32 chains, unweighted and weighted, binning one
+    field or two, with the counts in shared-memory slots or (8 and 32
+    chains x 1,000 bins: too large for them) every count a global
+    atomic; one launch a call."""
+    _, dev = cuda_pair
+    hs, x = _edge_layout(dev, nbins, weighted, one_field=one_field)
+    th = _edge_thetas(dev, nch, 40 + nch)
+    name = ("segmented_histogram" if nch == 1
+            else "segmented_histogram_batched") + (
+        "_weighted" if weighted else "")
+    before = kernels.launch_counts()[name]
+    got = (kernels.segmented_histogram(hs, x, th[0]) if nch == 1
+           else kernels.segmented_histogram_batched(hs, x, th))
+    want = kernels.segmented_histogram_plain(hs, x, th[0] if nch == 1
+                                             else th)
+    assert kernels.launch_counts()[name] == before + 1
+    assert _b1_equal(got, want, weighted)
+    assert float(want[1].sum()) > 0
+    if nbins == 1000 and nch > 1:
+        assert hs._b1[(nch, x.device.index)][1] == 0  # no shared slots
+
+
+@pytest.mark.cuda
+def test_cuda_histogram_back_to_back_equal_plain(cuda_pair):
+    """Calls back to back, without a synchronisation: different thetas,
+    layouts, chain counts and weightedness alternating on one stream,
+    each equal to its plain version (an accumulator left dirty by one
+    call would show in the next)."""
+    mcmc, dev = cuda_pair
+    st = mcmc.stack
+    cases = []
+    for k in range(3):
+        for nbins, weighted, nch in ((10, False, 1), (1000, False, 8),
+                                     (10, True, 8), (1000, True, 1)):
+            hs, x = _edge_layout(dev, nbins, weighted, seed=k)
+            th = _edge_thetas(dev, nch, 7 * k + nch)
+            th = th[0] if nch == 1 else th
+            fn = (kernels.segmented_histogram if nch == 1
+                  else kernels.segmented_histogram_batched)
+            cases.append((hs, x, th, weighted, fn(hs, x, th)))
+        th = torch.as_tensor(np.asarray(THETAS[k % 2], np.float32),
+                             device=dev)
+        cases.append((st.hist_spec, st.samples, th, False,
+                      kernels.segmented_histogram(st.hist_spec, st.samples,
+                                                  th)))
+    for hs, x, th, weighted, got in cases:
+        want = kernels.segmented_histogram_plain(hs, x, th)
+        assert _b1_equal(got, want, weighted)
 
 
 def _chains_inputs(mcmc, nch, n, sub=()):

@@ -50,7 +50,7 @@ def jax_compiles_unoptimised():
 
 
 def make_stack_inputs(pkg: str, seed: int = 3, n_mc: int = 3000,
-                      nbins: int = 12, wide: bool = False):
+                      nbins: int = 12, wide: bool = False, far: bool = False):
     """Three signals in package ``pkg`` (sxmc_tpu or sxmc_tpu_torch):
     "a" carries a scale and a resolution systematic, "b" only the
     scale, "c" none (a static row, on dataset 1).  ``wide``: a second
@@ -59,6 +59,11 @@ def make_stack_inputs(pkg: str, seed: int = 3, n_mc: int = 3000,
     resolutions read, in the order a config loads them (r's resolution
     appends "true" to the sample fields, the shift acts on it, then
     energy's): two observables and a transformed field after them.
+    ``far``: three spare sample fields between energy and "true" (six
+    fields: energy, the spare ones, true, DATASET), and "a" and "b" also
+    carry a shift of "true" ahead of their energy systematics, so that
+    the resolution reads a transformed field 4 (nload = 5: a field past
+    the first four).
     Returns ``(sources, signals, systematics, observables)``."""
     sig = importlib.import_module(pkg + ".signal")
     rng = np.random.default_rng(seed)
@@ -70,7 +75,13 @@ def make_stack_inputs(pkg: str, seed: int = 3, n_mc: int = 3000,
                                   upper=10.0, field_index=1))
         nobs = 2
     pnext = iter(range(8))
+    nspare = 3 if far else 0
     pre = []
+    if far:
+        pre = [sig.Systematic(name="tshift", type=0,
+                              observable_field="true", means=[0.0],
+                              sigmas=[0.5], observable_field_index=4,
+                              pidx=[next(pnext)])]
     if wide:
         pre = [sig.Systematic(name="rres", type=2, observable_field="r",
                               truth_field="true", means=[0.0],
@@ -85,9 +96,11 @@ def make_stack_inputs(pkg: str, seed: int = 3, n_mc: int = 3000,
                            observable_field_index=0, pidx=[next(pnext)])
     res = sig.Systematic(name="res", type=2, observable_field="energy",
                          truth_field="true", means=[0.0], sigmas=[0.01],
-                         observable_field_index=0, truth_field_index=nobs,
+                         observable_field_index=0,
+                         truth_field_index=nobs + nspare,
                          pidx=[next(pnext)])
-    fields = [o.field for o in obs] + ["true", "DATASET"]
+    fields = ([o.field for o in obs] + [f"spare{i}" for i in range(nspare)]
+              + ["true", "DATASET"])
     tables = []
     for mu in (10.0, 8.0, 12.0):
         true = rng.normal(mu, 1.5, n_mc).astype(np.float32)
@@ -95,6 +108,8 @@ def make_stack_inputs(pkg: str, seed: int = 3, n_mc: int = 3000,
         cols = [reco]
         if wide:
             cols.append(rng.uniform(0.0, 10.0, n_mc).astype(np.float32))
+        cols += [rng.normal(0.0, 1.0, n_mc).astype(np.float32)
+                 for _ in range(nspare)]
         tables.append(np.stack(cols + [true], axis=1))
     srcs = [sig.Source(name=n, index=i, mean=1.0, sigma=s)
             for i, (n, s) in enumerate([("a", 0.0), ("b", 0.1),
@@ -170,23 +185,32 @@ class TestEvalHistGolden:
             EvalHist(**args)
 
 
-def _stack_pair(wide: bool):
+def _stack_pair(**layout):
     from sxmc_tpu.pdf.stack import PdfStack as JaxStack
     from sxmc_tpu_torch.pdf.stack import PdfStack
 
-    _, jsig, jsyst, jobs = make_stack_inputs("sxmc_tpu", wide=wide)
-    _, tsig, tsyst, tobs = make_stack_inputs("sxmc_tpu_torch", wide=wide)
+    _, jsig, jsyst, jobs = make_stack_inputs("sxmc_tpu", **layout)
+    _, tsig, tsyst, tobs = make_stack_inputs("sxmc_tpu_torch", **layout)
     return JaxStack(jsig, jobs, jsyst), PdfStack(tsig, tobs, tsyst, "cpu")
 
 
 @pytest.fixture(scope="module")
 def stacks():
-    return _stack_pair(False)
+    return _stack_pair()
 
 
 @pytest.fixture(scope="module")
 def wide_stacks():
-    return _stack_pair(True)
+    return _stack_pair(wide=True)
+
+
+@pytest.fixture(scope="module")
+def far_stacks():
+    return _stack_pair(far=True)
+
+
+# (nobs, nfields, nload) of each layout's dynamic rows.
+LAYOUT_FIELDS = {"wide": (2, 4, 3), "far": (1, 6, 5)}
 
 
 class TestPdfStackAgainstJax:
@@ -212,14 +236,20 @@ class TestPdfStackAgainstJax:
             t.compute_read_bins(data).numpy(),
             np.asarray(j.compute_read_bins(data)))
 
-    @pytest.mark.parametrize("theta", [[0.0, 0.0, 0.0, 0.0],
-                                       [0.004, 0.7, 0.013, -0.004],
-                                       [-0.02, -1.3, -0.05, 0.02]])
-    def test_wide_histograms_match_jax(self, wide_stacks, theta):
-        """Two observables, and a shift of the truth field that both
-        resolutions read (the kernels' general binning)."""
-        j, t = wide_stacks
-        assert t.hist_spec.nobs == 2 and t.hist_spec.nload == 3
+    @pytest.mark.parametrize(
+        "layout, theta",
+        [("wide", [0.0, 0.0, 0.0, 0.0]), ("wide", [0.004, 0.7, 0.013, -0.004]),
+         ("wide", [-0.02, -1.3, -0.05, 0.02]), ("far", [0.0, 0.0, 0.0]),
+         ("far", [0.7, 0.013, -0.004]), ("far", [-1.3, -0.05, 0.02])],
+        ids=["theta0", "theta1", "theta2", "far-theta0", "far-theta1",
+             "far-theta2"])
+    def test_wide_histograms_match_jax(self, request, layout, theta):
+        """Wide: two observables, and a shift of the truth field that
+        both resolutions read (the kernels' general binning).  Far: the
+        resolution reads a shifted field 4, past the first four."""
+        j, t = request.getfixturevalue(layout + "_stacks")
+        hs = t.hist_spec
+        assert (hs.nobs, hs.nfields, hs.nload) == LAYOUT_FIELDS[layout]
         jh, jn = j.histograms(np.asarray(theta, np.float32))
         th, tn = t.histograms(np.asarray(theta, np.float32))
         np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
@@ -233,6 +263,13 @@ class TestPdfStackAgainstJax:
                                          np.float32))
         th1, _ = t.histograms(np.asarray([0.02, 1.5, 0.0, 0.03],
                                          np.float32))
+        assert not torch.equal(th0, th1)
+
+    def test_far_truth_shift_moves_samples(self, far_stacks):
+        """The same for the shift of field 4 in the far layout."""
+        _, t = far_stacks
+        th0, _ = t.histograms(np.asarray([0.0, 0.0, 0.03], np.float32))
+        th1, _ = t.histograms(np.asarray([1.5, 0.0, 0.03], np.float32))
         assert not torch.equal(th0, th1)
 
     def test_wide_read_bins_match_jax(self, wide_stacks):

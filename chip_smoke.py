@@ -136,6 +136,15 @@ SPLIT_STEPS = 20_000   # the profiled tempered fit (2,000 swap intervals)
 NEXP, CPE = 4, 2       # the sharded paths: experiments x chains each
 NTEMPS, TMAX, SWAP_EVERY = 8, 32.0, 10  # the tempered sampler's defaults
 WEIGHT_SIGMA = 0.3     # log-normal per-row MC weights of the weighted runs
+HMC_STEPS = 200        # the gradient samplers' cut (host-paced: 17
+NUTS_STEPS = 150       # evaluations an HMC step, a tree's leaves a NUTS one)
+STRETCH_STEPS = 1_000  # the stretch move's cut (two batched NLLs a step)
+NWALKERS = 16          # the stretch default at 4 parameters: max(2 * 4 + 2, 16)
+CKPT_STEPS = 5_000     # --checkpoint-steps of the checkpointed Metropolis paths
+GRAD_CKPT_STEPS = 50   # ... of the checkpointed HMC path
+STRETCH_CKPT_STEPS = 250  # ... of the checkpointed stretch path
+CPU_STEPS = 8          # HMC warmup steps held against device="cpu"
+KILL_AFTER = 7         # segments before the kill of the kill-and-resume run
 
 # B1's times before its redesign (ms with calls back to back, CUDA
 # events; ms on the card, torch.profiler), copied from PERF.md's kernel
@@ -1756,6 +1765,114 @@ PATHS += [
 ]
 
 
+# The gradient samplers, the stretch move and the checkpointed runners.
+# An HMC evaluation (the potential and its gradient) is B1 + B2 (B1-
+# batched + B2 for lock-step chains, B1 alone binned): 17 a step (the
+# gradient at its start, one a leapfrog) and one for the start; NUTS's
+# count is its trees' (1 a step and one a leaf), which the run reports
+# (``evaluations``); the stretch move is one B1-batched + B2 for the
+# initial cloud and two a step (each half of the walkers).  Every path
+# draws its fake data with B1.  A checkpointed fit runs one chain: B3
+# for the initial NLL, then one B4/B5 launch a segment (100,000 steps at
+# CKPT_STEPS a segment: 20); a checkpointed ladder one B4-tempered launch
+# up to each step that closes a swap interval of the global step count
+# (a segment boundary ends one early).
+HMC = {"sampler": "hmc"}
+NUTS = {"sampler": "nuts"}
+STRETCH = {"sampler": "stretch"}
+GRAD_EVALS = 17
+
+
+def hmc_launches(nsteps: int, batched: bool = False,
+                 binned: bool = False) -> dict:
+    n = 1 + GRAD_EVALS * nsteps
+    if binned:
+        return {"segmented_histogram": 1 + n}
+    if batched:
+        return {"segmented_histogram": 1, "segmented_histogram_batched": n,
+                "lut_eval": n}
+    return {"segmented_histogram": 1 + n, "lut_eval": n}
+
+
+def nuts_launches(fit: dict) -> dict:
+    return {"segmented_histogram": 1 + fit["evaluations"],
+            "lut_eval": fit["evaluations"]}
+
+
+def stretch_launches(nsteps: int) -> dict:
+    return {"segmented_histogram": 1,
+            "segmented_histogram_batched": 1 + 2 * nsteps,
+            "lut_eval": 1 + 2 * nsteps}
+
+
+def segments(nsteps: int, segment: int):
+    """(global start, length) of a checkpointed Metropolis-type fit's
+    segments: burn-in phases of a fifth, each ending a segment."""
+    nburn = int(nsteps * 0.2)
+    bounds = [nburn, 2 * nburn, nsteps]
+    total, out = 0, []
+    while total < nsteps:
+        bound = next(b for b in bounds if total < b)
+        n = min(segment, bound - total)
+        out.append((total, n))
+        total += n
+    return out
+
+
+def checkpointed_tempered_launches(nsteps: int, segment: int) -> int:
+    launches = 0
+    for start, n in segments(nsteps, segment):
+        a = 0
+        while a < n:
+            a = min(a + SWAP_EVERY - (start + a) % SWAP_EVERY, n)
+            launches += 1
+    return launches
+
+
+def kept_rows(sampler: str, nsteps: int) -> int:
+    """Rows a chain (a stretch ensemble) keeps."""
+    if sampler in ("hmc", "nuts"):
+        return nsteps - max(int(nsteps * 0.2), 10)
+    if sampler == "stretch":
+        return (nsteps - int(nsteps * 0.2)) * NWALKERS
+    return nsteps - 2 * int(nsteps * 0.2)
+
+
+CKPT = ["--checkpoint-steps", str(CKPT_STEPS)]
+CKPT_SEGMENTS = len(segments(FULL_STEPS, CKPT_STEPS))
+PATHS += [
+    ("hmc", HMC, ["--sampler", "hmc"], HMC_STEPS, hmc_launches(HMC_STEPS)),
+    ("hmc, nchains=8", dict(HMC, nchains=NCHAINS), ["--sampler", "hmc"],
+     HMC_STEPS, hmc_launches(HMC_STEPS, batched=True)),
+    ("hmc, binned", HMC, ["--sampler", "hmc", "--binned"], HMC_STEPS,
+     hmc_launches(HMC_STEPS, binned=True)),
+    ("nuts", NUTS, ["--sampler", "nuts"], NUTS_STEPS, nuts_launches),
+    ("stretch", STRETCH, ["--sampler", "stretch"], STRETCH_STEPS,
+     stretch_launches(STRETCH_STEPS)),
+    ("stretch, nchains=2", dict(STRETCH, nchains=2), ["--sampler", "stretch"],
+     STRETCH_STEPS, stretch_launches(STRETCH_STEPS)),
+    ("checkpointed", {}, CKPT, FULL_STEPS,
+     {"segmented_histogram": 1, "fused_nll": 1, "fused_segment": CKPT_SEGMENTS}),
+    ("checkpointed, full_cov", {"proposal": "full_cov"}, CKPT, FULL_STEPS,
+     {"segmented_histogram": 1, "fused_nll": 1,
+      "fused_segment_tril": CKPT_SEGMENTS}),
+    ("checkpointed, rate_substeps=4", {"rate_substeps": RATE_SUBSTEPS},
+     CKPT, FULL_STEPS,
+     {"segmented_histogram": 1, "fused_nll": 1, "blocked_segment": CKPT_SEGMENTS}),
+    ("checkpointed, tempered", TEMPERED, ["--sampler", "tempered"] + CKPT,
+     FULL_STEPS,
+     {"segmented_histogram": 1, "segmented_histogram_batched": 1,
+      "lut_eval": 1, "fused_segment_tempered":
+          checkpointed_tempered_launches(FULL_STEPS, CKPT_STEPS)}),
+    ("checkpointed, hmc", HMC, ["--sampler", "hmc", "--checkpoint-steps",
+                                str(GRAD_CKPT_STEPS)], HMC_STEPS,
+     hmc_launches(HMC_STEPS)),
+    ("checkpointed, stretch", STRETCH,
+     ["--sampler", "stretch", "--checkpoint-steps", str(STRETCH_CKPT_STEPS)],
+     STRETCH_STEPS, stretch_launches(STRETCH_STEPS)),
+]
+
+
 def path_config(config_path: str, workdir: str, tag: str, edits: dict,
                 nsteps: int) -> str:
     with open(config_path) as f:
@@ -1805,20 +1922,28 @@ def main_paths(torch, kernels, config_path: str, workdir: str):
         wall = time.perf_counter() - t0
         counts = kernels.launch_counts()
         check(rc == 0, f"{tag}: cli returned {rc}")
-        want = {k: expect.get(k, 0) for k in counts}
-        check(counts == want, f"{tag}: launches {counts}, expected {want}")
         with open(os.path.join(out, "example_metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f]
         failed = [r for r in recs if r["event"] == "experiment_failed"]
         check(not failed, f"{tag}: an experiment failed: {failed}")
+        fit = next(r for r in recs if r["event"] == "experiment_fit")
+        if callable(expect):
+            expect = expect(fit)
+        want = {k: expect.get(k, 0) for k in counts}
+        check(counts == want, f"{tag}: launches {counts}, expected {want}")
         limits = [r["upper"] for r in recs
                   if r["event"] == "experiment_limit"]
         check(len(limits) == 1 and all(math.isfinite(x) for x in limits),
               f"{tag}: limits {limits}")
-        fit = next(r for r in recs if r["event"] == "experiment_fit")
         result = next(r for r in recs if r["event"] == "experiment_result")
-        check(0.02 < fit["accept_rate"] < 0.95,
+        # The gradient samplers' statistic aims at 0.8 and may reach 1.
+        top = 1.0 if sampler in ("hmc", "nuts") else 0.95
+        check(0.02 < fit["accept_rate"] <= top,
               f"{tag}: acceptance rate {fit['accept_rate']}")
+        ckpt = "--checkpoint-steps" in flags
+        if ckpt:
+            check(not [n for n in os.listdir(out) if n.endswith(".ckpt.npz")],
+                  f"{tag}: a checkpoint file was left")
         best = result["best_fit"]
         check(all(math.isfinite(v) for v in best.values()),
               f"{tag}: best fit {best}")
@@ -1826,9 +1951,10 @@ def main_paths(torch, kernels, config_path: str, workdir: str):
         # rate sits near 1 (about 1000 expected events, ~5% statistical).
         check(0.7 < best["signal1"] < 1.3,
               f"{tag}: best-fit signal1 {best['signal1']}")
-        # The tempered sampler returns its cold chain alone.
-        nch = edits.get("nchains", 1) if sampler == "metropolis" else 1
-        nkeep = nsteps - 2 * int(nsteps * 0.2)
+        # The tempered sampler returns its cold chain alone, a
+        # checkpointed fit one chain.
+        nch = 1 if ckpt or sampler == "tempered" else edits.get("nchains", 1)
+        nkeep = kept_rows(sampler, nsteps)
         ls = LikelihoodSpace.load(os.path.join(out, "example_0.npz"))
         check(ls.samples.shape == (nch * nkeep, 4)
               and np.isfinite(ls.samples).all()
@@ -1843,6 +1969,9 @@ def main_paths(torch, kernels, config_path: str, workdir: str):
         # A ladder step advances every replica.
         replica = (fit["steps_per_sec"] * NTEMPS if sampler == "tempered"
                    else None)
+        walkers = (fit["steps_per_sec"] * NWALKERS if sampler == "stretch"
+                   else None)
+        leapfrogs = fit.get("leapfrogs_per_step")
         print(f"path {tag}: limit {limits[0]:.6g}, best fit {best}, accept "
               f"rate {fit['accept_rate']:.4f}, {nsteps} "
               f"{'cycles' if m else 'steps'} x {nch} chain(s) in "
@@ -1850,12 +1979,16 @@ def main_paths(torch, kernels, config_path: str, workdir: str):
               f"chain-{'cycles' if m else 'steps'}/s"
               + (f" ({updates!r} parameter updates/s)" if m else "")
               + (f" ({replica!r} replica-steps/s)" if replica else "")
+              + (f" ({walkers!r} walker-steps/s)" if walkers else "")
+              + (f", {leapfrogs!r} leapfrogs a step" if leapfrogs else "")
               + f", whole run {wall:.2f} s; launches "
               f"{ {k: v for k, v in counts.items() if v} }")
         results.append({"path": tag, "nsteps": nsteps, "nchains": nch,
                         "steps_per_sec": fit["steps_per_sec"],
                         "updates_per_sec": updates,
                         "replica_steps_per_sec": replica,
+                        "walker_steps_per_sec": walkers,
+                        "leapfrogs_per_step": leapfrogs,
                         "wall_seconds": fit["wall_seconds"],
                         "cli_seconds": wall, "limit": limits[0],
                         "accept_rate": fit["accept_rate"],
@@ -2310,6 +2443,253 @@ def tempered_split(torch, config_path: str, workdir: str) -> dict:
             "intervals": intervals}
 
 
+def example_sampler(torch, cls, config_path: str, workdir: str, device):
+    """``cls`` (a sampler of the port) for the example on ``device``, with
+    the fake dataset of seed 3 set."""
+    from sxmc_tpu_torch.fitconfig import FitConfig
+    from sxmc_tpu_torch.generator import make_fake_dataset
+
+    fc = FitConfig.from_json_file(config_path, data_root=workdir)
+    s = cls(fc.sources, fc.signals, fc.systematics, fc.observables,
+            device=torch.device(device))
+    data = make_fake_dataset(torch.Generator().manual_seed(3), fc.signals,
+                             fc.systematics, fc.observables, stack=s.stack)
+    s.stack.set_data(data)
+    return s, data
+
+
+def check_hmc_cpu(torch, kernels, config_path: str, workdir: str) -> dict:
+    """HMC with the kernels against device="cpu" (the plain versions) on
+    the same data and the same injected draws: CPU_STEPS warmup steps
+    from the start, every state within 1e-4 relative and 1e-6 absolute
+    (the tolerance of the CPU tests against the JAX package: float32
+    reductions in another order over 16 leapfrogs a step), the
+    potential within NLL_TOL; the card's launches exactly 1 + 17 a step
+    of B1 and of B2."""
+    from sxmc_tpu_torch.mcmc import hmc
+
+    gen = torch.Generator().manual_seed(21)
+    mom, u = torch.randn(CPU_STEPS, 4, generator=gen), torch.rand(
+        CPU_STEPS, generator=gen)
+    out = {}
+    t0 = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        s, _ = example_sampler(torch, hmc.HMC, config_path, workdir, dev)
+        rb = s.stack.read_bins
+        fns = s._fns(rb)
+        kernels.reset_launch_counts()
+        carry = hmc.initial_warm_carry(s, rb, fns)
+        carry, qs = hmc.warmup_segment(s, carry, rb, (mom.to(dev),
+                                                      u.to(dev)), fns)
+        out[dev] = (qs.cpu().numpy(), float(carry[1]), float(carry[2]),
+                    kernels.launch_counts())
+    qs_g, u_g, le_g, counts = out["cuda"]
+    qs_c, u_c, le_c, _ = out["cpu"]
+    diff = np.abs(qs_g - qs_c)
+    rel = float(np.max(diff / np.maximum(np.abs(qs_c), 1e-6)))
+    close = bool(np.all(diff <= 1e-4 * np.abs(qs_c) + 1e-6))
+    n = 1 + GRAD_EVALS * CPU_STEPS
+    want = {k: 0 for k in counts}
+    want.update(segmented_histogram=n, lut_eval=n)
+    check(counts == want, f"HMC card vs CPU: launches {counts}, want {want}")
+    check(close and abs(u_g - u_c) <= NLL_TOL,
+          f"HMC card vs CPU: states {rel} relative, {float(diff.max())} "
+          f"absolute, potential {u_g!r} vs {u_c!r}")
+    moved = int((np.abs(np.diff(qs_c, axis=0)).sum(1) > 0).sum())
+    print(f"HMC card vs CPU on the example, {CPU_STEPS} warmup steps with "
+          f"the same draws: max state difference {float(diff.max()):.3g} "
+          f"absolute, {rel:.3g} relative, "
+          f"potential {u_g!r} vs {u_c!r}, log step size {le_g!r} vs "
+          f"{le_c!r}, {moved} of {CPU_STEPS - 1} steps moved "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return {"state_rel": rel, "state_abs": float(diff.max()),
+            "potential_abs": abs(u_g - u_c),
+            "steps": CPU_STEPS, "moved": moved}
+
+
+def kill_and_resume(torch, kernels, config_path: str, workdir: str) -> dict:
+    """A checkpointed default fit on the card (the example, FULL_STEPS at
+    CKPT_STEPS a segment), killed after KILL_AFTER segments and resumed
+    from its file: its kept samples and NLLs equal the uninterrupted
+    checkpointed fit's bit for bit; the launches of the two parts add up
+    to the uninterrupted fit's (B3 once, one B4 a segment)."""
+    from sxmc_tpu_torch import checkpoint
+    from sxmc_tpu_torch.mcmc.metropolis import MCMC
+
+    mcmc, data = example_sampler(torch, MCMC, config_path, workdir, "cuda")
+
+    class Killed(Exception):
+        pass
+
+    def fit(path):
+        return checkpoint.run_checkpointed(
+            mcmc, data, FULL_STEPS, 0.2, segment_steps=CKPT_STEPS,
+            checkpoint_path=path, seed=11)
+
+    kernels.reset_launch_counts()
+    full = fit(os.path.join(workdir, "full.ckpt.npz"))
+    n_full = kernels.launch_counts()
+    save = checkpoint.save_chain_state
+    calls = {"n": 0}
+
+    def killing_save(path, state):
+        save(path, state)
+        calls["n"] += 1
+        if calls["n"] == KILL_AFTER:
+            raise Killed()
+
+    path = os.path.join(workdir, "killed.ckpt.npz")
+    kernels.reset_launch_counts()
+    checkpoint.save_chain_state = killing_save
+    try:
+        fit(path)
+        fail("kill and resume: the run was not killed")
+    except Killed:
+        pass
+    finally:
+        checkpoint.save_chain_state = save
+    step = int(checkpoint.load_chain_state(path)["step"])
+    resumed = fit(path)
+    torch.cuda.synchronize()
+    n_parts = kernels.launch_counts()
+    same = (np.array_equal(resumed.samples, full.samples)
+            and np.array_equal(resumed.nll_values, full.nll_values))
+    check(same, "kill and resume: the resumed fit's samples differ")
+    want = {k: 0 for k in n_full}
+    want.update(segmented_histogram=0, fused_nll=1,
+                fused_segment=CKPT_SEGMENTS)
+    check(n_full == want and n_parts == want,
+          f"kill and resume: launches {n_full} and {n_parts}, want {want}")
+    print(f"kill and resume on the card: killed at step {step} of "
+          f"{FULL_STEPS} (after {KILL_AFTER} segments), resumed: "
+          f"{len(full.samples)} kept samples and NLLs bit for bit equal "
+          f"to the uninterrupted checkpointed fit's; launches {n_parts}")
+    return {"killed_at_step": step, "kept": len(full.samples),
+            "bit_for_bit": same}
+
+
+def profile_and_traces(torch, kernels, config_path: str, workdir: str):
+    """--profile LOGDIR on the default fit (cut to SPLIT_STEPS steps)
+    writes its Chrome trace, and ``python -m sxmc_tpu_torch.time_plot``
+    on its likelihood space writes the trace plot (where matplotlib is
+    installed: the H100 machine has none, and the CPU tests run it)."""
+    from sxmc_tpu_torch import time_plot
+    from sxmc_tpu_torch.cli import main as cli_main
+
+    cfg = path_config(config_path, workdir, "profiled", {}, SPLIT_STEPS)
+    out = os.path.join(workdir, "out_profiled")
+    logdir = os.path.join(workdir, "profile")
+    t0 = time.perf_counter()
+    rc = cli_main([cfg, out, "--data-root", workdir, "--device", "cuda",
+                   "--max-retries", "0", "--profile", logdir])
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"--profile: cli returned {rc}")
+    traces = [n for n in os.listdir(logdir) if n.endswith(".json")]
+    check(len(traces) == 1, f"--profile: traces {traces}")
+    with open(os.path.join(logdir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels_seen = sum(1 for e in events if e.get("cat") == "kernel")
+    check(len(events) > 0, "--profile: an empty trace")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        png_bytes = None
+        note = "time_plot not run: matplotlib is not installed here"
+    else:
+        lspace = os.path.join(out, "example_0.npz")
+        check(time_plot.main([lspace, os.path.join(workdir, "traces")])
+              == 0, "time_plot failed")
+        png_bytes = os.path.getsize(os.path.join(workdir, "traces",
+                                                 "traces.png"))
+        check(png_bytes > 0, "time_plot: empty PNG")
+        note = f"time_plot wrote {png_bytes} bytes"
+    print(f"--profile: {traces[0]}, {len(events)} events ({kernels_seen} "
+          f"kernel records), the profiled fit's run {wall:.2f} s; {note}")
+    return {"trace_events": len(events), "kernel_records": kernels_seen,
+            "png_bytes": png_bytes}
+
+
+def hmc_host_costs(torch, kernels, config_path: str, workdir: str) -> dict:
+    """What paces an HMC step on the card: the host's time to enqueue one
+    B1 (one theta) and one B2 call back to back (no synchronisation: the
+    host clock over 200 calls each, after a warm-up), beside torch.gather
+    over the same LUT; then 20 sampling steps under torch.profiler (CUDA
+    activity only): device operations a step, busy time a step, and the
+    card's idle share of the window (1 - busy / the span from the first
+    device operation to the last)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sxmc_tpu_torch.mcmc import hmc
+
+    s, _ = example_sampler(torch, hmc.HMC, config_path, workdir, "cuda")
+    st = s.stack
+    dev = torch.device("cuda")
+    theta = torch.zeros(2, device=dev)
+    hists, norms = st.histograms(theta)
+    rb = st.read_bins
+    idx = torch.clamp_min(rb, 0).to(torch.int64)
+
+    def host_us(fn, reps=200):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        t = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        return t
+
+    b1 = host_us(lambda: kernels.segmented_histogram(st.hist_spec,
+                                                     st.samples, theta))
+    b2 = host_us(lambda: kernels.lut_eval(hists, norms, rb, st.bin_volume))
+    gather = host_us(lambda: torch.gather(hists, 1, idx))
+    fns = s._fns(rb)
+    nsteps = 20
+    gen = torch.Generator(dev).manual_seed(9)
+    draws = s.presample(gen, nsteps)
+    q = fns.q0
+    u_q = fns.value(q)
+    eps = torch.tensor(0.02, device=dev)
+    inv_mass = fns.inv_mass0
+    hmc.main_segment(s, q, u_q, eps, inv_mass, rb, s.presample(gen, 3), fns)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hmc.main_segment(s, q, u_q, eps, inv_mass, rb, draws, fns)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / nsteps * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        hmc.main_segment(s, q, u_q, eps, inv_mass, rb, draws, fns)
+        torch.cuda.synchronize()
+    trace = os.path.join(workdir, "hmc_trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        evs = json.load(f)["traceEvents"]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                    e.get("name", "")) for e in evs
+                   if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy"))
+    check(len(spans) > 0, "HMC trace: no device operation recorded")
+    busy_us, end = 0.0, spans[0][0]
+    for a, b, _ in spans:  # the union of the device operations
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    span_us = max(b for _, b, _ in spans) - spans[0][0]
+    b1_seen = sum(1 for sp in spans if "sx_hist_kernel" in sp[2])
+    ops = len(spans) / nsteps
+    idle = 1.0 - busy_us / span_us
+    print(f"HMC step on the card: {step_ms:.3f} ms a step ({1e3 / step_ms:.1f}"
+          f" steps/s, 17 evaluations), {ops:.1f} device operations and "
+          f"{busy_us / nsteps:.1f} us of device time a step, the card idle "
+          f"{idle:.2%} of the profiled window; host us to enqueue one call "
+          f"back to back: B1 {b1:.2f}, B2 {b2:.2f}, torch.gather {gather:.2f}"
+          f" (the trace holds {b1_seen} of the window's "
+          f"{GRAD_EVALS * nsteps} B1 launches)")
+    return {"step_ms": step_ms, "device_ops_per_step": ops,
+            "busy_us_per_step": busy_us / nsteps, "idle_share": idle,
+            "b1_host_us": b1, "b2_host_us": b2, "gather_host_us": gather}
+
+
 def main() -> int:
     try:
         import torch
@@ -2345,15 +2725,28 @@ def main() -> int:
         if "registers" in line or "spill" in line or "entry function" in line:
             print("  " + line.strip())
 
+    walls = {}
+
+    def phase(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[fn.__name__] = round(time.perf_counter() - t, 2)
+        return out
+
     with tempfile.TemporaryDirectory() as workdir:
         config_path = write_example(workdir)
-        measured = check_kernels(torch, kernels, config_path, workdir)
-        paths = main_paths(torch, kernels, config_path, workdir)
-        paths += sharded_paths(torch, kernels, config_path, workdir)
-        stats = stats_paths(torch, kernels, config_path, workdir)
-        stats.append(fc_path(torch, kernels, config_path, workdir))
-        mle_check = check_mle_cpu(torch, kernels, config_path, workdir)
-        split = tempered_split(torch, config_path, workdir)
+        args = (torch, kernels, config_path, workdir)
+        measured = phase(check_kernels, *args)
+        paths = phase(main_paths, *args)
+        paths += phase(sharded_paths, *args)
+        stats = phase(stats_paths, *args)
+        stats.append(phase(fc_path, *args))
+        mle_check = phase(check_mle_cpu, *args)
+        split = phase(tempered_split, torch, config_path, workdir)
+        hmc_check = phase(check_hmc_cpu, *args)
+        resume = phase(kill_and_resume, *args)
+        profiled = phase(profile_and_traces, *args)
+        host = phase(hmc_host_costs, *args)
     paths += stats
 
     rows = []
@@ -2380,13 +2773,20 @@ def main() -> int:
                  if p["updates_per_sec"] else "")
         if p["replica_steps_per_sec"]:
             extra += f", {p['replica_steps_per_sec']!r} replica-steps/s"
+        if p.get("walker_steps_per_sec"):
+            extra += f", {p['walker_steps_per_sec']!r} walker-steps/s"
+        if p.get("leapfrogs_per_step"):
+            extra += f", {p['leapfrogs_per_step']!r} leapfrogs a step"
         if p["path"].startswith("sharded"):
             extra += (f"; {NEXP} experiments x {CPE} chains, beside the "
                       f"{NCHAINS}-chain path's {eight['steps_per_sec']!r}")
         print(f"path {p['path']}: {p['steps_per_sec']!r} chain-steps/s "
               f"({p['nsteps']} steps x {p['nchains']} chain(s){extra}) on "
               f"{smi}")
-    print(json.dumps({"tempered_split": split, "mle_card_vs_cpu": mle_check}))
+    print(json.dumps({"tempered_split": split, "mle_card_vs_cpu": mle_check,
+                      "hmc_card_vs_cpu": hmc_check, "kill_and_resume": resume,
+                      "profile": profiled, "hmc_host_costs": host,
+                      "phase_seconds": walls}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ mirrors ``sxmc_tpu.cli`` (reference src/sxmc.cpp:181-187).  The device
 is explicit: ``--device cuda`` (the default) runs the hand-written
 kernels and raises when CUDA is missing; ``--device cpu`` runs their
 plain PyTorch versions.  Options of the JAX CLI that the port does not
-run yet are accepted and raise ``NotImplementedError``.
+run yet (the multi-process layer) are accepted and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,13 +39,10 @@ def main(argv=None) -> int:
                         help="MCMC sampler ('tempered' = parallel-tempered "
                              "replica exchange for multimodal posteriors), "
                              "or 'mle' for a gradient maximum-likelihood "
-                             "fit with profile-likelihood intervals; hmc, "
-                             "nuts and stretch are not ported")
+                             "fit with profile-likelihood intervals")
     not_ported = {
         "num_processes": "ROADMAP queue A, item 14",
         "coordinator": "ROADMAP queue A, item 14",
-        "checkpoint_steps": "ROADMAP queue A, item 8",
-        "profile": "ROADMAP queue A, item 7",
         "process_id": "ROADMAP queue A, item 14",
     }
     parser.add_argument("--sharded", action="store_true",
@@ -57,7 +55,9 @@ def main(argv=None) -> int:
     parser.add_argument("--process-id", type=int, default=None,
                         help="not ported")
     parser.add_argument("--profile", metavar="LOGDIR", default=None,
-                        help="not ported")
+                        help="write a torch.profiler trace (Chrome trace "
+                             "format, CUDA activity on the card) of the fit "
+                             "into LOGDIR")
     parser.add_argument("--hypotest", metavar="NTOYS", nargs="?",
                         const=200, type=int, default=0,
                         help="also run frequentist hypothesis tests on "
@@ -90,7 +90,10 @@ def main(argv=None) -> int:
                              "coverage per free rate (written to "
                              "{prefix}_pulls.json)")
     parser.add_argument("--checkpoint-steps", type=int, default=0,
-                        metavar="N", help="not ported")
+                        metavar="N",
+                        help="checkpoint each chain every N steps so a "
+                             "killed fit resumes mid-chain "
+                             "({prefix}_chain_{i}.ckpt.npz)")
     parser.add_argument("--rate-substeps", type=int, default=None,
                         metavar="M",
                         help="blocked Metropolis-within-Gibbs: take M "
@@ -107,7 +110,7 @@ def main(argv=None) -> int:
         v = getattr(args, key)
         if key == "num_processes":
             return v > 1
-        if key in ("coordinator", "process_id", "profile"):
+        if key in ("coordinator", "process_id"):
             return v is not None
         return v is True or (v is not None and v is not False and v > 0)
 
@@ -116,18 +119,14 @@ def main(argv=None) -> int:
     if asked:
         raise NotImplementedError(
             "not ported to sxmc_tpu_torch yet: " + "; ".join(asked))
-    if args.sampler in ("hmc", "nuts", "stretch"):
-        raise NotImplementedError(
-            f"--sampler {args.sampler} is not ported to sxmc_tpu_torch yet "
-            "(ROADMAP queue A, item 11)")
-    tier = (args.sampler == "mle" or args.hypotest > 0
-            or args.hypotest_asymptotic or args.gof_toys >= 0
-            or args.bias_toys > 0)
-    if args.sharded and tier:
+    unsharded = (args.sampler in ("mle", "hmc", "nuts", "stretch")
+                 or args.hypotest > 0 or args.hypotest_asymptotic
+                 or args.gof_toys >= 0 or args.bias_toys > 0)
+    if args.sharded and unsharded:
         raise ValueError(
-            "--sharded runs the Metropolis fit alone: --sampler mle, "
-            "--hypotest, --hypotest-asymptotic, --gof and --bias-study "
-            "run without it")
+            "--sharded runs the Metropolis fit alone: --sampler "
+            "mle|hmc|nuts|stretch, --hypotest, --hypotest-asymptotic, --gof "
+            "and --bias-study run without it")
     device = resolve_device(args.device)
 
     if args.sharded:
@@ -135,18 +134,24 @@ def main(argv=None) -> int:
 
         main_sharded(args.config, args.output_path, device=device,
                      data_root=args.data_root, binned=args.binned,
-                     rate_substeps=args.rate_substeps)
+                     rate_substeps=args.rate_substeps,
+                     checkpoint_steps=args.checkpoint_steps,
+                     resume=args.resume)
         return 0
 
     from sxmc_tpu_torch.ensemble import main_fit
+    from sxmc_tpu_torch.observability import profile
 
-    main_fit(args.config, args.output_path, device=device,
-             resume=args.resume, data_root=args.data_root,
-             max_retries=args.max_retries, binned=args.binned,
-             rate_substeps=args.rate_substeps, sampler=args.sampler,
-             hypotest_toys=args.hypotest, hypotest_band=args.hypotest_band,
-             hypotest_asymptotic=args.hypotest_asymptotic,
-             gof_toys=args.gof_toys, bias_toys=args.bias_toys)
+    with profile(args.profile):
+        main_fit(args.config, args.output_path, device=device,
+                 resume=args.resume, data_root=args.data_root,
+                 max_retries=args.max_retries, binned=args.binned,
+                 rate_substeps=args.rate_substeps, sampler=args.sampler,
+                 hypotest_toys=args.hypotest,
+                 hypotest_band=args.hypotest_band,
+                 hypotest_asymptotic=args.hypotest_asymptotic,
+                 gof_toys=args.gof_toys, bias_toys=args.bias_toys,
+                 checkpoint_steps=args.checkpoint_steps)
     return 0
 
 

@@ -1,20 +1,20 @@
 """Ensemble runner: fake experiments -> fits -> limits.
 
-Port of ``sxmc_tpu/ensemble.py::run_ensemble`` for the Metropolis,
-tempered and gradient-MLE samplers (reference src/sxmc.cpp:44-148): for
+Port of ``sxmc_tpu/ensemble.py::run_ensemble`` for every sampler of
+one device: Metropolis, tempered, HMC, NUTS, stretch and the gradient
+MLE (reference src/sxmc.cpp:44-148): for
 each experiment, generate (or load) a dataset, run the fit, extract the
 best fit and the upper limit on the signal of interest, persist the
 result, and report the median limit.  The frequentist tier hangs off it
 as in the JAX package: hypothesis tests per experiment
 (``{prefix}_hypotest_{i}.json``), a pull study before the first
 experiment (``{prefix}_pulls.json``) and a goodness-of-fit check after
-each fit.  Each experiment runs behind the same fault barrier as the JAX
-package's: a failure is logged to the metrics stream with its
+each fit.  With ``checkpoint_steps`` a chain runs in segments with its
+state written after each (``checkpoint``), so that a killed fit resumes
+mid-chain.  Each experiment runs behind the same fault barrier as the
+JAX package's: a failure is logged to the metrics stream with its
 traceback, retried under fresh seeds up to ``max_retries`` times, and
 then recorded and skipped.
-
-Options outside the ported slice raise ``NotImplementedError`` before
-any experiment runs; none of them falls back to another path.
 """
 
 from __future__ import annotations
@@ -34,15 +34,6 @@ from sxmc_tpu_torch.observability import MetricsLogger, Stopwatch
 from sxmc_tpu_torch.stats.diagnostics import summarize
 from sxmc_tpu_torch.stats.likelihood import LikelihoodSpace
 from sxmc_tpu_torch.utils import median
-
-
-def check_slice(fc: FitConfig, sampler: str = "metropolis") -> None:
-    """Raise NotImplementedError for a configuration the port does not
-    run yet, naming the ROADMAP item that will bring it."""
-    if sampler in ("hmc", "nuts", "stretch"):
-        raise NotImplementedError(
-            f"not ported to sxmc_tpu_torch yet: sampler {sampler!r} "
-            "(ROADMAP queue A, item 11)")
 
 
 def experiment_seeds(seed: int, experiment: int, attempt: int):
@@ -76,6 +67,7 @@ def run_ensemble(
     hypotest_asymptotic: bool = False,
     gof_toys: int = -1,
     bias_toys: int = 0,
+    checkpoint_steps: int = 0,
 ) -> List[float]:
     """Run the full ensemble on ``device``; returns the upper limits.
 
@@ -84,9 +76,16 @@ def run_ensemble(
     injection point the tests use to run both packages on identical
     inputs).  ``sampler`` is "metropolis", "tempered" (a replica ladder
     with the JAX package's defaults: 8 temperatures up to 32, a swap
-    every 10 steps; its presampler hands out the tempered streams) or
-    "mle" (the gradient fit: ``{prefix}_mle_{i}.json`` per experiment,
-    the limit the one-sided profile-likelihood limit).
+    every 10 steps; its presampler hands out the tempered streams),
+    "hmc", "nuts", "stretch" (their presamplers hand out their own
+    draws) or "mle" (the gradient fit: ``{prefix}_mle_{i}.json`` per
+    experiment, the limit the one-sided profile-likelihood limit).
+
+    ``checkpoint_steps > 0`` runs each sampler's chain (one chain, as in
+    the JAX package) in segments of that many steps with its whole state
+    written to ``{prefix}_chain_{i}.ckpt.npz`` after each; a file left
+    by a killed run is resumed when the run starts again, and it is
+    removed once the experiment completes.
 
     The frequentist tier, with the JAX package's options:
     ``hypotest_toys > 0`` runs the q0 discovery test and the toy CLs
@@ -98,7 +97,6 @@ def run_ensemble(
     first experiment.  Structured metrics go to
     ``<output_path>/<prefix>_metrics.jsonl``.
     """
-    check_slice(fc, sampler)
     device = torch.device(device)
     nchains = max(fc.nchains, 1)
     os.makedirs(output_path, exist_ok=True)
@@ -113,19 +111,10 @@ def run_ensemble(
             print(msg)
 
     mcmc = None
-    if not fc.samples and sampler == "mle":
-        from sxmc_tpu_torch.stats.mle import MLE
-
-        mcmc = MLE(fc.sources, fc.signals, fc.systematics, fc.observables,
-                   device=device, binned=fc.binned)
-    elif not fc.samples and sampler == "tempered":
-        from sxmc_tpu_torch.mcmc.tempered import TemperedMCMC
-
-        mcmc = TemperedMCMC(fc.sources, fc.signals, fc.systematics,
-                            fc.observables, binned=fc.binned, device=device)
-    elif not fc.samples:
-        mcmc = MCMC(fc.sources, fc.signals, fc.systematics,
-                    fc.observables, device=device, binned=fc.binned)
+    if not fc.samples:
+        mcmc = _sampler(sampler)(fc.sources, fc.signals, fc.systematics,
+                                 fc.observables, binned=fc.binned,
+                                 device=device)
 
     # Export the nominal PDFs (sxmc.cpp:45-55) from the fit's stack.
     if fc.plots and not fc.samples:
@@ -207,37 +196,53 @@ def run_ensemble(
                     limits.append(limit)
                 return
 
-            extra = ({"rate_substeps": fc.rate_substeps,
-                      "proposal": fc.proposal}
-                     if sampler == "metropolis" else {})
             sw = Stopwatch()
-            ls = mcmc(samples_data, fc.nsteps, fc.burnin_fraction,
-                      debug_mode=fc.debug_mode, nchains=nchains,
-                      generator=torch.Generator(device).manual_seed(
-                          chain_seed),
-                      presampler=(presampler_fn(i) if presampler_fn
-                                  else None), **extra)
+            if checkpoint_steps > 0:
+                ckpt = os.path.join(
+                    output_path, f"{fc.output_prefix}_chain_{i}.ckpt.npz")
+                ls = _run_checkpointed(mcmc, sampler, fc, samples_data,
+                                       checkpoint_steps, ckpt, chain_seed,
+                                       verbose)
+            else:
+                extra = ({"rate_substeps": fc.rate_substeps,
+                          "proposal": fc.proposal}
+                         if sampler == "metropolis" else {})
+                ls = mcmc(samples_data, fc.nsteps, fc.burnin_fraction,
+                          debug_mode=fc.debug_mode, nchains=nchains,
+                          generator=torch.Generator(device).manual_seed(
+                              chain_seed),
+                          presampler=(presampler_fn(i) if presampler_fn
+                                      else None), **extra)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             elapsed = sw.real_time()
+            if checkpoint_steps > 0 and os.path.exists(ckpt):
+                os.remove(ckpt)  # completed: the resume file is not needed
             ls.cl = fc.confidence
             ls.error_type = fc.error_type
             ls.save(lspace_file)
+            run_chains = 1 if checkpoint_steps > 0 else nchains
             metrics.log(
                 "experiment_fit", experiment=i, sampler=sampler,
-                nsteps=fc.nsteps, nchains=nchains,
+                nsteps=fc.nsteps, nchains=run_chains,
                 wall_seconds=elapsed,
-                steps_per_sec=fc.nsteps * nchains / max(elapsed, 1e-9),
-                accept_rate=mcmc.last_accept_rate)
+                steps_per_sec=fc.nsteps * run_chains / max(elapsed, 1e-9),
+                accept_rate=mcmc.last_accept_rate,
+                checkpoint_steps=checkpoint_steps,
+                evaluations=getattr(mcmc, "last_evaluations", None),
+                leapfrogs_per_step=getattr(mcmc, "last_leapfrogs_per_step",
+                                           None))
 
         log(ls.print_best_fit())
         log(ls.print_correlations())
 
         # Convergence diagnostics (absent from the reference).  The
-        # tempered sampler returns ONE cold chain whatever fc.nchains
-        # says; splitting it into pseudo-chains would corrupt R-hat/ESS.
+        # tempered sampler and the checkpointed runners return ONE chain
+        # whatever fc.nchains says; splitting it into pseudo-chains would
+        # corrupt R-hat/ESS.
+        one = sampler == "tempered" or checkpoint_steps > 0
         diag = summarize(ls.samples, list(ls.names),
-                         nchains=1 if sampler == "tempered" else nchains)
+                         nchains=1 if one else nchains)
         log("-- Diagnostics --")
         for pname, d in diag.items():
             log(f" {pname}: ESS={d['ess']:.0f} R-hat={d['rhat']:.3f}")
@@ -319,6 +324,53 @@ def run_ensemble(
                 median_limit=float(median(limits)) if limits else -1.0,
                 nfailed=len(failures), failures=failures)
     return limits
+
+
+def _sampler(name: str):
+    """The sampler class behind ``--sampler name`` (JAX ensemble.py:93-121)."""
+    if name == "mle":
+        from sxmc_tpu_torch.stats.mle import MLE
+        return MLE
+    if name == "tempered":
+        from sxmc_tpu_torch.mcmc.tempered import TemperedMCMC
+        return TemperedMCMC
+    if name == "hmc":
+        from sxmc_tpu_torch.mcmc.hmc import HMC
+        return HMC
+    if name == "nuts":
+        from sxmc_tpu_torch.mcmc.nuts import NUTS
+        return NUTS
+    if name == "stretch":
+        from sxmc_tpu_torch.mcmc.stretch import StretchSampler
+        return StretchSampler
+    if name == "metropolis":
+        return MCMC
+    raise ValueError(f"unknown sampler {name!r}")
+
+
+def _run_checkpointed(mcmc, sampler: str, fc: FitConfig, data,
+                      segment_steps: int, path: str, seed: int,
+                      verbose: bool) -> LikelihoodSpace:
+    """One experiment's chain through its checkpoint runner (JAX
+    ensemble.py:240-282)."""
+    from sxmc_tpu_torch import checkpoint
+
+    common = dict(segment_steps=segment_steps, checkpoint_path=path,
+                  seed=seed, verbose=verbose)
+    if sampler in ("hmc", "nuts"):
+        return checkpoint.run_checkpointed_hmc(
+            mcmc, data, fc.nsteps, fc.burnin_fraction, **common)
+    if sampler == "stretch":
+        return checkpoint.run_checkpointed_stretch(
+            mcmc, data, fc.nsteps, fc.burnin_fraction,
+            debug_mode=fc.debug_mode, **common)
+    if sampler == "tempered":
+        return checkpoint.run_checkpointed_tempered(
+            mcmc, data, fc.nsteps, fc.burnin_fraction,
+            debug_mode=fc.debug_mode, **common)
+    return checkpoint.run_checkpointed(
+        mcmc, data, fc.nsteps, fc.burnin_fraction, debug_mode=fc.debug_mode,
+        rate_substeps=fc.rate_substeps, proposal=fc.proposal, **common)
 
 
 def _run_pull_study(fc: FitConfig, mcmc, ht, ntoys: int, output_path: str,
@@ -484,7 +536,8 @@ def main_fit(config_file: str, output_path: str, device="cuda",
              hypotest_band: bool = False,
              hypotest_asymptotic: bool = False,
              gof_toys: int = -1,
-             bias_toys: int = 0) -> List[float]:
+             bias_toys: int = 0,
+             checkpoint_steps: int = 0) -> List[float]:
     """The whole fit from a config file (reference: sxmc.cpp:181-229);
     ``binned`` and ``rate_substeps``, when given, override
     ``fit.binned`` and ``fit.rate_substeps``; the rest is
@@ -503,7 +556,8 @@ def main_fit(config_file: str, output_path: str, device="cuda",
                           hypotest_toys=hypotest_toys,
                           hypotest_band=hypotest_band,
                           hypotest_asymptotic=hypotest_asymptotic,
-                          gof_toys=gof_toys, bias_toys=bias_toys)
+                          gof_toys=gof_toys, bias_toys=bias_toys,
+                          checkpoint_steps=checkpoint_steps)
     if limits:
         print("sxmc_tpu_torch: Upper limits:",
               ", ".join(f"{x:g}" for x in limits))

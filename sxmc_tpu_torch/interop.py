@@ -5,8 +5,12 @@ port's objects from them, so that both packages can compute on
 identical inputs: a chain state, a tempering ladder's or a sharded
 ensemble's, the NLL constants, a dataset, a weighted signal's weights,
 and presampled noise streams (one chain's or lock-step chains', joint or
-blocked, a ladder's, or the sharded ensemble's segments).  Nothing here
-imports jax: the caller converts with ``np.asarray`` on its side.
+blocked, a ladder's, or the sharded ensemble's segments), the draws of
+HMC, NUTS and the stretch move, and a checkpointed run's segment draws.
+Nothing here imports jax: the caller derives the draws from the JAX keys
+of a run as the JAX package does (``tests/data/sampler_reference/
+make_reference.py`` shows how) and converts with ``np.asarray`` on its
+side; the functions here put them in the port's layout.
 """
 
 from __future__ import annotations
@@ -185,5 +189,73 @@ def tempered_presampler(phases: Sequence[Tuple[np.ndarray, np.ndarray,
             raise ValueError(f"phase {phase} stream has {noise.shape[0]} "
                              f"steps, the ladder asks for {n}")
         return noise, u, swap_u
+
+    return draw
+
+
+def chains_draws(per_chain: Sequence[Sequence[np.ndarray]]
+                 ) -> Tuple[np.ndarray, ...]:
+    """One draw tuple per chain, each array ``(n, ...)`` -> one tuple in
+    the lock-step layout ``(n, nchains, ...)`` (a single chain is kept
+    without the chain axis)."""
+    if len(per_chain) == 1:
+        return tuple(np.asarray(x) for x in per_chain[0])
+    return tuple(np.stack([np.asarray(x) for x in xs], axis=1)
+                 for xs in zip(*per_chain))
+
+
+def draws_presampler(phases, device="cpu"):
+    """A presampler of the gradient samplers (``mcmc.hmc``,
+    ``mcmc.nuts``) that hands out the given draws of phase 0 (warmup) and
+    1 (sampling), each a tuple of arrays with the step as leading axis
+    (see :func:`chains_draws`): HMC's ``(momentum normals, accept u)``
+    from ``k_mom, k_acc = split(step_key)`` (hmc.py:170-186); NUTS's
+    ``(momentum, direction u, merge u, leaf u)``, per level ``k_dir,
+    k_sub, k_merge = split(level_key, 3)`` and the leaves from the
+    subtree's sequential ``split`` (nuts.py:155-160, 185-187, 199-203,
+    256), level d's 2^d leaves at offset 2^d - 1."""
+    streams = [tuple(as_f32(x, device) for x in p) for p in phases]
+
+    def draw(phase: int, n: int):
+        if streams[phase][0].shape[0] != n:
+            raise ValueError(f"phase {phase} draws have "
+                             f"{streams[phase][0].shape[0]} steps, the "
+                             f"chain asks for {n}")
+        return streams[phase]
+
+    return draw
+
+
+def stretch_presampler(z_u, pick, acc_u, device="cpu"):
+    """A stretch presampler (``mcmc.stretch``) that hands out the given
+    draws, ``(n, 2, [nchains,] half)`` each: per half-move ``k_z,
+    k_pair, k_acc = split(k, 3)`` of ``k0, k1 = split(step_key)``
+    (stretch.py:132-137, 150-152) give the z uniforms, the partner
+    indices and the accept uniforms."""
+    z_u, acc_u = as_f32(z_u, device), as_f32(acc_u, device)
+    pick = torch.as_tensor(np.asarray(pick, np.int64), device=device)
+
+    def draw(n: int):
+        if z_u.shape[0] != n:
+            raise ValueError(f"the draws have {z_u.shape[0]} steps, the "
+                             f"ensemble asks for {n}")
+        return z_u, pick, acc_u
+
+    return draw
+
+
+def segment_draws(segments, device="cpu"):
+    """A checkpoint runner's ``stream_fn`` (``checkpoint``) that hands out
+    ``segments[i]``, a tuple of arrays, as the draws of the run's i-th
+    segment (whatever its phase): for Metropolis :func:`stream`'s ``(noise,
+    u)`` of the JAX package's per-segment ``_presample``, for a ladder
+    ``(noise, u, swap_u)``; the JAX runners take segment i's key from the
+    chain ``key, seg_key = split(key)`` (checkpoint.py:112, 418)."""
+    streams = [tuple(as_f32(x, device) for x in seg) for seg in segments]
+
+    def draw(phase: int, seg: int, n: int):
+        if seg >= len(streams) or streams[seg][0].shape[0] != n:
+            raise ValueError(f"no draws of {n} steps for segment {seg}")
+        return streams[seg]
 
     return draw

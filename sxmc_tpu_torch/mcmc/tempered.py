@@ -132,25 +132,32 @@ class _Exchange:
 
 def _fused_phase(mcmc: MCMC, read_bins: torch.Tensor, debug_mode: bool,
                  beta: torch.Tensor, swap_every: int, exchange: _Exchange):
-    """Phase runner on B4's tempered form: one launch per full swap
-    interval, the exchange between launches, the remainder as one more
-    launch (tempered.py:285-358)."""
+    """Phase runner on B4's tempered form, keyed by a global step count
+    ``istep`` as the stepper is: the exchange follows step k where
+    ``(istep + k) % swap_every == swap_every - 1``, with pairing
+    ``((istep + k) // swap_every) % 2``, and each launch runs up to the
+    next such step (or the end of the phase).  The exchange's state
+    overwrites that step's cold sample (tempered.py:285-358).
+    :func:`run_tempered` keys it by its phase-local interval count
+    (``istep = intervals * swap_every`` at each phase start), the
+    checkpointed ladder (:func:`tempered_segment`) by the global step
+    count, so that a segment boundary inside an interval ends a launch
+    early and the exchange still waits for the cadence."""
     stack, spec = mcmc.stack, mcmc.nll_spec
     sqrt_beta = torch.sqrt(beta)[:, None]
     npar = mcmc.nparameters
 
     def run_phase(carry, noise, u, swap_u):
-        params, (hi, lo), width, iidx = carry
+        params, (hi, lo), width, istep = carry
         n = noise.shape[0]
-        nfull = n // swap_every
         w_eff = width / sqrt_beta
         log_u = torch.log(u)
         dev = params.device
         cold_s = torch.empty((n, npar), dtype=torch.float32, device=dev)
         cold_n = torch.empty((n, 2), dtype=torch.float32, device=dev)
         cold_a = torch.empty(n, dtype=torch.float32, device=dev)
-        nswaps = torch.empty(nfull, dtype=torch.int64, device=dev)
-        npairs = []
+        frac = torch.zeros(n, dtype=torch.float32, device=dev)
+        att = torch.zeros(n, dtype=torch.float32, device=dev)
 
         def segment(a, b):
             nll0 = torch.stack([hi, lo], dim=-1)
@@ -162,25 +169,24 @@ def _fused_phase(mcmc: MCMC, read_bins: torch.Tensor, debug_mode: bool,
             cold_a[a:b] = acc[:, 0]
             return s[-1], nl[-1, :, 0], nl[-1, :, 1]
 
-        for i in range(nfull):
-            b = (i + 1) * swap_every
-            params, hi, lo = segment(b - swap_every, b)
-            pairing = iidx % 2
-            params, hi, lo, nswaps[i] = exchange(pairing, params, hi, lo,
-                                                 swap_u[b - 1])
-            npairs.append(exchange.npairs(pairing))
-            # The post-swap state is the interval's last recorded step.
-            cold_s[b - 1] = params[0]
-            cold_n[b - 1, 0] = hi[0]
-            cold_n[b - 1, 1] = lo[0]
-            iidx += 1
-        if n > nfull * swap_every:
-            params, hi, lo = segment(nfull * swap_every, n)
-        frac = nswaps.to(torch.float32) / torch.as_tensor(
-            npairs, dtype=torch.float32, device=dev)
-        return ((params, (hi, lo), width, iidx), cold_s,
-                (cold_n[:, 0], cold_n[:, 1]), cold_a,
-                (frac, torch.ones_like(frac)))
+        a = 0
+        while a < n:
+            k = a + swap_every - 1 - (istep + a) % swap_every
+            b = min(k + 1, n)
+            params, hi, lo = segment(a, b)
+            if k < n:
+                pairing = ((istep + k) // swap_every) % 2
+                params, hi, lo, nswaps = exchange(pairing, params, hi, lo,
+                                                  swap_u[k])
+                frac[k] = nswaps.to(torch.float32) / exchange.npairs(pairing)
+                att[k] = 1.0
+                # The post-swap state is the interval's last recorded step.
+                cold_s[k] = params[0]
+                cold_n[k, 0] = hi[0]
+                cold_n[k, 1] = lo[0]
+            a = b
+        return ((params, (hi, lo), width, istep + n), cold_s,
+                (cold_n[:, 0], cold_n[:, 1]), cold_a, (frac, att))
 
     return run_phase
 
@@ -250,8 +256,15 @@ def run_tempered(mcmc: MCMC, read_bins: torch.Tensor, nsteps: int,
     exchange = _Exchange(beta)
     batch_nll = metropolis._chain_nll(mcmc, read_bins, allow_fused=False)
     if metropolis._fused_ok(mcmc):
-        run_phase = _fused_phase(mcmc, read_bins, debug_mode, beta,
-                                 swap_every, exchange)
+        by_step = _fused_phase(mcmc, read_bins, debug_mode, beta,
+                               swap_every, exchange)
+
+        def run_phase(carry, noise, u, swap_u):
+            # The swap cadence counts phase-local intervals (carry[3]).
+            out = by_step(carry[:3] + (carry[3] * swap_every,), noise, u,
+                          swap_u)
+            return ((out[0][:3] + (carry[3] + noise.shape[0] // swap_every,),)
+                    + out[1:])
     else:
         run_phase = _stepper_phase(mcmc, batch_nll, debug_mode, beta,
                                    swap_every, exchange)
@@ -293,6 +306,49 @@ def run_tempered(mcmc: MCMC, read_bins: torch.Tensor, nsteps: int,
     attempts = torch.cat([o[3][1] for o in outs])
     swap_rate = fracs.sum() / torch.clamp_min(attempts.sum(), 1.0)
     return samples, (hi, lo), accepts.mean(), swap_rate
+
+
+def make_tempered_segment(mcmc: MCMC, read_bins: torch.Tensor,
+                          debug_mode: bool, betas: Sequence[float],
+                          swap_every: int):
+    """The segment runner of the checkpointed ladder: ``run(carry, noise,
+    u, swap_u)`` -> ``(carry, cold samples (n, npar), (hi (n,), lo
+    (n,)), cold accepts (n,), (swap fractions (n,), attempts (n,)))``
+    with ``carry = (params (ntemps, npar), (hi, lo), width, istep)`` and
+    ``istep`` the global step count, which sets the swap cadence and the
+    pairing on both routes (the fused one ends a launch early at a
+    segment boundary inside a swap interval).  Built once per fit: with
+    fixed systematics the stepper's LUT is made here (B1 + B2)."""
+    beta = torch.as_tensor(np.asarray(betas, np.float32),
+                           device=mcmc.device)
+    exchange = _Exchange(beta)
+    if metropolis._fused_ok(mcmc):
+        return _fused_phase(mcmc, read_bins, debug_mode, beta, swap_every,
+                            exchange)
+    batch_nll = metropolis._chain_nll(mcmc, read_bins, allow_fused=False)
+    return _stepper_phase(mcmc, batch_nll, debug_mode, beta, swap_every,
+                          exchange)
+
+
+def tempered_segment(mcmc: MCMC, params, cur_nll, width, istep: int,
+                     read_bins: torch.Tensor, noise, u, swap_u,
+                     debug_mode: bool, betas: Sequence[float],
+                     swap_every: int, run=None):
+    """One fixed-width tempered segment from an explicit ladder state
+    (JAX tempered.py:205-224): the streams ``noise (n, ntemps, npar)``,
+    ``u`` and ``swap_u (n, ntemps)`` advance ``(params, (hi, lo),
+    width)`` by ``n`` steps from global step ``istep``.  ``run`` is a
+    :func:`make_tempered_segment` runner to reuse.  Returns ``(params,
+    (hi, lo), istep, cold samples, (hi, lo) history, cold accepts (n,),
+    (swap fractions (n,), attempts (n,)))``: the JAX package's accept
+    and swap rates are ``accepts.mean()`` and ``fractions.sum() /
+    max(attempts.sum(), 1)``."""
+    if run is None:
+        run = make_tempered_segment(mcmc, read_bins, debug_mode, betas,
+                                    swap_every)
+    carry, samples, nlls, accepts, swaps = run(
+        (params, cur_nll, width, int(istep)), noise, u, swap_u)
+    return carry[0], carry[1], carry[3], samples, nlls, accepts, swaps
 
 
 class TemperedMCMC:

@@ -63,7 +63,8 @@ from sxmc_tpu_torch.mcmc import metropolis
 from sxmc_tpu_torch.mcmc.metropolis import HAARIO, MCMC
 from sxmc_tpu_torch.observability import MetricsLogger, Stopwatch
 from sxmc_tpu_torch.stats.likelihood import LikelihoodSpace
-from sxmc_tpu_torch.utils import as_f32, median, resolve_device
+from sxmc_tpu_torch.utils import (as_f32, median, resolve_device,
+                                  segment_seed)
 
 PAD_TAG = -999.0  # dataset tag no signal uses: sentinel read bins
 
@@ -83,14 +84,6 @@ def pad_datasets(datasets: Sequence[np.ndarray],
     for i, d in enumerate(datasets):
         out[i, :d.shape[0]] = d[:nevents]
     return out
-
-
-def segment_seed(seed: int, phase: int, seg: int) -> int:
-    """The seed of one segment's streams (every experiment's and
-    chain's), the same whether or not the run was interrupted before."""
-    s = np.random.SeedSequence([seed, 7000 + phase, seg]).generate_state(
-        1, np.uint64)[0]
-    return int(s >> np.uint64(1))
 
 
 def default_streams(seed: int, nexp: int, nchains: int, npar: int, m: int,
@@ -536,12 +529,17 @@ def run_sharded_ensemble(
 def main_sharded(config_file: str, output_path: str, device="cuda",
                  data_root: Optional[str] = None,
                  binned: Optional[bool] = None,
-                 rate_substeps: Optional[int] = None) -> List[float]:
+                 rate_substeps: Optional[int] = None,
+                 checkpoint_steps: int = 0,
+                 resume: bool = False) -> List[float]:
     """``--sharded`` (JAX cli.py:145-162): fit every experiment as one
     batch, write ``<prefix>_<i>.<format>`` for each, print the best fits
     and the median upper limit; metrics go to
     ``<output_path>/<prefix>_metrics.jsonl``.  ``binned`` and
-    ``rate_substeps``, when given, override the config."""
+    ``rate_substeps``, when given, override the config.
+    ``checkpoint_steps > 0`` checkpoints the batch every that many steps
+    under ``<output_path>/<prefix>_sharded`` (resumed with ``resume``;
+    the files are removed once the fit completes)."""
     fc = FitConfig.from_json_file(config_file, data_root=data_root)
     if binned is not None:
         fc.binned = binned
@@ -552,8 +550,16 @@ def main_sharded(config_file: str, output_path: str, device="cuda",
     metrics = MetricsLogger(os.path.join(
         output_path, f"{fc.output_prefix}_metrics.jsonl"))
     print(f"sxmc_tpu_torch: Running the sharded ensemble on {device}...")
-    lspaces, limits = run_sharded_ensemble(fc, device=device,
-                                           metrics=metrics)
+    ckpt = (os.path.join(output_path, f"{fc.output_prefix}_sharded")
+            if checkpoint_steps > 0 else None)
+    lspaces, limits = run_sharded_ensemble(
+        fc, device=device, metrics=metrics, checkpoint_path=ckpt,
+        checkpoint_steps=checkpoint_steps, resume=resume)
+    if ckpt:
+        prefix = os.path.basename(ckpt) + "."
+        for name in os.listdir(output_path):
+            if name.startswith(prefix) and name.endswith(".npz"):
+                os.remove(os.path.join(output_path, name))
     for i, ls in enumerate(lspaces):
         ls.save(os.path.join(output_path,
                              f"{fc.output_prefix}_{i}.{fc.output_format}"))

@@ -83,7 +83,8 @@ class LikelihoodSpace:
         mat = np.eye(len(cols))
         data = np.stack(cols)
         if ok.any():
-            sub = np.corrcoef(data[ok])
+            # One varying column gives corrcoef a 0-d result.
+            sub = np.atleast_2d(np.corrcoef(data[ok]))
             idx = np.where(ok)[0]
             for a, ia in enumerate(idx):
                 for b, ib in enumerate(idx):

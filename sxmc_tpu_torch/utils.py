@@ -54,3 +54,12 @@ def as_f32(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
     return torch.tensor(np.asarray(x, np.float32), device=device)
+
+
+def segment_seed(seed: int, phase: int, seg: int) -> int:
+    """The seed of one segment's streams in a segmented run (the sharded
+    ensemble's, a checkpointed chain's), the same whether or not the run
+    was interrupted before."""
+    s = np.random.SeedSequence([seed, 7000 + phase, seg]).generate_state(
+        1, np.uint64)[0]
+    return int(s >> np.uint64(1))

@@ -183,8 +183,8 @@ def test_cli_hypotest_bias_matches_jax(tmp_path):
 def test_unported_options_still_raise(tmp_path):
     from sxmc_tpu_torch.cli import main
 
-    for flags, err in ((["--sampler", "nuts"], NotImplementedError),
-                       (["--checkpoint-steps", "10"], NotImplementedError),
+    for flags, err in ((["--num-processes", "2"], NotImplementedError),
+                       (["--sharded", "--sampler", "nuts"], ValueError),
                        (["--sharded", "--sampler", "mle"], ValueError),
                        (["--sharded", "--hypotest", "8"], ValueError)):
         with pytest.raises(err):

@@ -77,15 +77,19 @@ def test_imports_with_jax_blocked_and_cuda_is_explicit(tmp_path):
 def test_out_of_slice_cli_flags_raise(tmp_path, flag):
     """Flags off the port raise naming their ROADMAP item; --binned,
     --rate-substeps and --sharded, ported since, run a binned, a blocked
-    or a sharded fit of the golden configuration, and --hypotest, --gof
-    and --bias-study the frequentist tier beside its Metropolis fit."""
+    or a sharded fit of the golden configuration, --hypotest, --gof
+    and --bias-study the frequentist tier beside its Metropolis fit,
+    --checkpoint-steps a checkpointed fit (its file removed at the end)
+    and --sampler hmc an HMC fit (12 steps: 17 evaluations a step)."""
     from sxmc_tpu_torch.cli import main
 
     if flag in (["--binned"], ["--rate-substeps", "2"], ["--sharded"],
-                ["--hypotest", "10"], ["--gof"], ["--bias-study", "5"]):
+                ["--hypotest", "10"], ["--gof"], ["--bias-study", "5"],
+                ["--checkpoint-steps", "100"], ["--sampler", "hmc"]):
         cfg = json.loads((REPO / "tests" / "data" / "golden" /
                           "config.json").read_text())
-        cfg["fit"].update(nexperiments=1, nsteps=200, output_format="npz")
+        cfg["fit"].update(nexperiments=1, output_format="npz",
+                          nsteps=12 if "hmc" in flag else 200)
         path = tmp_path / "config.json"
         path.write_text(json.dumps(cfg))
         out = tmp_path / "out"
@@ -103,6 +107,13 @@ def test_out_of_slice_cli_flags_raise(tmp_path, flag):
             assert (out / tier[flag[0]]).exists()
         if flag == ["--gof"]:
             assert "experiment_gof" in [r["event"] for r in recs]
+        fit = [r for r in recs if r["event"] == "experiment_fit"]
+        if flag[0] == "--checkpoint-steps":
+            assert fit[0]["checkpoint_steps"] == 100
+            assert not list(out.glob("*.ckpt.npz"))
+        if flag[0] == "--sampler":
+            assert fit[0]["sampler"] == "hmc"
+            assert fit[0]["evaluations"] == 1 + 12 * 17
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["config.json", str(tmp_path), "--device", "cpu"] + flag)
@@ -110,16 +121,20 @@ def test_out_of_slice_cli_flags_raise(tmp_path, flag):
 
 @pytest.mark.parametrize("entry", ["MCMC", "PdfStack", "EvalHist",
                                    "TemperedMCMC", "run_sharded_ensemble",
-                                   "MLE"])
+                                   "MLE", "HMC", "NUTS", "StretchSampler"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
-    """MCMC, TemperedMCMC, MLE, PdfStack, EvalHist and the sharded
-    ensemble (``run_sharded_ensemble``) take the card unless the caller asks for
-    the CPU: without CUDA, calling one with no device raises (naming
-    --device cpu) instead of quietly running on the CPU."""
+    """MCMC, TemperedMCMC, HMC, NUTS, StretchSampler, MLE, PdfStack,
+    EvalHist and the sharded ensemble (``run_sharded_ensemble``) take the
+    card unless the caller asks for the CPU: without CUDA, calling one
+    with no device raises (naming --device cpu) instead of quietly running
+    on the CPU."""
     import torch
 
     from sxmc_tpu_torch.fitconfig import FitConfig
+    from sxmc_tpu_torch.mcmc.hmc import HMC
     from sxmc_tpu_torch.mcmc.metropolis import MCMC
+    from sxmc_tpu_torch.mcmc.nuts import NUTS
+    from sxmc_tpu_torch.mcmc.stretch import StretchSampler
     from sxmc_tpu_torch.mcmc.tempered import TemperedMCMC
     from sxmc_tpu_torch.parallel import ensemble
     from sxmc_tpu_torch.pdf.evalhist import EvalHist
@@ -148,6 +163,9 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
     build = {"MCMC": lambda: MCMC(srcs, sigs, systs, obs),
              "TemperedMCMC": lambda: TemperedMCMC(srcs, sigs, systs, obs),
              "MLE": lambda: MLE(srcs, sigs, systs, obs),
+             "HMC": lambda: HMC(srcs, sigs, systs, obs),
+             "NUTS": lambda: NUTS(srcs, sigs, systs, obs),
+             "StretchSampler": lambda: StretchSampler(srcs, sigs, systs, obs),
              "PdfStack": lambda: PdfStack(sigs, obs, systs),
              "EvalHist": lambda: EvalHist(
                  np.zeros((4, 1), np.float32), 1, 1, [0.0], [1.0], [2]),

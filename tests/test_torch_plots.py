@@ -1,7 +1,7 @@
 """The repository's reference example through the port's CLI with its
 plots on (``fit.plots`` left at its default), the nominal-PDF export
 against the JAX package's, and the JAX CLI options that the port does
-not run yet (and two it runs since).
+not run yet (and those it runs since).
 
 The example's configuration (``examples/reference_example.json``) is
 used as shipped but for ``nsteps``, cut to a few hundred; its MC tables
@@ -139,8 +139,10 @@ def test_jax_cli_options_raise_naming_their_item(tmp_path, flag, item):
     2).  The ported ones run, here beside the gradient MLE on the golden
     configuration: --hypotest-band alone adds nothing (the band needs
     --hypotest's toys, as in the JAX package), --hypotest-asymptotic
-    writes the Asimov limit (item 10, the statistics tier)."""
-    if item != "item 10":
+    writes the Asimov limit (item 10, the statistics tier), --profile
+    writes a torch.profiler trace of a short Metropolis fit into its
+    directory (item 7)."""
+    if item == "item 14":
         with pytest.raises(NotImplementedError,
                            match=f"{flag[0]} .*{item}\\)"):
             main(["config.json", str(tmp_path), "--device", "cpu"] + flag)
@@ -151,8 +153,17 @@ def test_jax_cli_options_raise_naming_their_item(tmp_path, flag, item):
     path = tmp_path / "config.json"
     path.write_text(json.dumps(cfg))
     out = tmp_path / "out"
-    assert main([str(path), str(out), "--device", "cpu", "--data-root",
-                 str(golden), "--sampler", "mle"] + flag) == 0
+    argv = [str(path), str(out), "--device", "cpu", "--data-root",
+            str(golden)]
+    if flag[0] == "--profile":
+        cfg["fit"]["nsteps"] = 100
+        path.write_text(json.dumps(cfg))
+        assert main(argv + ["--profile", str(tmp_path / flag[1])]) == 0
+        (trace,) = (tmp_path / "logdir").glob("trace_*.json")
+        assert json.loads(trace.read_text())["traceEvents"]
+        assert (out / "golden_0.npz").exists()
+        return
+    assert main(argv + ["--sampler", "mle"] + flag) == 0
     mle = json.loads((out / "golden_mle_0.json").read_text())
     assert np.isfinite(mle["upper_limit"])
     hypotest = out / "golden_hypotest_0.json"
@@ -161,3 +172,4 @@ def test_jax_cli_options_raise_naming_their_item(tmp_path, flag, item):
     else:
         assert np.isfinite(json.loads(hypotest.read_text())[
             "asymptotic_limit"])
+

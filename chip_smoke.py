@@ -98,6 +98,19 @@ from the root of a checkout, on a machine with one Hopper card.  It
      blocked runs also print parameter updates/s, sharded runs their
      fake-data set-up apart from the fit; a profiled tempered fit splits
      its wall into kernel and host time;
+     Then signal1 as a KDE: "kde": true (grid rows, 5,000 steps),
+     "kde_exact": true (the density at the events, 1,000 steps) and
+     --sampler hmc on it (20 steps), each on the stepper (B1 with
+     signal1 an empty segment, then B2, a step); the default fit on
+     .sxnt tables written by python -m sxmc_tpu_torch.io.convert (its
+     limit equal to the .npz fit's bit for bit); 8 lock-step chains
+     with pool_adaptation through the library (every chain's widths
+     equal after each burn-in phase; B3-batched once, B4-batched three
+     times): 45 paths.  Beside them (kde_and_pooled) B1 on the KDE
+     layout against its plain version, one exact KDE evaluation against
+     device="cpu" (KDE_TOL), its card ms and peak memory, the exact-KDE
+     HMC gradient (finite, nonzero in both systematics) and a KDE step's
+     host share.
      The MLE of the example with the kernels is held against
      device="cpu" on the same data (best-fit NLL within NLL_TOL; free
      rates, profile limit and Asimov limit within 1e-3 relative), and
@@ -145,6 +158,10 @@ GRAD_CKPT_STEPS = 50   # ... of the checkpointed HMC path
 STRETCH_CKPT_STEPS = 250  # ... of the checkpointed stretch path
 CPU_STEPS = 8          # HMC warmup steps held against device="cpu"
 KILL_AFTER = 7         # segments before the kill of the kill-and-resume run
+KDE_STEPS = 5_000      # the KDE paths' cuts (the stepper: host-paced, and
+KDE_EXACT_STEPS = 1_000  # the exact rows 1,464 events x 500k samples a step)
+KDE_HMC_STEPS = 20     # 10 warmup, 10 kept: 17 exact evaluations a step
+KDE_TOL = 1e-4         # exact KDE density, the card against device="cpu"
 
 # B1's times before its redesign (ms with calls back to back, CUDA
 # events; ms on the card, torch.profiler), copied from PERF.md's kernel
@@ -1873,6 +1890,58 @@ PATHS += [
 ]
 
 
+# KDE signals and the .sxnt event store.  signal1 declared a KDE ("kde":
+# grid rows; "kde_exact": the density at the events): the stepper, each
+# step B1 (signal2's rows beside signal1's empty segment) and B2, the KDE
+# rows plain PyTorch; B1 also draws the fake data, and B1 + B2 give the
+# initial NLL.  HMC on the exact KDE: hmc_launches.  The .sxnt path is
+# the default fit on the tables converted by python -m
+# sxmc_tpu_torch.io.convert: the default path's launches, and its limit
+# bit for bit (kde_and_pooled).
+KDE = {"kde": True}
+KDE_EXACT = {"kde_exact": True}
+
+
+def kde_launches(nsteps: int) -> dict:
+    return {"segmented_histogram": nsteps + 2, "lut_eval": nsteps + 1}
+
+
+PATHS += [
+    ("kde", KDE, [], KDE_STEPS, kde_launches(KDE_STEPS)),
+    ("kde_exact", KDE_EXACT, [], KDE_EXACT_STEPS,
+     kde_launches(KDE_EXACT_STEPS)),
+    ("kde_exact, hmc", dict(KDE_EXACT, **HMC), ["--sampler", "hmc"],
+     KDE_HMC_STEPS, hmc_launches(KDE_HMC_STEPS)),
+    ("sxnt", {"sxnt": True}, [], FULL_STEPS,
+     {"segmented_histogram": 1, "fused_nll": 1, "fused_segment": 3}),
+]
+
+
+def sxnt_tables(workdir: str, names) -> list:
+    """``names`` (.npz tables in ``workdir``) converted to .sxnt by the
+    port's converter, one process a table, all started together (each
+    spends most of its time importing torch); returns the .sxnt names."""
+    outs = [n[:-len(".npz")] + ".sxnt" for n in names]
+    t0 = time.perf_counter()
+    procs = [(n, subprocess.Popen(
+        [sys.executable, "-m", "sxmc_tpu_torch.io.convert",
+         os.path.join(workdir, n), os.path.join(workdir, o)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for n, o in zip(names, outs)
+        if not os.path.exists(os.path.join(workdir, o))]
+    try:
+        for n, proc in procs:
+            so, se = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"convert {n}: {so}{se}")
+            print(f"{so.strip()} ({time.perf_counter() - t0:.2f} s)")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
 def path_config(config_path: str, workdir: str, tag: str, edits: dict,
                 nsteps: int) -> str:
     with open(config_path) as f:
@@ -1884,6 +1953,14 @@ def path_config(config_path: str, workdir: str, tag: str, edits: dict,
     if edits.get("fixed"):
         for syst in cfg["pdfs"]["systematics"].values():
             syst["fixed"] = True
+    if edits.get("kde") or edits.get("kde_exact"):
+        cfg["signals"]["signal1"].update(
+            kde=True, kde_exact=bool(edits.get("kde_exact")))
+    if edits.get("sxnt"):
+        sigs = list(cfg["signals"].values())
+        names = sxnt_tables(workdir, [sig["filename"] for sig in sigs])
+        for sig, name in zip(sigs, names):
+            sig["filename"] = name
     path = os.path.join(workdir, tag.replace(" ", "_").replace(",", "")
                         .replace("=", "") + ".json")
     with open(path, "w") as f:
@@ -2609,6 +2686,193 @@ def profile_and_traces(torch, kernels, config_path: str, workdir: str):
             "png_bytes": png_bytes}
 
 
+def device_spans(torch, fn, trace: str, what: str):
+    """``fn()`` under torch.profiler (CUDA activity only), read from its
+    chrome-trace export: the device operations ``[(start us, end us,
+    name)]``, the union of their time (busy us) and the span from the
+    first to the last."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        evs = json.load(f)["traceEvents"]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                    e.get("name", "")) for e in evs
+                   if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy"))
+    check(len(spans) > 0, f"{what} trace: no device operation recorded")
+    busy_us, end = 0.0, spans[0][0]
+    for a, b, _ in spans:  # the union of the device operations
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return spans, busy_us, max(b for _, b, _ in spans) - spans[0][0]
+
+
+def kde_and_pooled(torch, kernels, config_path: str, workdir: str,
+                   paths: list):
+    """The slice's checks beside its CLI paths: the .sxnt fit's limit
+    equal to the default fit's bit for bit (the same seed); on the
+    exact-KDE example, B1 on the KDE stack's layout (signal1 an empty
+    segment) against its plain version, one exact evaluation of the KDE
+    (1,464 events x 500k samples) against device="cpu" on the same
+    theta (KDE_TOL relative; NaN where out of domain in both), its card
+    ms (CUDA events) and peak memory, the HMC potential's gradient in
+    theta (finite and nonzero in both systematics); a KDE stepper step's
+    wall, device time and host share (1 - busy / wall, 200 steps timed,
+    50 under torch.profiler), grid and exact; then the pooled path: 8
+    lock-step chains at full length through the library with
+    pool_adaptation, every chain's widths equal after each burn-in
+    phase, B3-batched once and B4-batched three times.  Returns the
+    pooled path's record and the measurements."""
+    from sxmc_tpu_torch.mcmc import metropolis
+    from sxmc_tpu_torch.mcmc.hmc import HMC, _target
+    from sxmc_tpu_torch.mcmc.metropolis import MCMC
+
+    dev = torch.device("cuda")
+    limits = {p["path"]: p["limit"] for p in paths}
+    check(limits["sxnt"] == limits["default"],
+          f"the .sxnt fit's limit {limits['sxnt']!r} is not the .npz "
+          f"fit's {limits['default']!r}")
+    print(f".sxnt fit: limit {limits['sxnt']!r}, the .npz fit's "
+          f"{limits['default']!r}: equal bit for bit")
+    out = {"sxnt_limit": limits["sxnt"], "npz_limit": limits["default"]}
+
+    cfg = path_config(config_path, workdir, "kde check", KDE_EXACT,
+                      FULL_STEPS)
+    mcmc, _ = example_sampler(torch, MCMC, cfg, workdir, "cuda")
+    st = mcmc.stack
+    hs = st.hist_spec
+    check(hs.seg_off[0] == hs.seg_off[1] == 0 and hs.seg_off[2] > 0,
+          f"KDE stack layout: segment offsets {hs.seg_off}")
+    theta = torch.tensor([0.003, 0.0005], device=dev)
+    got = kernels.segmented_histogram(hs, st.samples, theta)
+    want = kernels.segmented_histogram_plain(hs, st.samples, theta)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "B1 on the KDE layout differs from its plain version")
+    i, kde = st._kde_exact[0]
+    pts = st._kde_exact_state[0]
+    samples = st._kde_samples[i]
+    row, norm = kde.eval_at(pts, theta, samples=samples)
+    row_c, norm_c = kde.eval_at(pts.cpu(), theta.cpu(),
+                                samples=samples.cpu())
+    row = row.cpu()
+    nan = torch.isnan(row_c)
+    rel = float(((row - row_c).abs()
+                 / row_c.abs().clamp_min(1e-30))[~nan].max())
+    check(torch.equal(torch.isnan(row), nan) and rel <= KDE_TOL
+          and float(norm) == float(norm_c),
+          f"exact KDE, card vs CPU: {rel} relative, norms {float(norm)} "
+          f"and {float(norm_c)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    exact_ms = cuda_ms(torch, lambda: kde.eval_at(pts, theta,
+                                                  samples=samples), 10)
+    peak = torch.cuda.max_memory_allocated() - base
+    centres = torch.as_tensor(kde._centers_pts, device=dev)
+    grid_ms = cuda_ms(torch, lambda: kde.eval_at(centres, theta,
+                                                 samples=samples), 50)
+    print(f"KDE on the card ({samples.shape[1]} samples): B1 on its layout "
+          f"equal to the plain version; exact at {pts.shape[0]} events "
+          f"{exact_ms:.3f} ms (peak {peak / 2**20:.1f} MiB), at the "
+          f"{centres.shape[0]} bin centres {grid_ms:.3f} ms; card vs CPU "
+          f"{rel:.3g} relative")
+    out.update(kde_exact_ms=exact_ms, kde_exact_peak_mib=peak / 2**20,
+               kde_grid_ms=grid_ms, kde_card_vs_cpu_rel=rel)
+
+    hmc, _ = example_sampler(torch, HMC, cfg, workdir, "cuda")
+    t = _target(hmc, hmc.stack.read_bins)
+    u, g = t.value_and_grad(t.q0)
+    g = g.cpu()
+    check(bool(torch.isfinite(g).all()) and bool((g[2:] != 0).all()),
+          f"exact-KDE HMC: the potential's gradient {g.tolist()}")
+    print(f"exact-KDE HMC: potential {float(u)!r}, gradient {g.tolist()}")
+    out["kde_exact_hmc_grad"] = g.tolist()
+
+    for tag, edits in (("grid", KDE), ("exact", KDE_EXACT)):
+        cfg_t = path_config(config_path, workdir, f"kde step {tag}", edits,
+                            FULL_STEPS)
+        mc, _ = example_sampler(torch, MCMC, cfg_t, workdir, "cuda")
+        rb = mc.stack.read_bins
+        params, cur, width = metropolis.initial_state(mc, rb)
+        gen = torch.Generator(dev).manual_seed(5)
+
+        def steps(n):
+            noise, u_ = metropolis.presample(gen, n, mc.nparameters, dev)
+            return lambda: metropolis.run_segment(mc, params, cur, width, rb,
+                                                  noise, u_)
+
+        steps(20)()
+        n = 200 if tag == "grid" else 50
+        seg = steps(n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seg()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / n * 1e3
+        nprof = 50 if tag == "grid" else 20
+        spans, busy_us, _ = device_spans(
+            torch, steps(nprof), os.path.join(workdir, f"kde_{tag}.json"),
+            f"KDE {tag} step")
+        busy_ms = busy_us / nprof / 1e3
+        host = 1.0 - busy_ms / step_ms
+        print(f"KDE {tag} step on the card: {step_ms:.3f} ms ("
+              f"{1e3 / step_ms:.1f} steps/s), {len(spans) / nprof:.1f} "
+              f"device operations and {busy_ms:.3f} ms of device time a "
+              f"step: host share {host:.2%}")
+        out[f"kde_{tag}_step"] = {"step_ms": step_ms, "busy_ms": busy_ms,
+                                  "ops": len(spans) / nprof,
+                                  "host_share": host}
+
+    mcmc, data = example_sampler(torch, MCMC, config_path, workdir, "cuda")
+    widths = []
+    real = metropolis.pooled_retune
+
+    def record(mc, width, phase_samples):
+        new = real(mc, width, phase_samples)
+        widths.append(new.cpu())
+        return new
+
+    metropolis.pooled_retune = record
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ls = mcmc(data, FULL_STEPS, 0.2, nchains=NCHAINS,
+                  pool_adaptation=True,
+                  generator=torch.Generator(dev).manual_seed(8))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    finally:
+        metropolis.pooled_retune = real
+    want = {k: 0 for k in counts}
+    want.update(fused_nll_batched=1, fused_segment_batched=3)
+    check(counts == want, f"pooled: launches {counts}, expected {want}")
+    check(len(widths) == 2 and all(bool((w == w[0]).all()) for w in widths),
+          f"pooled: widths after the burn-in phases {widths}")
+    nkeep = kept_rows("metropolis", FULL_STEPS)
+    check(ls.samples.shape == (NCHAINS * nkeep, 4)
+          and np.isfinite(ls.samples).all(),
+          f"pooled: likelihood space {ls.samples.shape}")
+    best = ls.get_best_fit()["signal1"].point_estimate
+    check(0.7 < best < 1.3, f"pooled: best-fit signal1 {best}")
+    rate = FULL_STEPS * NCHAINS / wall
+    print(f"path pooled, nchains=8: widths equal across the chains after "
+          f"both burn-in phases ({widths[0][0].tolist()}, then "
+          f"{widths[1][0].tolist()}), accept rate "
+          f"{mcmc.last_accept_rate:.4f}, {rate!r} chain-steps/s (whole "
+          f"call {wall:.2f} s); launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    pooled = {"path": "pooled, nchains=8", "nsteps": FULL_STEPS,
+              "nchains": NCHAINS, "steps_per_sec": rate,
+              "updates_per_sec": None, "replica_steps_per_sec": None,
+              "wall_seconds": wall, "launches": counts}
+    return pooled, out
+
+
 def hmc_host_costs(torch, kernels, config_path: str, workdir: str) -> dict:
     """What paces an HMC step on the card: the host's time to enqueue one
     B1 (one theta) and one B2 call back to back (no synchronisation: the
@@ -2617,8 +2881,6 @@ def hmc_host_costs(torch, kernels, config_path: str, workdir: str) -> dict:
     activity only): device operations a step, busy time a step, and the
     card's idle share of the window (1 - busy / the span from the first
     device operation to the last)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from sxmc_tpu_torch.mcmc import hmc
 
     s, _ = example_sampler(torch, hmc.HMC, config_path, workdir, "cuda")
@@ -2658,23 +2920,10 @@ def hmc_host_costs(torch, kernels, config_path: str, workdir: str) -> dict:
     hmc.main_segment(s, q, u_q, eps, inv_mass, rb, draws, fns)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / nsteps * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        hmc.main_segment(s, q, u_q, eps, inv_mass, rb, draws, fns)
-        torch.cuda.synchronize()
-    trace = os.path.join(workdir, "hmc_trace.json")
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        evs = json.load(f)["traceEvents"]
-    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
-                    e.get("name", "")) for e in evs
-                   if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy"))
-    check(len(spans) > 0, "HMC trace: no device operation recorded")
-    busy_us, end = 0.0, spans[0][0]
-    for a, b, _ in spans:  # the union of the device operations
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    span_us = max(b for _, b, _ in spans) - spans[0][0]
+    spans, busy_us, span_us = device_spans(
+        torch, lambda: hmc.main_segment(s, q, u_q, eps, inv_mass, rb, draws,
+                                        fns),
+        os.path.join(workdir, "hmc_trace.json"), "HMC")
     b1_seen = sum(1 for sp in spans if "sx_hist_kernel" in sp[2])
     ops = len(spans) / nsteps
     idle = 1.0 - busy_us / span_us
@@ -2738,6 +2987,8 @@ def main() -> int:
         args = (torch, kernels, config_path, workdir)
         measured = phase(check_kernels, *args)
         paths = phase(main_paths, *args)
+        pooled, kde_checks = phase(kde_and_pooled, *args, paths)
+        paths.append(pooled)
         paths += phase(sharded_paths, *args)
         stats = phase(stats_paths, *args)
         stats.append(phase(fc_path, *args))
@@ -2786,6 +3037,7 @@ def main() -> int:
     print(json.dumps({"tempered_split": split, "mle_card_vs_cpu": mle_check,
                       "hmc_card_vs_cpu": hmc_check, "kill_and_resume": resume,
                       "profile": profiled, "hmc_host_costs": host,
+                      "kde_sxnt_pooled": kde_checks,
                       "phase_seconds": walls}))
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -7,8 +7,8 @@ kernels (``csrc/``), or on the CPU through their plain PyTorch
 versions.  The JAX package ``sxmc_tpu`` beside it is the reference;
 this package imports no jax.
 
-Ported so far: the default Metropolis fit (``python -m
-sxmc_tpu_torch.cli config.json out/``); ROADMAP.md lists the rest.
+Entry points: ``python -m sxmc_tpu_torch.cli config.json out/`` and the
+library; ROADMAP.md lists what is not ported yet.
 """
 
 __version__ = "0.1.0"

@@ -5,9 +5,11 @@ Copied from ``sxmc_tpu/io/loaders.py``: ``read_float_table`` returns
 ``fields`` the column names (reference: src/io/ttree_io.{h,cpp}).
 
 Supported formats (by extension): ``.npz``, ``.npy``, ``.csv``,
-``.h5``/``.hdf5`` (h5py, imported only when such a file is used) and
-``.root`` (uproot, optional).  The native ``.sxnt`` event store is not
-ported yet and raises.
+``.h5``/``.hdf5`` (h5py, imported only when such a file is used),
+``.sxnt``/``.sxt`` (the native event store, ``io.native``: built with
+g++ at first use) and ``.root`` (uproot, optional).  Several files may
+be concatenated (:func:`read_float_tables`); like the reference
+(ttree_io.cpp:80-86), all of them must have the same field layout.
 """
 
 from __future__ import annotations
@@ -22,13 +24,6 @@ class DataError(RuntimeError):
     pass
 
 
-def _sxnt_not_ported(filename: str):
-    raise NotImplementedError(
-        f"{filename}: the native .sxnt event store (sxmc_tpu/io/native) "
-        "is not ported to sxmc_tpu_torch yet (ROADMAP queue A, item 1); "
-        "convert the table to .npz/.npy/.csv/.hdf5")
-
-
 def read_float_table(filename: str) -> Tuple[np.ndarray, List[str]]:
     """Read one file into a (n, nfields) float32 matrix + field names."""
     ext = os.path.splitext(filename)[1].lower()
@@ -41,10 +36,25 @@ def read_float_table(filename: str) -> Tuple[np.ndarray, List[str]]:
     if ext in (".h5", ".hdf5"):
         return _read_hdf5(filename)
     if ext in (".sxnt", ".sxt"):
-        _sxnt_not_ported(filename)
+        return _read_sxnt(filename)
     if ext == ".root":
         return _read_root(filename)
     raise DataError(f"Unsupported data format: {filename}")
+
+
+def read_float_tables(filenames: Sequence[str]
+                      ) -> Tuple[np.ndarray, List[str]]:
+    """Read and concatenate several files (ttree_io.cpp:124-126)."""
+    datas = []
+    fields: List[str] = []
+    for fn in filenames:
+        d, f = read_float_table(fn)
+        if fields and f != fields:
+            raise DataError(
+                f"Field layout mismatch in {fn}: {f} != {fields}")
+        fields = f
+        datas.append(d)
+    return np.concatenate(datas, axis=0), fields
 
 
 def write_float_table(filename: str, data: np.ndarray,
@@ -64,7 +74,9 @@ def write_float_table(filename: str, data: np.ndarray,
             ds = f.create_dataset("data", data=data)
             ds.attrs["fields"] = list(fields)
     elif ext in (".sxnt", ".sxt"):
-        _sxnt_not_ported(filename)
+        from sxmc_tpu_torch.io import native
+
+        native.write_sxnt(filename, data, fields)
     elif ext == ".root":
         _write_root(filename, data, fields)
     else:
@@ -120,6 +132,16 @@ def _read_hdf5(filename: str):
             return data, fields
         names = sorted(f.keys())
         return _as_float_matrix([np.asarray(f[n]) for n in names], names)
+
+
+def _read_sxnt(filename: str):
+    from sxmc_tpu_torch.io import native
+
+    store = native.EventStore(filename)
+    try:
+        return store.read_all(), list(store.fields)
+    finally:
+        store.close()
 
 
 def _write_root(filename: str, data: np.ndarray,

@@ -21,7 +21,13 @@ Gradients come from autograd of the port's plain NLL in the parameters
 (``ops.nll``), as the MLE's do: the LUT and norms (binned: the
 histograms) come from the kernels at ``theta.detach()`` and are
 constants to autograd, so the event term's gradient in the systematic
-coefficients is exactly 0, as JAX's floor-based binning gives; the
+coefficients is exactly 0, as JAX's floor-based binning gives, except
+in the rows of KDE signals that a systematic acts on: ``PdfStack``
+makes those from theta itself by plain PyTorch (grid rows, and
+``kde_exact`` rows at the events), once an evaluation, so the gradient
+flows through them as ``jax.grad`` does through ``EvalKDE`` (hmc.py:
+21-29; the KDE's blocks are checkpointed, their backward recomputes
+them); the
 constraint term keeps its gradient, and the float64 sums pass a gradient
 of 1 per element (JAX's custom JVP of ``df_sum``).  Every evaluation
 returns the potential and its gradient together: 17 a step at 16
@@ -172,7 +178,7 @@ def _target(sampler: MCMC, read_bins: torch.Tensor):
 
     def params_nll(params):
         if syst_float:
-            theta = params[..., ns:].detach()
+            theta = params[..., ns:]
             state = (evaluate_batch(theta) if theta.dim() == 2
                      else evaluate(theta))
         else:

@@ -10,7 +10,9 @@ Semantics (reference src/mcmc.{h,cpp}, nll_kernels.cpp:191-271):
   * independent Gaussian proposals per parameter; debug mode accepts
     everything;
   * three fixed-width phases: burn-in 1, burn-in 2, main, with the
-    widths retuned from each burn-in phase's sample RMS (per chain),
+    widths retuned from each burn-in phase's sample RMS (per chain, or
+    with ``pool_adaptation`` from the RMS pooled over every chain's
+    steps, one width that all chains share: metropolis.py:919-975),
     and the burn-in samples dropped unless debug (mcmc.cpp:273-311,
     metropolis.py:1221-1289); lock-step chains are pooled chain-major
     into ``(nchains * nkeep, npar)`` (metropolis.py:228-233).
@@ -34,15 +36,19 @@ metropolis.py:378-390):
     initial NLL one launch of B3, in their batched forms for lock-step
     chains; accept ``delta > 0 or log(u) <= delta``, as the TPU kernels
     (pallas_step.py:782-792);
-  * **stepper** (every systematic fixed or none at all, or the binned
-    likelihood): a Python loop of torch ops on the device with no host
-    synchronisation and no branch on tensor values, the JAX scan
+  * **stepper** (every systematic fixed or none at all, the binned
+    likelihood, or a stack with KDE rows): a Python loop of torch ops
+    on the device with no host synchronisation and no branch on tensor
+    values, the JAX scan
     path's steps (``_make_step``, ``_make_step_cov``,
     ``_make_blocked_step``) with their accept ``delta > 0 or u <=
     exp(delta)``.  With fixed systematics the LUT is built once at the
     means (B1, then B2) and every step is plain torch NLL math (the JAX
     package's jnp outside any kernel); binned, every rebuild is B1 (or
-    B1-batched for chains) and the binned NLL.
+    B1-batched for chains) and the binned NLL.  KDE rows come from
+    plain PyTorch at every rebuild (``kde_exact`` ones at the events:
+    ``_nll_backend`` evaluates with ``use_exact_kde``, as the JAX
+    package's does for every sampler).
 
 The proposal noise and accept uniforms of a phase are drawn up front on
 the device from the chain's ``torch.Generator`` (:func:`presample`); a
@@ -78,11 +84,6 @@ def nll_history_to_f64(nll_pair_hist) -> np.ndarray:
     hi, lo = nll_pair_hist
     return (np.asarray(hi.cpu(), np.float64)
             + np.asarray(lo.cpu(), np.float64))
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to sxmc_tpu_torch yet ({item})")
 
 
 def flatten_parameters(sources: Sequence[Source],
@@ -164,6 +165,11 @@ class MCMC:
 
         self.stack = PdfStack(signals, observables, systematics,
                               self.device)
+        if self.binned and self.stack._kde_exact:
+            raise ValueError(
+                "binned likelihood is incompatible with exact-LUT KDE "
+                "signals (their density lives at the event positions, "
+                "not on the bin grid); drop kde_exact or run unbinned")
         self.static = nll_static(sources, signals, systematics)
         # The constants on the device, made once: the fused kernels' spec
         # carries them for the plain versions and the stepper route.
@@ -211,16 +217,15 @@ class MCMC:
         takes blocked Metropolis-within-Gibbs cycles (``nsteps`` then
         counts cycles); ``proposal="full_cov"`` Haario full-covariance
         proposals, incompatible with both ``rate_substeps`` and
-        ``pool_adaptation``.  The noise comes from ``generator`` (a
+        ``pool_adaptation``; ``pool_adaptation`` (with ``nchains > 1``)
+        retunes every chain's widths from the RMS pooled over all chains'
+        burn-in steps.  The noise comes from ``generator`` (a
         ``torch.Generator`` on this MCMC's device), or from
         ``presampler`` when given.
         """
         if nchains < 1:
             raise ValueError(f"nchains={nchains} must be at least 1")
         check_proposal(proposal, rate_substeps, pool_adaptation)
-        if pool_adaptation and nchains > 1:
-            _not_ported("pool_adaptation (pooled burn-in retuning)",
-                        "ROADMAP queue A, item 5")
         self.stack.set_data(data)
         burnin_steps = int(nsteps * burnin_fraction)
         if burnin_steps > 0 and nsteps <= 2 * burnin_steps \
@@ -241,11 +246,24 @@ class MCMC:
 
         samples, nlls, accept_rate = run_chain(
             self, self.stack.read_bins, nsteps, burnin_steps, debug_mode,
-            presampler, nchains, rate_substeps, proposal)
+            presampler, nchains, rate_substeps, proposal,
+            pool=pool_adaptation and nchains > 1)
         self.last_accept_rate = float(accept_rate)
         return LikelihoodSpace.from_arrays(
             samples.cpu().numpy(), nll_history_to_f64(nlls),
             self.parameter_names)
+
+    def nll(self, data: np.ndarray, params) -> float:
+        """The NLL of ``data`` at ``params``, exact-KDE rows at the
+        events (reference: mcmc.cpp:390-415; JAX metropolis.py:
+        236-242)."""
+        self.stack.set_data(data)
+        params = torch.as_tensor(np.asarray(params, np.float32),
+                                 device=self.device)
+        lut, norms = self.stack.evaluate(params[self.nsources:],
+                                         use_exact_kde=True)
+        hi, lo = nll_pair(params, lut, norms, self.nll_spec.consts)
+        return float(hi.double() + lo.double())
 
 
 def _stream_shape(n: int, nchains: int, m: int) -> Tuple[int, ...]:
@@ -300,16 +318,18 @@ def _blocked_enabled(mcmc: MCMC, rate_substeps: int) -> bool:
 def _nll_backend(mcmc: MCMC, read_bins: torch.Tensor):
     """Likelihood-mode dispatch (metropolis.py:333-375): ``(evaluate,
     evaluate_batch, pair)``.  Unbinned, ``evaluate`` is the LUT (B1,
-    then B2) and ``pair`` :func:`nll_pair`; binned, ``evaluate`` is the
+    then B2; ``kde_exact`` rows at the events) and ``pair``
+    :func:`nll_pair`; binned, ``evaluate`` is the
     histograms (B1) and ``pair`` the binned NLL against the data counts
     derived once from the read bins."""
     stack = mcmc.stack
     if not mcmc.binned:
         def evaluate(theta):
-            return stack.evaluate(theta, read_bins)
+            return stack.evaluate(theta, read_bins, use_exact_kde=True)
 
         def evaluate_batch(thetas):
-            return stack.evaluate_batch(thetas, read_bins)
+            return stack.evaluate_batch(thetas, read_bins,
+                                        use_exact_kde=True)
 
         return evaluate, evaluate_batch, nll_pair
 
@@ -621,16 +641,29 @@ def run_segment(mcmc: MCMC, params, cur_nll, width, read_bins,
     return carry[0], carry[1], samples, nlls, accs
 
 
+def pooled_retune(mcmc: MCMC, width: torch.Tensor,
+                  phase_samples: torch.Tensor) -> torch.Tensor:
+    """Cross-chain retune (metropolis.py:946-957): the RMS pooled over
+    every (step, chain) of ``(n, nchains, npar)`` samples retunes chain
+    0's widths, and every chain takes them."""
+    new = retune_width(mcmc, width[0],
+                       phase_samples.reshape(-1, phase_samples.shape[-1]))
+    return new.expand_as(width).contiguous()
+
+
 def run_chain(mcmc: MCMC, read_bins: torch.Tensor, nsteps: int,
               burnin_steps: int, debug_mode: bool,
               presampler: Presampler, nchains: int = 1,
-              rate_substeps: int = 0, proposal: str = "diagonal"):
+              rate_substeps: int = 0, proposal: str = "diagonal",
+              pool: bool = False):
     """One chain, or ``nchains`` lock-step chains, through the three
     phases (metropolis.py:595-780, 1020-1196, 1221-1289): retuning the
     widths, or with ``proposal="full_cov"`` the trils, after each
-    burn-in phase.  ``rate_substeps`` takes blocked cycles where they
-    apply (:func:`_blocked_enabled`); the presampler must then hand out
-    the blocked layout (:func:`presample`).
+    burn-in phase; ``pool`` (lock-step chains, diagonal proposals)
+    retunes them from the pooled RMS (:func:`pooled_retune`,
+    ``_run_chains_pooled``).  ``rate_substeps`` takes blocked cycles
+    where they apply (:func:`_blocked_enabled`); the presampler must
+    then hand out the blocked layout (:func:`presample`).
 
     Returns ``(samples, (hi, lo), accept_rate)`` of the recorded steps
     (the main phase, plus the burn-in phases in debug mode), chains
@@ -643,7 +676,8 @@ def run_chain(mcmc: MCMC, read_bins: torch.Tensor, nsteps: int,
     params, cur, width = initial_state(mcmc, read_bins, nchains, chain_nll)
     if full_cov:
         width = _initial_scale_tril(mcmc, nchains)
-    retune = retune_scale_tril if full_cov else retune_width
+    retune = (retune_scale_tril if full_cov else
+              pooled_retune if pool else retune_width)
     run, init_extras = _phase_runner(mcmc, read_bins, chain_nll, debug_mode,
                                      m, full_cov)
     carry = (params, cur, width) + tuple(init_extras(params))

@@ -44,8 +44,14 @@ Differences from the JAX package: the streams are the port's own (the
 tests inject the JAX ones through ``stream_fn``, see
 ``interop.segment_streams``); ``fit.binned`` is honoured (the JAX
 runner builds its MCMC without it and fits unbinned; the two
-likelihoods are equal, the binned one an exact regrouping); KDE signals
-raise when the PdfStack is built (ROADMAP queue A, item 12).
+likelihoods are equal, the binned one an exact regrouping).
+
+KDE stacks run experiment by experiment (they take no fused kernel);
+``kde_exact`` rows read each experiment's own padded events (pad rows
+carry a tag no signal has: 0, or NaN out of domain, and either adds 0
+to the NLL), as the JAX package's per-experiment extras do
+(ensemble.py:310-327, 377-398); segment checkpointing refuses them, as
+the JAX package does (:447-452).
 """
 
 from __future__ import annotations
@@ -156,11 +162,11 @@ def other_cards_note(device: torch.device) -> Optional[str]:
 
 def _ensemble_setup(fc: FitConfig, nsteps: int, device,
                     dataset_fn: Optional[Callable[[int], np.ndarray]]):
-    """Model, datasets and their padded read bins ``(nexp, nsignals,
-    nevents)``: a pure function of the FitConfig, so a resumed run
-    rebuilds them identically.  Experiment i's dataset is the one
-    ``run_ensemble`` draws for it (its first attempt's data seed), or
-    ``dataset_fn(i)``."""
+    """Model, read bins ``(nexp, nsignals, nevents)`` of the padded
+    datasets, and the padded datasets: a pure function of the
+    FitConfig, so a resumed run rebuilds them identically.  Experiment
+    i's dataset is the one ``run_ensemble`` draws for it (its first
+    attempt's data seed), or ``dataset_fn(i)``."""
     mcmc = MCMC(fc.sources, fc.signals, fc.systematics, fc.observables,
                 device=device, binned=fc.binned)
     datasets = []
@@ -172,8 +178,10 @@ def _ensemble_setup(fc: FitConfig, nsteps: int, device,
         datasets.append(make_fake_dataset(
             torch.Generator().manual_seed(data_seed), fc.signals,
             fc.systematics, fc.observables, stack=mcmc.stack, poisson=True))
-    rb = mcmc.stack.compute_read_bins(pad_datasets(datasets))
-    return mcmc, rb, max(fc.nchains, 1), int(nsteps * fc.burnin_fraction)
+    batch = pad_datasets(datasets)
+    rb = mcmc.stack.compute_read_bins(batch)
+    return (mcmc, rb, batch, max(fc.nchains, 1),
+            int(nsteps * fc.burnin_fraction))
 
 
 def _initial_batch(mcmc: MCMC, rb: torch.Tensor, nchains: int,
@@ -282,6 +290,12 @@ def _run_segmented(fc: FitConfig, mcmc: MCMC, rb, nchains: int,
     written after every segment (see the module docstring).  Returns the
     sampling phase's ``samples (nexp, nchains, nkeep, npar)`` and NLL
     pairs ``(nexp, nchains, nkeep)`` as numpy."""
+    if mcmc.stack._kde_exact:
+        raise NotImplementedError(
+            "segment checkpointing does not support kde_exact signals "
+            "(per-experiment event-coordinate extras are not threaded "
+            "through the segment steppers); run without "
+            "checkpoint_steps, or use kde_exact=false (grid)")
     nexp = rb.shape[0]
     npar = mcmc.nparameters
     dev = mcmc.device
@@ -387,7 +401,7 @@ def _run_segmented(fc: FitConfig, mcmc: MCMC, rb, nchains: int,
     return samples, nlls
 
 
-def _run_per_experiment(fc: FitConfig, mcmc: MCMC, rb, nchains: int,
+def _run_per_experiment(fc: FitConfig, mcmc: MCMC, rb, batch, nchains: int,
                         burnin_steps: int, nsteps: int, m: int,
                         streams: StreamFn):
     """Experiment by experiment through ``metropolis.run_chain`` (its
@@ -415,6 +429,9 @@ def _run_per_experiment(fc: FitConfig, mcmc: MCMC, rb, nchains: int,
                 noise, u = noise[..., 0, :], u[..., 0]
             return noise.contiguous(), u.contiguous()
 
+        if mcmc.stack._kde_exact:
+            # This experiment's padded events for the kde_exact rows.
+            mcmc.stack.set_kde_points(batch[e])
         s, (hi, lo), _ = metropolis.run_chain(
             mcmc, rb[e], nsteps, burnin_steps, fc.debug_mode, presampler,
             nchains, m, fc.proposal)
@@ -483,8 +500,8 @@ def run_sharded_ensemble(
             torch.cuda.synchronize(dev)
 
     sw = Stopwatch()
-    mcmc, rb, nchains, burnin_steps = _ensemble_setup(fc, nsteps, dev,
-                                                      dataset_fn)
+    mcmc, rb, batch, nchains, burnin_steps = _ensemble_setup(
+        fc, nsteps, dev, dataset_fn)
     sync()
     setup_s = sw.real_time()
     nexp = fc.nexperiments
@@ -506,7 +523,7 @@ def run_sharded_ensemble(
             grouped, streams, checkpoint_path, checkpoint_steps, resume)
     else:
         route = "per experiment"
-        samples, nlls = _run_per_experiment(fc, mcmc, rb, nchains,
+        samples, nlls = _run_per_experiment(fc, mcmc, rb, batch, nchains,
                                             burnin_steps, nsteps, m, streams)
     sync()
     wall = sw.real_time()

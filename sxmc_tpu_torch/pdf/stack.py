@@ -24,8 +24,20 @@ sharded ensemble (:meth:`fused_segment_grouped`,
 :meth:`fused_segment_tril_grouped`, :meth:`blocked_segment_grouped`),
 whose read bins come from :meth:`compute_read_bins` of a padded
 ``(nexp, nevents, ncols)`` batch; and the binned likelihood's data counts
-(:meth:`data_bin_counts`, :meth:`counts_from_read_bins`).  KDE signals
-are not ported yet and raise.
+(:meth:`data_bin_counts`, :meth:`counts_from_read_bins`).
+
+KDE signals (``pdf.evalkde.EvalKDE``; JAX stack.py:132-158, 856-1106)
+leave no rows in the MC layout: in the kernels' layout a KDE signal that
+a systematic acts on is an empty segment beside the dynamic signals'
+(B1 bins nothing into it), and every KDE row of the table is replaced by
+its grid pseudo-counts and norm, evaluated by plain PyTorch on this
+stack's device (a systematics-free KDE's once, the others at every
+call).  ``evaluate(..., use_exact_kde=True)`` (the samplers' route)
+gives the ``kde_exact`` rows of the LUT the exact density at the events
+of :meth:`set_data` instead; a theta that carries autograd (the
+gradient samplers) gets its gradient through the KDE rows that a
+systematic acts on, each made once; the fused kernels do not take KDE
+stacks (``supports_fused``).
 
 Weighted MC (a signal whose ``histogram.weights`` is set; stack.py:
 183-194, 238-290): a static weighted row is a float64 host sum of its
@@ -48,7 +60,8 @@ from sxmc_tpu_torch.ops import histogram as hist_ops
 from sxmc_tpu_torch.ops import kernels
 from sxmc_tpu_torch.ops.nll import NLLStatic, device_consts
 from sxmc_tpu_torch.ops.transforms import SystematicDesc
-from sxmc_tpu_torch.pdf.evalhist import EvalHist, read_bins_for
+from sxmc_tpu_torch.pdf.evalhist import eval_from_bins, read_bins_for
+from sxmc_tpu_torch.pdf.evalkde import EvalKDE
 from sxmc_tpu_torch.signal import Observable, Signal, Systematic
 from sxmc_tpu_torch.utils import as_f32, resolve_device
 
@@ -92,11 +105,6 @@ class PdfStack:
         self.device = resolve_device(device)
         self.nsignals = len(signals)
         self.nobservables = len(observables)
-        for s in signals:
-            if not isinstance(s.histogram, EvalHist):
-                raise NotImplementedError(
-                    f"signal {s.name}: only histogram PDFs are ported to "
-                    "sxmc_tpu_torch (KDE: ROADMAP queue A, item 12)")
         weights = [s.histogram.weights for s in signals]
         self.has_weights = any(w is not None for w in weights)
 
@@ -120,7 +128,24 @@ class PdfStack:
             [[1.0 if s == d else 0.0 for s in self.datasets]
              for d in self.unique_datasets], np.float32)
 
-        arrays = [s.histogram.samples_host for s in signals]
+        # KDE signals: their rows come from the KDE, their samples stay
+        # out of the MC layout (an empty array in its place).
+        self._kde = tuple((i, s.histogram) for i, s in enumerate(signals)
+                          if isinstance(s.histogram, EvalKDE))
+        self.has_kde = bool(self._kde)
+        self._kde_exact = tuple((i, k) for i, k in self._kde if k.exact_lut)
+        is_kde = np.zeros(self.nsignals, bool)
+        is_kde[[i for i, _ in self._kde]] = True
+        self._kde_samples = {
+            i: torch.as_tensor(np.ascontiguousarray(k.samples_host.T),
+                               device=self.device) for i, k in self._kde}
+        self._kde_grid_static = {}  # systematics-free grid rows, made once
+        self._kde_exact_state = None  # (points, static rows, norms)
+
+        arrays = [np.empty((0, s.histogram.samples_host.shape[1]),
+                           np.float32) if is_kde[i]
+                  else s.histogram.samples_host
+                  for i, s in enumerate(signals)]
         self.nfields = max(a.shape[1] for a in arrays)
         descs = [(_desc(s),
                   tuple(s.name in sig.systematic_names for sig in signals))
@@ -129,8 +154,13 @@ class PdfStack:
         touched = np.zeros(self.nsignals, bool)
         for _, mask in descs:
             touched |= np.asarray(mask, bool)
+        # A KDE signal that a systematic acts on keeps an empty segment
+        # among the dynamic ones, unless no dynamic signal has MC rows.
+        if not (touched & ~is_kde).any():
+            touched &= ~is_kde
         self._dyn_idx = tuple(int(i) for i in np.flatnonzero(touched))
-        self._static_idx = tuple(int(i) for i in np.flatnonzero(~touched))
+        self._static_idx = tuple(int(i) for i in
+                                 np.flatnonzero(~touched & ~is_kde))
         self._ndyn = len(self._dyn_idx)
 
         # Static rows: built once on the host.
@@ -190,8 +220,30 @@ class PdfStack:
     def set_data(self, data) -> None:
         """Precompute per-signal read bins for a dataset
         ``(nevents, nobservables + 1)`` (tag last): data points never
-        move under systematics (pdfz.cpp:245-302)."""
+        move under systematics (pdfz.cpp:245-302).  With ``kde_exact``
+        signals the events are kept on the device too, and the exact
+        rows of the systematics-free ones computed here, once (JAX
+        stack.py:686-717)."""
         self._read_bins = self.compute_read_bins(data)
+        if self._kde_exact:
+            self.set_kde_points(data)
+
+    def set_kde_points(self, data) -> None:
+        """The ``kde_exact`` rows' events ``(nevents, nobservables + 1)``
+        (a sharded experiment's padded ones, pad rows tagged with no
+        signal's dataset) and the exact rows and norms of the
+        systematics-free KDEs there."""
+        pts = as_f32(data, self.device)
+        rows, norms = [], []
+        for i, kde in self._kde_exact:
+            if not kde.systematics:
+                r, n = kde.eval_at(pts, samples=self._kde_samples[i])
+                rows.append(r)
+                norms.append(n)
+        self._kde_exact_state = (
+            pts, torch.stack(rows) if rows else pts.new_zeros(
+                (0, pts.shape[0])),
+            torch.stack(norms) if norms else pts.new_zeros(0))
 
     @property
     def read_bins(self) -> torch.Tensor:
@@ -220,29 +272,51 @@ class PdfStack:
     @property
     def supports_fused(self) -> bool:
         """True when the fused kernels (B3/B4, weighted or not) apply: at
-        least one dynamic segment (KDE stacks do not reach here)."""
-        return self._ndyn >= 1
+        least one dynamic segment and no KDE row (JAX stack.py:355-368)."""
+        return self._ndyn >= 1 and not self.has_kde
+
+    def _kde_grid(self, i: int, kde: EvalKDE, theta: torch.Tensor):
+        """KDE signal ``i``'s grid pseudo-counts and norm at ``theta``
+        (a systematics-free one's made once)."""
+        if kde.systematics:
+            return kde.histogram(theta, samples=self._kde_samples[i])
+        if i not in self._kde_grid_static:
+            self._kde_grid_static[i] = kde.histogram(
+                theta, samples=self._kde_samples[i])
+        return self._kde_grid_static[i]
 
     def histograms(self, theta_syst) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(nsignals, total_nbins)`` counts + ``(nsignals,)`` norms at
         theta (the dynamic rows through kernel B1; with no dynamic
-        signal, the static table alone)."""
+        signal, the static table alone); KDE rows are their grid
+        pseudo-counts (JAX stack.py:856-878).  A theta that carries
+        autograd passes its gradient through the KDE rows that a
+        systematic acts on; B1 takes it detached."""
+        theta = as_f32(theta_syst, self.device).reshape(-1)
+        return self._histograms(theta, self._kde)
+
+    def _histograms(self, theta: torch.Tensor, kdes):
+        """:meth:`histograms` with the grid rows of ``kdes`` only (the
+        other KDE rows stay zero)."""
         hists = self.hist_init.clone()
         norms = self._norm_init_t.clone()
         if self._ndyn:
-            theta = as_f32(theta_syst, self.device).reshape(-1)
             dyn, dyn_norms = kernels.segmented_histogram(
-                self.hist_spec, self.samples, theta)
+                self.hist_spec, self.samples, theta.detach())
             hists[self._dyn_idx_t] = dyn
             norms[self._dyn_idx_t] = dyn_norms
+        for i, kde in kdes:
+            hists[i], norms[i] = self._kde_grid(i, kde, theta)
         return hists, norms
 
     def histograms_batch(self, thetas) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(nchains, nsignals, total_nbins)`` counts + ``(nchains,
         nsignals)`` norms at ``(nchains, nsyst)`` thetas: the dynamic
         rows of every chain from one B1-batched launch per MAXCHAINS
-        thetas."""
-        thetas = as_f32(thetas, self.device)
+        thetas; autograd as in :meth:`histograms`."""
+        return self._histograms_batch(as_f32(thetas, self.device), self._kde)
+
+    def _histograms_batch(self, thetas: torch.Tensor, kdes):
         nch = thetas.shape[0]
         hists = self.hist_init.expand(nch, -1, -1).clone()
         norms = self._norm_init_t.expand(nch, -1).clone()
@@ -250,37 +324,102 @@ class PdfStack:
             # One launch takes up to MAXCHAINS thetas: a larger batch (a
             # systematics grid, fluctuated toys) goes out in launches of
             # at most that many, each binning its own thetas exactly.
-            flat = thetas.reshape(nch, -1)
+            flat = thetas.detach().reshape(nch, -1)
             for a in range(0, nch, kernels.MAXCHAINS):
                 b = min(a + kernels.MAXCHAINS, nch)
                 dyn, dyn_norms = kernels.segmented_histogram_batched(
                     self.hist_spec, self.samples, flat[a:b].contiguous())
                 hists[a:b, self._dyn_idx_t] = dyn
                 norms[a:b, self._dyn_idx_t] = dyn_norms
+        for i, kde in kdes:
+            for c in range(nch):
+                hists[c, i], norms[c, i] = self._kde_grid(i, kde, thetas[c])
         return hists, norms
 
-    def evaluate(self, theta_syst, read_bins=None
+    def _late_kde(self, theta: torch.Tensor, use_exact_kde: bool):
+        """The KDE signals whose LUT rows :meth:`evaluate` puts in after
+        B2 instead of through it: the ``kde_exact`` ones with
+        ``use_exact_kde`` (their grid rows are not made at all), and,
+        when theta carries autograd (the gradient samplers), the ones
+        that a systematic acts on, so that their rows carry the
+        gradient and are made once."""
+        grad = torch.is_grad_enabled() and theta.requires_grad
+        return tuple((i, kde) for i, kde in self._kde
+                     if (use_exact_kde and kde.exact_lut)
+                     or (grad and kde.systematics))
+
+    def _late_rows(self, theta: torch.Tensor, read_bins: torch.Tensor,
+                   late, use_exact_kde: bool):
+        """``[(signal, LUT row (nevents,), norm)]`` of the signals
+        ``late`` at one theta: exact at the events of :meth:`set_data`
+        (JAX stack.py:934-958; the systematics-free ones from its
+        snapshot), or the grid rows read at ``read_bins``."""
+        out = []
+        for i, kde in late:
+            if use_exact_kde and kde.exact_lut:
+                row, nrm = self._exact_row(i, kde, theta)
+            else:
+                cnt, nrm = self._kde_grid(i, kde, theta)
+                row = eval_from_bins(cnt, nrm, self.bin_volume, read_bins[i])
+            out.append((i, row, nrm))
+        return out
+
+    def _exact_row(self, i: int, kde: EvalKDE, theta: torch.Tensor):
+        if self._kde_exact_state is None:
+            raise RuntimeError(
+                "use_exact_kde needs set_data() first (the exact rows are "
+                "per dataset)")
+        points, static_rows, static_norms = self._kde_exact_state
+        if kde.systematics:
+            return kde.eval_at(points, theta, samples=self._kde_samples[i])
+        slot = [j for j, k in self._kde_exact if not k.systematics].index(i)
+        return static_rows[slot], static_norms[slot]
+
+    def evaluate(self, theta_syst, read_bins=None,
+                 use_exact_kde: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """theta -> ``(lut (nsignals, nevents), norms (nsignals,))``:
         B1 for the dynamic rows on top of the static ones, then the LUT
-        gather B2 over the read bins (JAX stack.py:960-1001)."""
+        gather B2 over the read bins (JAX stack.py:960-1001).
+        ``use_exact_kde`` (the samplers' route; ``read_bins`` those of
+        :meth:`set_data`'s events) gives the ``kde_exact`` rows the
+        exact density at the events.  A theta that carries autograd
+        passes its gradient through the KDE rows that a systematic acts
+        on, as ``jax.grad`` does through ``EvalKDE``; the kernels take it
+        detached."""
         rb = self.read_bins if read_bins is None else read_bins
-        hists, norms = self.histograms(theta_syst)
-        return kernels.lut_eval(hists, norms, rb, self.bin_volume), norms
+        theta = as_f32(theta_syst, self.device).reshape(-1)
+        late = self._late_kde(theta, use_exact_kde)
+        hists, norms = self._histograms(
+            theta, [k for k in self._kde if k not in late])
+        lut = kernels.lut_eval(hists, norms, rb, self.bin_volume)
+        for i, row, nrm in self._late_rows(theta, rb, late, use_exact_kde):
+            lut[i], norms[i] = row, nrm
+        return lut, norms
 
-    def evaluate_batch(self, thetas, read_bins=None
+    def evaluate_batch(self, thetas, read_bins=None,
+                       use_exact_kde: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Batched ``(lut, norms)``: thetas ``(nchains, nsyst)`` ->
         ``((nchains, nsignals, nevents), (nchains, nsignals))``; B2 runs
         over the ``nchains * nsignals`` rows, every chain reading the
-        same read bins."""
+        same read bins; ``use_exact_kde`` and autograd as in
+        :meth:`evaluate`, per chain (JAX stack.py:1084-1106)."""
         rb = self.read_bins if read_bins is None else read_bins
-        hists, norms = self.histograms_batch(thetas)
+        thetas = as_f32(thetas, self.device)
+        late = self._late_kde(thetas, use_exact_kde)
+        hists, norms = self._histograms_batch(
+            thetas, [k for k in self._kde if k not in late])
         nch = hists.shape[0]
         lut = kernels.lut_eval(
             hists.reshape(nch * self.nsignals, self.total_nbins),
             norms.reshape(-1), rb, self.bin_volume)
-        return lut.reshape(nch, self.nsignals, rb.shape[1]), norms
+        lut = lut.reshape(nch, self.nsignals, rb.shape[1])
+        for c in range(nch):
+            for i, row, nrm in self._late_rows(thetas[c], rb, late,
+                                               use_exact_kde):
+                lut[c, i], norms[c, i] = row, nrm
+        return lut, norms
 
     def data_bin_counts(self, data) -> torch.Tensor:
         """The binned likelihood's sufficient statistic: ``(ndatasets,

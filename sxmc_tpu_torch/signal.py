@@ -5,8 +5,10 @@ src/systematic.{h,cpp}, src/source.{h,cpp}, src/signal.{h,cpp}).  A
 ``Signal`` loads an MC ntuple, applies cuts, maps columns into the
 fit's sample-field layout, and owns an
 :class:`~sxmc_tpu_torch.pdf.evalhist.EvalHist` with its systematics
-attached (reference: signal.cpp:11-169).  KDE signals are not ported
-yet and raise.
+attached (reference: signal.cpp:11-169), or with ``kde`` an
+:class:`~sxmc_tpu_torch.pdf.evalkde.EvalKDE`.  ``.sxnt`` tables are read
+through the native event store (``sxmc_tpu_torch.io.native``), which
+applies the cuts, the column mapping and the DATASET tag itself.
 """
 
 from __future__ import annotations
@@ -19,12 +21,7 @@ import numpy as np
 from sxmc_tpu_torch.io import loaders
 from sxmc_tpu_torch.ops import transforms
 from sxmc_tpu_torch.pdf.evalhist import EvalHist
-
-
-def _kde_not_ported():
-    raise NotImplementedError(
-        "KDE signals (pdf/evalkde.py) are not ported to sxmc_tpu_torch "
-        "yet (ROADMAP queue A, item 12)")
+from sxmc_tpu_torch.pdf.evalkde import EvalKDE
 
 
 @dataclasses.dataclass
@@ -159,7 +156,39 @@ class Signal:
         kde_exact: bool = False,
     ) -> "Signal":
         if kde:
-            _kde_not_ported()
+            # KDE signals take the generic table path (JAX signal.py:
+            # 154-162).
+            data, fields = loaders.read_float_table(filename)
+            return cls.from_table(
+                name, title, data, fields, dataset, source, nexpected,
+                sample_fields, observables, cuts, systematics,
+                filename=filename, kde=True,
+                bandwidth_scale=bandwidth_scale, kde_exact=kde_exact)
+        if filename.endswith((".sxnt", ".sxt")):
+            # Native ingest: cuts, column mapping and the DATASET tag in
+            # the C++ event store (JAX signal.py:163-185).
+            from sxmc_tpu_torch.io import native
+
+            if native.available():
+                store = native.EventStore(filename)
+                try:
+                    n_mc = store.nrows
+                    samples = store.select(
+                        list(sample_fields[:-1]),
+                        cuts=[(c.field, c.lower, c.upper) for c in cuts],
+                        dataset_tag=float(dataset))
+                finally:
+                    store.close()
+                if nexpected < 0:
+                    nexpected = -nexpected * n_mc
+                hist = build_pdf(samples, sample_fields, observables,
+                                 systematics, dataset)
+                return cls(
+                    name=name, title=title, filename=filename,
+                    dataset=dataset, source=source,
+                    nexpected=float(nexpected), n_mc=int(n_mc),
+                    histogram=hist,
+                    systematic_names=[s.name for s in systematics])
         data, fields = loaders.read_float_table(filename)
         return cls.from_table(
             name, title, data, fields, dataset, source, nexpected,
@@ -269,7 +298,9 @@ def build_pdf(
     columns.  ``kde=True`` builds a kernel-density evaluator instead
     (the feature the reference declared but never implemented,
     pdfz.h:590-625); its density is represented on the same bin grid so
-    it drops into the batched fit machinery; not ported yet.
+    it drops into the batched fit machinery.  Both are host-side
+    containers: the fit's PdfStack copies the samples to its device, so
+    parsing a configuration touches no device.
     """
     nobs = len(observables)
     lower = [0.0] * nobs
@@ -286,11 +317,12 @@ def build_pdf(
         nbins[i] = obs.bins
 
     if kde:
-        _kde_not_ported()
-    # A host-side container: the fit's PdfStack copies the samples to
-    # its device, so parsing a configuration touches no device.
-    hist = EvalHist(samples, len(sample_fields), nobs, lower, upper,
-                    nbins, dataset=dataset, device="cpu")
+        hist = EvalKDE(samples, len(sample_fields), nobs, lower, upper,
+                       bandwidth_scale=bandwidth_scale, dataset=dataset,
+                       nbins=nbins, exact_lut=kde_exact, device="cpu")
+    else:
+        hist = EvalHist(samples, len(sample_fields), nobs, lower, upper,
+                        nbins, dataset=dataset, device="cpu")
     for syst in systematics:
         hist.add_systematic(transforms.SystematicDesc(
             type=syst.type,

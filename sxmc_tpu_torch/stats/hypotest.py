@@ -52,13 +52,16 @@ def _norm_isf(p):
 @contextlib.contextmanager
 def _preserved_fit_state(mle: MLE):
     """Run a side fit (an Asimov dataset) without clobbering the
-    fit's dataset: restores the stack's read bins and the MLE's
-    last-fit cache on exit."""
-    saved = (mle.stack._read_bins, getattr(mle, "_last", None))
+    fit's dataset: restores the stack's read bins, its exact-KDE
+    snapshot and the MLE's last-fit cache on exit (JAX hypotest.py:
+    43-60)."""
+    stack = mle.stack
+    saved = (stack._read_bins, stack._kde_exact_state,
+             getattr(mle, "_last", None))
     try:
         yield
     finally:
-        mle.stack._read_bins, last = saved
+        stack._read_bins, stack._kde_exact_state, last = saved
         if last is not None:
             mle._last = last
         elif hasattr(mle, "_last"):

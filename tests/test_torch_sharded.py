@@ -53,7 +53,6 @@ from sxmc_tpu.parallel import ensemble as jpe
 from sxmc_tpu_torch import interop
 from sxmc_tpu_torch.mcmc import metropolis as tm
 from sxmc_tpu_torch.observability import MetricsLogger
-from sxmc_tpu_torch.ops import kernels
 from sxmc_tpu_torch.parallel import ensemble as tpe
 
 from test_torch_pdf import make_data
@@ -336,81 +335,3 @@ def _compare_runs(setup, monkeypatch, tmp_path, route):
     np.testing.assert_allclose(tlim, jlim, rtol=RUN_REL)
 
 
-def test_run_sharded_ensemble_matches_jax(setup, monkeypatch, tmp_path):
-    """The grouped diagonal route end to end against the JAX runner."""
-    _compare_runs(setup, monkeypatch, tmp_path, "diagonal")
-
-
-@pytest.mark.parametrize("route", ["full_cov", "rate_substeps", "fixed"])
-def test_run_sharded_ensemble_routes_match_jax(setup, monkeypatch, tmp_path,
-                                               route):
-    """The grouped tril and blocked routes through both retunes, and the
-    per-experiment route (fixed systematics), against the JAX runner."""
-    _compare_runs(setup, monkeypatch, tmp_path, route)
-
-
-@pytest.mark.parametrize("fit", [{}, {"proposal": "full_cov"},
-                                 {"rate_substeps": 2}, {"binned": True}])
-def test_kill_and_resume_is_bitwise(setup, tmp_path, monkeypatch, fit):
-    """A run killed after its third segment and resumed equals the
-    uninterrupted run bit for bit: grouped diagonal, tril and blocked,
-    and the per-experiment (binned) route."""
-    fc = _fit_config("sxmc_tpu_torch", nsteps=60, **fit)
-    kw = dict(device="cpu", verbose=False, checkpoint_steps=NSTEPS,
-              dataset_fn=lambda i: setup["datasets"][i])
-    ls_a, lim_a = tpe.run_sharded_ensemble(
-        fc, checkpoint_path=str(tmp_path / "a"), **kw)
-    real, calls = tpe._segment, []
-
-    def dying(*args, **kwargs):
-        if len(calls) >= 3:
-            raise RuntimeError("simulated preemption")
-        calls.append(1)
-        return real(*args, **kwargs)
-
-    monkeypatch.setattr(tpe, "_segment", dying)
-    with pytest.raises(RuntimeError, match="preemption"):
-        tpe.run_sharded_ensemble(fc, checkpoint_path=str(tmp_path / "b"),
-                                 **kw)
-    monkeypatch.setattr(tpe, "_segment", real)
-    state = dict(np.load(str(tmp_path / "b") + ".state.npz"))
-    assert state["params"].shape == (NEXP, CPE, 3) and state["phase"] == 1
-    ls_b, lim_b = tpe.run_sharded_ensemble(
-        fc, checkpoint_path=str(tmp_path / "b"), resume=True, **kw)
-    assert lim_a == lim_b and np.isfinite(lim_a).all()
-    for a, b in zip(ls_a, ls_b):
-        np.testing.assert_array_equal(a.samples, b.samples)
-        np.testing.assert_array_equal(a.nll_values, b.nll_values)
-
-
-def test_grouped_batch_splits_into_launches(setup):
-    """Past one launch's chain caps the batch goes out in launches of
-    whole experiments; one experiment's chains alone must fit."""
-    ns = setup[False][1].nll_spec  # 3 parameters, 2 signals
-    assert kernels._experiment_groups(ns, 4, 8) == [(0, 4)]
-    assert kernels._experiment_groups(ns, 5, 8) == [(0, 4), (4, 5)]
-    assert kernels._experiment_groups(ns, 100, 1) == [(0, 32), (32, 64),
-                                                       (64, 96), (96, 100)]
-    with pytest.raises(ValueError, match="exceed one launch"):
-        kernels._experiment_groups(ns, 1, 33)
-
-
-def test_cli_sharded_on_the_cpu(tmp_path, capsys):
-    from sxmc_tpu_torch.cli import main
-
-    cfg = json.loads(open(os.path.join(GOLDEN, "config.json")).read())
-    cfg["fit"].update(nsteps=100, nchains=2, output_format="npz")
-    path = tmp_path / "config.json"
-    path.write_text(json.dumps(cfg))
-    out = tmp_path / "out"
-    assert main([str(path), str(out), "--sharded", "--device", "cpu",
-                 "--data-root", GOLDEN]) == 0
-    assert "Median upper limit" in capsys.readouterr().out
-    recs = [json.loads(line) for line in
-            (out / "golden_metrics.jsonl").read_text().splitlines()]
-    fit = [r for r in recs if r["event"] == "sharded_fit"][0]
-    assert fit["route"] == "grouped" and fit["steps_per_sec"] > 0
-    limits = [r["upper"] for r in recs if r["event"] == "experiment_limit"]
-    assert len(limits) == 2 and np.isfinite(limits).all()
-    for i in range(2):
-        assert (out / f"golden_{i}.npz").exists()

@@ -58,7 +58,6 @@ limit are printed beside the numbers.
 """
 
 import argparse
-import ctypes
 import importlib.util
 import json
 import os
@@ -317,24 +316,13 @@ def _measure_binned(tree: str) -> dict:
 
 
 def _hist_at(torch, kernels, hs, x, th, nch: int, grid):
-    """One B1 launch of the library's ``sx_histogram`` on ``grid`` =
-    (blocks, slots) in place of sx_hist_grid's rule, with the wrapper's
-    spec and accumulator (a launch through the wrapper makes them
-    first): ``(counts (nch, ndyn, total), norms (nch, ndyn))``."""
-    dev = x.device
-    if (nch, dev.index) not in hs._b1:
+    """One B1 launch on ``grid`` = (blocks, slots) in place of the
+    plan's (``kernels.launch_histogram_at``; a launch through the wrapper
+    makes the plan first, so that the rule's grid can be read from it):
+    ``(counts (nch, ndyn, total), norms (nch, ndyn))``."""
+    if (nch, x.device.index) not in hs._b1:
         kernels._launch_histogram(hs, x, th, nch, "probe")
-    lib = kernels._library()
-    nh = hs._b1[(nch, dev.index)][2]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    acc, ticket = kernels._b1_accumulator(dev, stream, nh)
-    out = torch.empty(nh + nch * hs.ndyn, dtype=torch.float32, device=dev)
-    kernels._check_cuda(lib, lib.sx_histogram(
-        ctypes.byref(hs._b1["spec"]), nch, int(hs.weighted), x.data_ptr(),
-        th.data_ptr(), th.shape[-1], grid[0], grid[1], acc, ticket,
-        out.data_ptr(), stream), "probe")
-    return (out[:nh].view(nch, hs.ndyn, hs.total),
-            out[nh:].view(nch, hs.ndyn))
+    return kernels.launch_histogram_at(hs, x, th, nch, tuple(grid))
 
 
 def _probe() -> dict:

@@ -115,6 +115,21 @@ from the root of a checkout, on a machine with one Hopper card.  It
      device="cpu" on the same data (best-fit NLL within NLL_TOL; free
      rates, profile limit and Asimov limit within 1e-3 relative), and
      the toys' dNLL with B2 against lut_eval_plain on the card;
+     then the last modules: B1's autotuner (a reduced --record sweep of
+     ops.autotune.shapes into this run's cache under build/autotune/,
+     its table printed, every swept grid held against B1's plain
+     version, the wrapper's fresh plan equal to each verdict); the
+     multi-process ensemble (two CLI processes with --num-processes 2
+     --coordinator 127.0.0.1:<port> on cuda:0, 4 experiments: limits
+     equal to one process's run_multihost_ensemble bit for bit, each
+     process's launches exact); and the device mesh with its shards on
+     the one card: the event-sharded chain at 2 and 4 shards (summed B1
+     counts equal unsharded B1, the initial NLL within NLL_TOL, a
+     500-step walk equal to the unsharded stepper's decisions on the
+     same draws, k B1 and k B2 a step), the bin-sharded build and eval
+     at 100 bins, FeldmanCousins and the pull study on a 2-shard mesh
+     and the sharded ensemble on a 2-shard exp mesh, each equal to its
+     unsharded run: 50 paths;
   5. prints the kernels' JSON line (every kernel and form: launches on
      the paths, error, times, bound, library time), the card line, and
      as its last line {"ok": true, "device": {...}}.
@@ -2939,6 +2954,357 @@ def hmc_host_costs(torch, kernels, config_path: str, workdir: str) -> dict:
             "b1_host_us": b1, "b2_host_us": b2, "gather_host_us": gather}
 
 
+# ------------------- the autotuner, the multi-process ensemble, the mesh
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+AUTOTUNE_REPS = 10     # launches a CUDA graph of the reduced sweep holds
+MH_NEXP = 4            # experiments of the two-process ensemble
+MH_TIMEOUT = 600       # seconds a worker process may take
+WALK_STEPS = SEGMENT_STEPS  # the event-sharded chain's walk
+MESH_BINS = 100        # the bin-sharded example's energy bins
+
+
+def autotune_phase(torch, kernels, config_path: str, workdir: str) -> dict:
+    """B1's autotuner on the card: a reduced ``--record`` sweep (every
+    candidate grid of ops.autotune.shapes, card time from CUDA graphs of
+    AUTOTUNE_REPS launches) into the cache file that the environment
+    names (build/autotune/, this run's copy of the shipped file), its
+    table printed; every candidate grid timed and held against B1's
+    plain version (exact counts); then the wrapper's plan for each shape,
+    made afresh, must be the recorded verdict."""
+    from sxmc_tpu_torch.ops import autotune
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    swept = autotune.record(dev, reps=AUTOTUNE_REPS)
+    sweep_s = time.perf_counter() - t0
+    cache = autotune.load_cache()
+    checked = 0
+    for name, (hs, x, th) in autotune.shapes(dev).items():
+        nch = th.shape[0] if th.dim() == 2 else 1
+        grids = autotune.candidate_grids(hs, nch, dev)
+        check(len(swept[name]["times"]) == len(grids),
+              f"autotune {name}: {len(swept[name]['times'])} of "
+              f"{len(grids)} grids timed")
+        want = kernels.segmented_histogram_plain(hs, x, th)
+        for label in swept[name]["times"]:
+            b, s = (int(w.split()[0]) for w in label.split(", "))
+            got = kernels.launch_histogram_at(hs, x, th, nch, (b, s))
+            got = tuple(g.reshape(w.shape) for g, w in zip(got, want))
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"autotune {name}: B1 at {label} differs from plain")
+            checked += 1
+        fresh = kernels.HistSpec.build(hs.nfields, hs.lower, hs.upper,
+                                       hs.nbins, hs.systematics, hs.seg_off,
+                                       hs.weighted)
+        rec = cache[swept[name]["key"]]
+        check(kernels.b1_grid(fresh, nch, dev) == (rec["blocks"],
+                                                   rec["slots"]),
+              f"autotune {name}: the plan ignores the verdict {rec}")
+        print(f"autotune {name}: rule {tuple(swept[name]['rule'])} "
+              f"{rec['heuristic_seconds'] * 1e3:.4f} ms, verdict "
+              f"({rec['blocks']}, {rec['slots']}) {rec['seconds'] * 1e3:.4f}"
+              f" ms on {autotune.card()}")
+    path = autotune.cache_path()
+    print(f"autotune: {checked} grids equal to B1's plain version; the "
+          f"verdicts written to {path} (sweep {sweep_s:.2f} s)")
+    with open(path) as f:
+        return {"sweep_seconds": sweep_s, "grids_checked": checked,
+                "file": json.load(f)}
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def multihost_phase(torch, kernels, config_path: str, workdir: str):
+    """The multi-process ensemble on the one card: two processes of
+    ``python -m sxmc_tpu_torch.cli ... --num-processes 2 --coordinator
+    127.0.0.1:<free port> --process-id i`` (MH_NEXP experiments, both on
+    cuda:0, a timeout each), their gathered limits equal to one
+    process's ``run_multihost_ensemble`` bit for bit, each process's
+    launches exact (B1 for each of its experiments' fake data, B3 for
+    each one's initial NLL, one grouped B4 launch per phase)."""
+    from sxmc_tpu_torch.fitconfig import FitConfig
+    from sxmc_tpu_torch.parallel.multihost import run_multihost_ensemble
+
+    dev = torch.device("cuda")
+    cfg = path_config(config_path, workdir, "multihost",
+                      {"nexperiments": MH_NEXP}, FULL_STEPS)
+    fc = FitConfig.from_json_file(cfg, data_root=workdir)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, want = run_multihost_ensemble(fc, device=dev, verbose=False)
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    one = kernels.launch_counts()
+    expect = {"segmented_histogram": MH_NEXP, "fused_nll": MH_NEXP,
+              "fused_segment_grouped": 3}
+    check(one == {k: expect.get(k, 0) for k in one},
+          f"multihost, one process: launches {one}")
+    out = os.path.join(workdir, "out_multihost")
+    coord = f"127.0.0.1:{_free_port()}"
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "sxmc_tpu_torch.cli", cfg, out, "--data-root",
+         workdir, "--device", "cuda", "--num-processes", "2",
+         "--coordinator", coord, "--process-id", str(i)], env=env, cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in (0, 1)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MH_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"multihost: a worker ran past {MH_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    two_wall = time.perf_counter() - t0
+    for i, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"multihost: process {i} returned "
+              f"{p.returncode}:\n{log[-3000:]}")
+    recs = []
+    for i in (0, 1):
+        with open(os.path.join(out, f"example_metrics_{i}.jsonl")) as f:
+            recs.append(json.loads(f.readline()))
+    half = {"segmented_histogram": MH_NEXP // 2, "fused_nll": MH_NEXP // 2,
+            "fused_segment_grouped": 3}
+    total = dict.fromkeys(kernels.launch_counts(), 0)
+    for i, r in enumerate(recs):
+        check(r["experiments"] == list(range(i * 2, i * 2 + 2)),
+              f"multihost: process {i} fitted {r['experiments']}")
+        check(r["launches"] == half,
+              f"multihost: process {i} launched {r['launches']}")
+        check(r["limits"] == want.tolist(),
+              f"multihost: process {i}'s limits {r['limits']} differ from "
+              f"one process's {want.tolist()}")
+        for k, v in r["launches"].items():
+            total[k] += v
+    check(all(0.8 < x < 1.5 for x in want), f"multihost: limits {want}")
+    print(f"path multihost: 2 processes on one card, limits {want.tolist()} "
+          f"equal to one process's bit for bit; walls: two processes "
+          f"{two_wall:.2f} s (their fits {[round(r['wall_seconds'], 3) for r in recs]}"
+          f" s, each with its start and build load), one process "
+          f"{one_wall:.2f} s")
+    base = {"nchains": MH_NEXP, "nsteps": FULL_STEPS, "updates_per_sec": None,
+            "replica_steps_per_sec": None}
+    return [dict(base, path="multihost, one process", launches=one,
+                 wall_seconds=one_wall, cli_seconds=one_wall,
+                 steps_per_sec=FULL_STEPS * MH_NEXP / one_wall),
+            dict(base, path="multihost, two processes", launches=total,
+                 wall_seconds=two_wall, cli_seconds=two_wall,
+                 steps_per_sec=FULL_STEPS * MH_NEXP / two_wall)]
+
+
+def _walk_presampler(torch, npar: int, seed: int):
+    dev = torch.device("cuda")
+    from sxmc_tpu_torch.mcmc import metropolis
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    drawn = {}
+
+    def presample(k, n):
+        if (k, n) not in drawn:
+            drawn[(k, n)] = metropolis.presample(gen, n, npar, dev)
+        return drawn[(k, n)]
+
+    return presample
+
+
+def mesh_phase(torch, kernels, config_path: str, workdir: str):
+    """The device mesh, its shards on the one card ([cuda:0] * k):
+    run_sharded_chain at k = 2 and 4 (the summed B1 counts equal
+    unsharded B1 exactly, the initial NLL within NLL_TOL of the
+    unsharded stepper's and of B3, a WALK_STEPS-step walk equal to the
+    unsharded stepper's decisions on the same draws, k B1 and k B2
+    launches an evaluation); the bin-sharded build and eval of the
+    example at MESH_BINS bins against the unsharded ones; FeldmanCousins
+    and the pull study with a 2-shard mesh against the unsharded runs on
+    the same toys; the sharded ensemble on a 2-shard exp mesh against the
+    one-device batch."""
+    from sxmc_tpu_torch.fitconfig import FitConfig
+    from sxmc_tpu_torch.mcmc import metropolis
+    from sxmc_tpu_torch.parallel import bin_sharded
+    from sxmc_tpu_torch.parallel import mesh as mesh_lib
+    from sxmc_tpu_torch.parallel.chain_sharded import (ShardedNLL,
+                                                       run_sharded_chain)
+    from sxmc_tpu_torch.parallel.ensemble import run_sharded_ensemble
+    from sxmc_tpu_torch.stats.bias import pull_study
+    from sxmc_tpu_torch.stats.feldman_cousins import FeldmanCousins
+    from sxmc_tpu_torch.stats.mle import MLE
+
+    dev = torch.device("cuda")
+    results, report = [], {}
+    mcmc, data = example_mcmc(torch, config_path, workdir)
+    rb = mcmc.stack.read_bins
+    ns = mcmc.nsources
+    p0 = torch.as_tensor(mcmc.parameter_means, dtype=torch.float32,
+                         device=dev)
+    stepper = metropolis._chain_nll(mcmc, rb, allow_fused=False)
+    ref0 = stepper(p0)
+    b3 = metropolis._chain_nll(mcmc, rb)(p0)
+
+    def nll_of(pair):
+        return float(pair[0].double() + pair[1].double())
+
+    # The unsharded stepper's walk on the draws the sharded walks take.
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    want = metropolis.run_chain(mcmc, rb, WALK_STEPS, int(WALK_STEPS * 0.2),
+                                False, _walk_presampler(torch, 4, 31),
+                                chain_nll=stepper)
+    torch.cuda.synchronize()
+    walls = {1: time.perf_counter() - t0}
+    evals = WALK_STEPS + 1  # the initial NLL, then one a step
+    counts = kernels.launch_counts()
+    expect = {"segmented_histogram": evals, "lut_eval": evals}
+    check(counts == {n: expect.get(n, 0) for n in counts},
+          f"unsharded stepper walk: launches {counts}")
+    for k in (2, 4):
+        mesh = mesh_lib.make_mesh(event=k, devices=[dev] * k)
+        nll = ShardedNLL(mcmc, rb, mesh)
+        for th in ([0.0, 0.0], [0.01, -0.002], [-0.02, 0.001]):
+            theta = torch.tensor(th, dtype=torch.float32, device=dev)
+            got, ref = nll.histograms(theta), mcmc.stack.histograms(theta)
+            check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                  f"event-sharded chain, {k} shards: summed B1 counts differ "
+                  f"at {th}")
+        err0 = abs(nll_of(nll(p0)) - nll_of(ref0))
+        check(err0 <= NLL_TOL and abs(nll_of(nll(p0)) - nll_of(b3))
+              <= NLL_TOL, f"event-sharded chain, {k} shards: initial NLL "
+              f"{nll_of(nll(p0))}, stepper {nll_of(ref0)}, B3 {nll_of(b3)}")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ls = run_sharded_chain(mcmc, data, WALK_STEPS, 0.2, mesh=mesh,
+                               presampler=_walk_presampler(torch, 4, 31))
+        torch.cuda.synchronize()
+        walls[k] = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        expect = {"segmented_histogram": k * evals, "lut_eval": k * evals}
+        check(counts == {n: expect.get(n, 0) for n in counts},
+              f"event-sharded chain, {k} shards: launches {counts}")
+        got = torch.as_tensor(np.stack(
+            [ls.column(n) for n in mcmc.parameter_names], axis=1))
+        same = (got == want[0].cpu()).all(dim=1)
+        if not bool(same.all()):
+            fail(f"event-sharded chain, {k} shards: decisions diverge from "
+                 f"the unsharded stepper's at kept step "
+                 f"{int((~same).nonzero()[0])}")
+        nerr = float(np.abs(ls.nll_values - metropolis.nll_history_to_f64(
+            want[1])).max())
+        check(nerr <= NLL_TOL, f"event-sharded chain, {k} shards: NLL "
+              f"history differs by {nerr}")
+        report[f"chain {k} shards"] = {"initial_nll_err": err0,
+                                       "nll_history_err": nerr,
+                                       "wall_seconds": walls[k]}
+        results.append({"path": f"event-sharded chain, {k} shards",
+                        "nsteps": WALK_STEPS, "nchains": 1,
+                        "steps_per_sec": WALK_STEPS / walls[k],
+                        "updates_per_sec": None,
+                        "replica_steps_per_sec": None,
+                        "wall_seconds": walls[k], "cli_seconds": walls[k],
+                        "launches": counts})
+        print(f"path event-sharded chain, {k} shards on one card: "
+              f"{WALK_STEPS} steps in {walls[k]:.3f} s (unsharded stepper "
+              f"{walls[1]:.3f} s), decisions equal, initial NLL off by "
+              f"{err0:.3g}, history by {nerr:.3g}; launches "
+              f"{ {n: v for n, v in counts.items() if v} }")
+
+    # The bin-sharded build and eval of the example at MESH_BINS bins.
+    wide, _ = example_mcmc(torch, write_example_variant(
+        config_path, workdir, bins=MESH_BINS), workdir, data)
+    bmesh = bin_sharded.make_bin_mesh(devices=[dev] * 4)
+    for th in ([0.0, 0.0], [0.01, -0.002]):
+        theta = torch.tensor(th, dtype=torch.float32, device=dev)
+        shards, norms = bin_sharded.bin_sharded_histograms(bmesh, wide.stack,
+                                                           theta)
+        h = torch.cat(shards, dim=1)[:, :wide.stack.total_nbins]
+        ref_h, ref_n = wide.stack.histograms(theta)
+        check(torch.equal(h, ref_h) and torch.equal(norms, ref_n),
+              f"bin-sharded build at {th} differs from unsharded B1")
+        lut = bin_sharded.bin_sharded_eval(bmesh, shards, norms,
+                                           wide.stack.read_bins,
+                                           wide.stack.bin_volume)
+        lut_equal(torch, lut, wide.stack.evaluate(theta)[0])
+    print(f"bin-sharded build and eval, {MESH_BINS} bins over 4 shards: "
+          "equal to unsharded B1 and B2")
+
+    # The tier with a 2-shard mesh, on the same toys as unsharded.
+    fc = FitConfig.from_json_file(config_path, data_root=workdir)
+    mle = MLE(fc.sources, fc.signals, fc.systematics, fc.observables,
+              device=dev)
+    tmesh = mesh_lib.make_mesh(exp=2, devices=[dev] * 2)
+    grid = np.linspace(0.85, 1.15, FC_GRID)
+    belts, pulls, tier_walls = [], [], []
+    for m in (None, tmesh):
+        t0 = time.perf_counter()
+        belts.append(FeldmanCousins(mle, "signal1").build_belt(
+            torch.Generator(dev).manual_seed(7), grid, ntoys=NTOYS, cl=0.9,
+            mesh=m))
+        pulls.append(pull_study(mle, NTOYS, torch.Generator(
+            dev).manual_seed(9), mesh=m))
+        torch.cuda.synchronize()
+        tier_walls.append(time.perf_counter() - t0)
+    check(np.array_equal(belts[0].dnll_toys, belts[1].dnll_toys)
+          and np.array_equal(belts[0].crit, belts[1].crit),
+          "FC belt on a 2-shard mesh differs from unsharded: max "
+          f"{np.abs(belts[0].dnll_toys - belts[1].dnll_toys).max()}")
+    check(np.array_equal(pulls[0].estimates, pulls[1].estimates)
+          and np.array_equal(pulls[0].errors, pulls[1].errors),
+          "pull study on a 2-shard mesh differs from unsharded")
+    print(f"FC belt ({FC_GRID} x {NTOYS} toys) and pull study ({NTOYS} "
+          f"toys) on a 2-shard mesh: equal to unsharded; walls "
+          f"{tier_walls[1]:.3f} s (unsharded {tier_walls[0]:.3f} s)")
+    report["tier walls"] = tier_walls
+
+    # The sharded ensemble on a 2-shard exp mesh.
+    ecfg = path_config(config_path, workdir, "mesh ensemble", SHARDED,
+                       FULL_STEPS)
+    efc = FitConfig.from_json_file(ecfg, data_root=workdir)
+    runs = []
+    for m in (None, mesh_lib.make_mesh(exp=2, devices=[dev] * 2)):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ls_e, lim = run_sharded_ensemble(efc, device=dev, verbose=False,
+                                         mesh=m)
+        torch.cuda.synchronize()
+        runs.append((ls_e, lim, time.perf_counter() - t0,
+                     kernels.launch_counts()))
+    expect = {"segmented_histogram": NEXP, "fused_nll": NEXP}
+    check(runs[0][3] == {n: dict(expect, fused_segment_grouped=3).get(n, 0)
+                         for n in runs[0][3]},
+          f"sharded ensemble, one device: launches {runs[0][3]}")
+    check(runs[1][3] == {n: dict(expect, fused_segment_grouped=6).get(n, 0)
+                         for n in runs[1][3]},
+          f"sharded ensemble, 2 shards: launches {runs[1][3]}")
+    check(runs[1][1] == runs[0][1] and all(
+        np.array_equal(a.nll_values, b.nll_values)
+        for a, b in zip(runs[0][0], runs[1][0])),
+        f"sharded ensemble on a 2-shard mesh: limits {runs[1][1]}, one "
+        f"device {runs[0][1]}")
+    print(f"path sharded ensemble, 2-shard exp mesh: limits equal to the "
+          f"one-device batch bit for bit; walls {runs[1][2]:.3f} s "
+          f"(one device {runs[0][2]:.3f} s)")
+    results.append({"path": "sharded ensemble, 2-shard exp mesh",
+                    "nsteps": FULL_STEPS, "nchains": NEXP * CPE,
+                    "steps_per_sec": FULL_STEPS * NEXP * CPE / runs[1][2],
+                    "updates_per_sec": None, "replica_steps_per_sec": None,
+                    "wall_seconds": runs[1][2], "cli_seconds": runs[1][2],
+                    "launches": runs[1][3]})
+    report["ensemble walls"] = [runs[0][2], runs[1][2]]
+    return results, report
+
+
 def main() -> int:
     try:
         import torch
@@ -2955,6 +3321,13 @@ def main() -> int:
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"])
     print(f"card: {smi}")
+    # B1's verdicts: the shipped file, under this run's own cache in the
+    # checkout (build/autotune/), which the autotune phase records anew;
+    # nothing is read from or written to the home directory.
+    cache = os.path.join(HERE, "build", "autotune", "autotune_h100.json")
+    if os.path.exists(cache):
+        os.remove(cache)
+    os.environ["SXMC_TPU_TORCH_AUTOTUNE_CACHE"] = cache
     nvcc = kernels._nvcc()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, nvcc: "
@@ -2998,6 +3371,10 @@ def main() -> int:
         resume = phase(kill_and_resume, *args)
         profiled = phase(profile_and_traces, *args)
         host = phase(hmc_host_costs, *args)
+        tuned = phase(autotune_phase, *args)
+        paths += phase(multihost_phase, *args)
+        mesh_paths, mesh_report = phase(mesh_phase, *args)
+        paths += mesh_paths
     paths += stats
 
     rows = []
@@ -3037,8 +3414,8 @@ def main() -> int:
     print(json.dumps({"tempered_split": split, "mle_card_vs_cpu": mle_check,
                       "hmc_card_vs_cpu": hmc_check, "kill_and_resume": resume,
                       "profile": profiled, "hmc_host_costs": host,
-                      "kde_sxnt_pooled": kde_checks,
-                      "phase_seconds": walls}))
+                      "kde_sxnt_pooled": kde_checks, "mesh": mesh_report,
+                      "autotune": tuned, "phase_seconds": walls}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,10 @@
 mirrors ``sxmc_tpu.cli`` (reference src/sxmc.cpp:181-187).  The device
 is explicit: ``--device cuda`` (the default) runs the hand-written
 kernels and raises when CUDA is missing; ``--device cpu`` runs their
-plain PyTorch versions.  Options of the JAX CLI that the port does not
-run yet (the multi-process layer) are accepted and raise
-``NotImplementedError``.
+plain PyTorch versions.  ``--num-processes N --coordinator host:port
+--process-id i`` runs process i of an ensemble spread over N processes
+(``parallel.multihost``; ``torch.distributed`` with the gloo backend),
+each on ``--device``.
 """
 
 from __future__ import annotations
@@ -40,20 +41,21 @@ def main(argv=None) -> int:
                              "replica exchange for multimodal posteriors), "
                              "or 'mle' for a gradient maximum-likelihood "
                              "fit with profile-likelihood intervals")
-    not_ported = {
-        "num_processes": "ROADMAP queue A, item 14",
-        "coordinator": "ROADMAP queue A, item 14",
-        "process_id": "ROADMAP queue A, item 14",
-    }
     parser.add_argument("--sharded", action="store_true",
                         help="fit every experiment's chains as one batch "
                              "(the experiment-grouped kernels) on the one "
                              "device")
     parser.add_argument("--num-processes", type=int, default=1,
-                        metavar="N", help="not ported")
-    parser.add_argument("--coordinator", default=None, help="not ported")
+                        metavar="N",
+                        help="spread the ensemble over N processes "
+                             "(torch.distributed, gloo); each fits its "
+                             "block of experiments on --device and writes "
+                             "their outputs, process 0 prints the limits")
+    parser.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                        help="address of the process group's rendezvous "
+                             "(with --num-processes > 1)")
     parser.add_argument("--process-id", type=int, default=None,
-                        help="not ported")
+                        help="this process's rank in [0, N)")
     parser.add_argument("--profile", metavar="LOGDIR", default=None,
                         help="write a torch.profiler trace (Chrome trace "
                              "format, CUDA activity on the card) of the fit "
@@ -106,41 +108,35 @@ def main(argv=None) -> int:
                              "bin); overrides fit.binned")
     args = parser.parse_args(argv)
 
-    def requested(key):
-        v = getattr(args, key)
-        if key == "num_processes":
-            return v > 1
-        if key in ("coordinator", "process_id"):
-            return v is not None
-        return v is True or (v is not None and v is not False and v > 0)
-
-    asked = [f"--{k.replace('_', '-')} ({item})"
-             for k, item in not_ported.items() if requested(k)]
-    if asked:
-        raise NotImplementedError(
-            "not ported to sxmc_tpu_torch yet: " + "; ".join(asked))
-    unsharded = (args.sampler in ("mle", "hmc", "nuts", "stretch")
+    unsharded = (args.sampler in ("mle", "hmc", "nuts", "stretch",
+                                  "tempered")
                  or args.hypotest > 0 or args.hypotest_asymptotic
                  or args.gof_toys >= 0 or args.bias_toys > 0)
-    if args.sharded and unsharded:
+    if (args.sharded or args.num_processes > 1) and unsharded:
         raise ValueError(
-            "--sharded runs the Metropolis fit alone: --sampler "
-            "mle|hmc|nuts|stretch, --hypotest, --hypotest-asymptotic, --gof "
-            "and --bias-study run without it")
+            "--sharded and --num-processes run the Metropolis fit alone: "
+            "--sampler mle|hmc|nuts|stretch|tempered, --hypotest, "
+            "--hypotest-asymptotic, --gof and --bias-study run without it")
     device = resolve_device(args.device)
+    from sxmc_tpu_torch.observability import profile
+
+    if args.num_processes > 1:
+        with profile(args.profile):
+            _main_multihost(args, device)
+        return 0
 
     if args.sharded:
         from sxmc_tpu_torch.parallel.ensemble import main_sharded
 
-        main_sharded(args.config, args.output_path, device=device,
-                     data_root=args.data_root, binned=args.binned,
-                     rate_substeps=args.rate_substeps,
-                     checkpoint_steps=args.checkpoint_steps,
-                     resume=args.resume)
+        with profile(args.profile):
+            main_sharded(args.config, args.output_path, device=device,
+                         data_root=args.data_root, binned=args.binned,
+                         rate_substeps=args.rate_substeps,
+                         checkpoint_steps=args.checkpoint_steps,
+                         resume=args.resume)
         return 0
 
     from sxmc_tpu_torch.ensemble import main_fit
-    from sxmc_tpu_torch.observability import profile
 
     with profile(args.profile):
         main_fit(args.config, args.output_path, device=device,
@@ -153,6 +149,53 @@ def main(argv=None) -> int:
                  gof_toys=args.gof_toys, bias_toys=args.bias_toys,
                  checkpoint_steps=args.checkpoint_steps)
     return 0
+
+
+def _main_multihost(args, device) -> None:
+    """Process ``--process-id`` of ``--num-processes`` (JAX cli.py:
+    112-143): join the group, fit this process's block of experiments and
+    gather the limits.  Each process writes the likelihood spaces it
+    fitted (``<prefix>_<i>.<format>``; the JAX CLI writes process 0's
+    only) and a ``multihost_fit`` record to
+    ``<prefix>_metrics_<rank>.jsonl`` (its experiments, wall, the gathered
+    limits and its kernel launches); process 0 prints the limits."""
+    import os
+
+    from sxmc_tpu_torch.fitconfig import FitConfig
+    from sxmc_tpu_torch.observability import MetricsLogger, Stopwatch
+    from sxmc_tpu_torch.ops import kernels
+    from sxmc_tpu_torch.parallel import mesh as mesh_lib
+    from sxmc_tpu_torch.parallel.multihost import run_multihost_ensemble
+    from sxmc_tpu_torch.utils import median
+
+    mesh_lib.initialize_distributed(
+        coordinator_address=args.coordinator,
+        num_processes=args.num_processes, process_id=args.process_id)
+    fc = FitConfig.from_json_file(args.config, data_root=args.data_root)
+    if args.binned:
+        fc.binned = True
+    if args.rate_substeps is not None:
+        fc.rate_substeps = args.rate_substeps
+    os.makedirs(args.output_path, exist_ok=True)
+    rank, count = mesh_lib.process_index_count()
+    sw = Stopwatch()
+    lspaces, limits = run_multihost_ensemble(fc, device=device)
+    wall = sw.real_time()
+    for i, ls in enumerate(lspaces):
+        if ls is not None:
+            ls.save(os.path.join(args.output_path,
+                                 f"{fc.output_prefix}_{i}.{fc.output_format}"))
+    MetricsLogger(os.path.join(
+        args.output_path, f"{fc.output_prefix}_metrics_{rank}.jsonl")).log(
+        "multihost_fit", process=rank, processes=count,
+        experiments=[i for i, ls in enumerate(lspaces) if ls is not None],
+        wall_seconds=wall, limits=limits.tolist(), device=str(device),
+        launches={k: v for k, v in kernels.launch_counts().items() if v})
+    if rank == 0:
+        print("sxmc_tpu_torch: Upper limits:",
+              ", ".join(f"{x!r}" for x in limits.tolist()))
+        print(f"sxmc_tpu_torch: Median upper limit: "
+              f"{median(list(limits))}")
 
 
 if __name__ == "__main__":

@@ -604,6 +604,38 @@ int sx_hist_grid(const SxSpec* sp, int nchains, int weighted, int* nblocks,
   return cudaSuccess;
 }
 
+// The autotuner's limits for this layout and chain count at nslot slots:
+// the blocks of sx_hist_kernel that fit on one SM at that shared memory
+// (0 when nslot slots do not fit the budget), the most slots that fit
+// (sx_hist_fit), the chunks (the most blocks that find rows) and the
+// SMs.  Launches nothing.
+int sx_hist_limits(const SxSpec* sp, int nchains, int weighted, int nslot,
+                   int* occ, int* max_slots, long long* chunks, int* nsm) {
+  if (nchains < 1 || nchains > SX_MAXCHAINS || nslot < 0 ||
+      nslot > kMaxSlots || (nslot & (nslot - 1)) != 0)
+    return cudaErrorInvalidValue;
+  const bool w = weighted != 0;
+  const SxRead rd = sx_read_plan(*sp);
+  const int width = sx_hist_width(rd);
+  const int cells = nchains * sp->ndyn * sp->total;
+  const bool chains = nchains > 1;
+  *max_slots = sx_hist_fit(cells, w);
+  const long long chunk =
+      (long long)sx_hist_rows(width, chains, w) * SX_THREADS;
+  const long long n = sp->seg_off[sp->ndyn];
+  *chunks = n > 0 ? (n + chunk - 1) / chunk : 1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  *occ = 0;
+  if (nslot > *max_slots) return cudaSuccess;
+  const int smem = sx_hist_smem(cells, nchains * sp->ndyn, nslot, w);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      occ, sx_hist_fn(width, chains, w), SX_THREADS, smem);
+}
+
 // B1: par holds nchains parameter vectors pstride apart; weighted samples
 // carry their weight row after the nfields fields.  nblocks and nslot as
 // sx_hist_grid gives them (nslot: 0 or a power of two whose slots fit

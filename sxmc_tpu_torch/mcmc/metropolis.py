@@ -485,7 +485,8 @@ def _loop(step, carry, noise, u):
 
 
 def _phase_runner(mcmc: MCMC, read_bins: torch.Tensor, chain_nll,
-                  debug_mode: bool, m: int = 0, full_cov: bool = False):
+                  debug_mode: bool, m: int = 0, full_cov: bool = False,
+                  stepper: bool = False):
     """``(run, init_extras)``: ``run(carry, noise, u)`` -> ``(carry,
     samples (n, ..., npar), (hi (n, ...), lo (n, ...)), accepts (n,
     ...))`` for one fixed-proposal phase, with ``carry = (params, (hi,
@@ -495,9 +496,11 @@ def _phase_runner(mcmc: MCMC, read_bins: torch.Tensor, chain_nll,
     Fused route: one launch per phase of B4 (diagonal or tril) or, for
     ``m`` blocked rate moves on an unweighted stack, B5, all fed
     ``log(u)``.  Stepper route: a loop of :func:`_make_step` or the
-    blocked cycle."""
+    blocked cycle; ``stepper`` takes the stepper loop of ``chain_nll``
+    on any stack."""
     no_extras = lambda params: ()  # noqa: E731
-    fused = _blocked_fused_ok(mcmc) if m else _fused_ok(mcmc)
+    fused = not stepper and (_blocked_fused_ok(mcmc) if m
+                             else _fused_ok(mcmc))
     if fused:
         stack = mcmc.stack
         if m:
@@ -655,7 +658,7 @@ def run_chain(mcmc: MCMC, read_bins: torch.Tensor, nsteps: int,
               burnin_steps: int, debug_mode: bool,
               presampler: Presampler, nchains: int = 1,
               rate_substeps: int = 0, proposal: str = "diagonal",
-              pool: bool = False):
+              pool: bool = False, chain_nll=None):
     """One chain, or ``nchains`` lock-step chains, through the three
     phases (metropolis.py:595-780, 1020-1196, 1221-1289): retuning the
     widths, or with ``proposal="full_cov"`` the trils, after each
@@ -663,7 +666,11 @@ def run_chain(mcmc: MCMC, read_bins: torch.Tensor, nsteps: int,
     retunes them from the pooled RMS (:func:`pooled_retune`,
     ``_run_chains_pooled``).  ``rate_substeps`` takes blocked cycles
     where they apply (:func:`_blocked_enabled`); the presampler must
-    then hand out the blocked layout (:func:`presample`).
+    then hand out the blocked layout (:func:`presample`).  ``chain_nll``
+    (params -> ``(hi, lo)``, joint steps) replaces the model's NLL and
+    takes the stepper loop (the event-sharded chain's, and the unsharded
+    stepper it is held against: ``_chain_nll(mcmc, rb,
+    allow_fused=False)``).
 
     Returns ``(samples, (hi, lo), accept_rate)`` of the recorded steps
     (the main phase, plus the burn-in phases in debug mode), chains
@@ -672,14 +679,18 @@ def run_chain(mcmc: MCMC, read_bins: torch.Tensor, nsteps: int,
     check_proposal(proposal, rate_substeps)
     full_cov = proposal == "full_cov"
     m = rate_substeps if _blocked_enabled(mcmc, rate_substeps) else 0
-    chain_nll = _chain_nll(mcmc, read_bins)
+    stepper = chain_nll is not None
+    if stepper and m:
+        raise ValueError("a caller's chain_nll takes joint steps only")
+    if chain_nll is None:
+        chain_nll = _chain_nll(mcmc, read_bins)
     params, cur, width = initial_state(mcmc, read_bins, nchains, chain_nll)
     if full_cov:
         width = _initial_scale_tril(mcmc, nchains)
     retune = (retune_scale_tril if full_cov else
               pooled_retune if pool else retune_width)
     run, init_extras = _phase_runner(mcmc, read_bins, chain_nll, debug_mode,
-                                     m, full_cov)
+                                     m, full_cov, stepper)
     carry = (params, cur, width) + tuple(init_extras(params))
 
     def phase(k, n, carry):

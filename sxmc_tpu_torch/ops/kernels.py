@@ -108,7 +108,8 @@ class HistSpec:
     seg_off: Tuple[int, ...]
     weighted: bool = False
     # B1's per-layout state, made at its first launch: its C spec and
-    # each (chains, device)'s grid and slots (sx_hist_grid).
+    # each (chains, device)'s grid and slots (b1_grid: the autotuner's
+    # verdict for the shape, else sx_hist_grid's rule).
     _b1: dict = dataclasses.field(default_factory=dict, init=False,
                                   repr=False, compare=False, hash=False)
 
@@ -362,6 +363,10 @@ def _library() -> ctypes.CDLL:
     lib.sx_error_string.restype = ctypes.c_char_p
     lib.sx_hist_grid.argtypes = [_P, _I, _I, _P, _P]
     lib.sx_hist_grid.restype = _I
+    # sx_hist_limits: spec, nchains, weighted, nslot -> occupancy, the
+    # most slots, chunks, SMs (the autotuner's sweep).
+    lib.sx_hist_limits.argtypes = [_P, _I, _I, _I, _P, _P, _P, _P]
+    lib.sx_hist_limits.restype = _I
     # sx_histogram: spec, nchains, weighted, samples, par, pstride,
     # nblocks, nslot, acc, ticket, out, stream.
     lib.sx_histogram.argtypes = [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P,
@@ -738,34 +743,84 @@ def _b1_accumulator(dev: torch.device, stream: int, cells: int):
     return got[1], got[1] + 8 * got[2]
 
 
+def _b1_spec(hs: HistSpec) -> _CSpec:
+    cs = hs._b1.get("spec")
+    if cs is None:
+        cs = hs._b1["spec"] = _c_spec(hs, None, 0)
+    return cs
+
+
+def b1_grid(hs: HistSpec, nch: int, dev: torch.device,
+            tuned: bool = True) -> Tuple[int, int]:
+    """B1's ``(blocks, slots)`` for this layout and chain count on
+    ``dev``: sx_hist_grid's rule, or with ``tuned`` the autotuner's
+    verdict for the shape where one is recorded."""
+    lib = _library()
+    nb, ns = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        _check_cuda(lib, lib.sx_hist_grid(ctypes.byref(_b1_spec(hs)), nch,
+                                          int(hs.weighted), ctypes.byref(nb),
+                                          ctypes.byref(ns)), "sx_hist_grid")
+    rule = (nb.value, ns.value)
+    if not tuned:
+        return rule
+    from sxmc_tpu_torch.ops import autotune
+
+    return autotune.tuned_grid(autotune.kind_of(hs), hs.total, hs.ndyn,
+                               hs.n, nch, hs.weighted, rule)
+
+
+def b1_limits(hs: HistSpec, nch: int, dev: torch.device, nslot: int):
+    """``(blocks per SM, most slots, chunks, SMs)`` of B1 at ``nslot``
+    slots for this layout and chain count on ``dev`` (sx_hist_limits):
+    the autotuner's sweep stays within them."""
+    lib = _library()
+    occ, most, nsm = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    chunks = ctypes.c_longlong(0)
+    with torch.cuda.device(dev):
+        _check_cuda(lib, lib.sx_hist_limits(
+            ctypes.byref(_b1_spec(hs)), nch, int(hs.weighted), nslot,
+            ctypes.byref(occ), ctypes.byref(most), ctypes.byref(chunks),
+            ctypes.byref(nsm)), "sx_hist_limits")
+    return occ.value, most.value, chunks.value, nsm.value
+
+
+def launch_histogram_at(hs: HistSpec, samples: torch.Tensor,
+                        theta: torch.Tensor, nch: int,
+                        grid: Tuple[int, int]):
+    """One B1 launch on ``grid`` = ``(blocks, slots)`` instead of the
+    plan's (the autotuner's sweep and B1's probe; not counted as a
+    launch): ``(counts (nch, ndyn, total), norms (nch, ndyn))``."""
+    _check_samples(hs, samples)
+    _check_theta(hs, theta, 2 if nch > 1 else 1, samples.device)
+    return _launch_histogram(hs, samples, theta, nch, "B1 at a grid",
+                             grid=grid)
+
+
 def _launch_histogram(hs: HistSpec, samples: torch.Tensor,
                       theta: torch.Tensor, nch: int, what: str,
-                      one: bool = False):
+                      one: bool = False, grid=None):
     """One B1 launch: ``(counts (nch, ndyn, total), norms (nch, ndyn))``
-    float32, without the chain axis when ``one``, on the grid and slots
-    of sx_hist_grid's rule.  The per-layout state is made at the first
-    launch: the host cost of a call is what it must check and launch."""
+    float32, without the chain axis when ``one``, on ``grid`` or the
+    plan's.  The plan is made at the first launch for a layout, chain
+    count and device (the host cost of a call is what it must check and
+    launch): the grid and slots of the autotuner's verdict for the
+    shape, where one is recorded (``ops.autotune.tuned_grid``), else of
+    sx_hist_grid's rule."""
     dev = samples.device
     lib = _library()
-    plan = hs._b1.get((nch, dev.index))
-    if plan is None:
-        cs = hs._b1.get("spec")
-        if cs is None:
-            cs = hs._b1["spec"] = _c_spec(hs, None, 0)
-        nb, ns = ctypes.c_int(0), ctypes.c_int(0)
-        _check_cuda(lib, lib.sx_hist_grid(ctypes.byref(cs), nch,
-                                          int(hs.weighted), ctypes.byref(nb),
-                                          ctypes.byref(ns)), what)
-        plan = hs._b1[(nch, dev.index)] = (nb.value, ns.value,
-                                           nch * hs.ndyn * hs.total)
-    nblocks, nslot, nh = plan
+    nh = nch * hs.ndyn * hs.total
+    if grid is None:
+        grid = hs._b1.get((nch, dev.index))
+        if grid is None:
+            grid = hs._b1[(nch, dev.index)] = b1_grid(hs, nch, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     acc, ticket = _b1_accumulator(dev, stream, nh)
     out = torch.empty(nh + nch * hs.ndyn, dtype=torch.float32, device=dev)
-    err = lib.sx_histogram(ctypes.byref(hs._b1["spec"]), nch,
-                           int(hs.weighted), samples.data_ptr(),
-                           theta.data_ptr(), theta.shape[-1], nblocks, nslot,
-                           acc, ticket, out.data_ptr(), stream)
+    err = lib.sx_histogram(ctypes.byref(_b1_spec(hs)), nch, int(hs.weighted),
+                           samples.data_ptr(), theta.data_ptr(),
+                           theta.shape[-1], grid[0], grid[1], acc, ticket,
+                           out.data_ptr(), stream)
     _check_cuda(lib, err, what)
     ndyn, total = hs.ndyn, hs.total
     if one:

@@ -1,9 +1,8 @@
-"""The sharded ensemble of the PyTorch port (``--sharded``), on one card.
-
-Port of ``sxmc_tpu/parallel/ensemble.py``: every experiment's chains as
-one batch through the experiment-grouped kernels, on the one device the
-run is given (the JAX package's 1 x 1 mesh).  Running across cards and
-hosts (``torch.distributed``; the JAX package's ``mesh.py``,
-``multihost.py`` and the ``*_sharded.py`` modules) is ROADMAP queue A,
-item 14.
+"""Sharding and fan-out of the PyTorch port (port of ``sxmc_tpu/parallel``):
+the sharded ensemble (``ensemble``: every experiment's chains as one
+batch, on one device or over a mesh's ``{exp, chain}`` blocks), device
+meshes and process groups (``mesh``), the multi-process ensemble over
+``torch.distributed`` (``multihost``), the event-sharded NLL and chain
+(``nll_sharded``, ``chain_sharded``), the bin-sharded table
+(``bin_sharded``) and sharded toy fits (``toys_sharded``).
 """

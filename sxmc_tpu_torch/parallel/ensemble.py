@@ -1,15 +1,23 @@
 """Sharded ensemble: every fake experiment's chains as one batch.
 
-Port of ``sxmc_tpu/parallel/ensemble.py`` on one card (the JAX
-package's 1 x 1 mesh: the whole batch on the one device it is given;
-across cards, ``torch.distributed``, is ROADMAP queue A, item 14).
-It replaces the reference's serial experiment loop (sxmc.cpp:59-145):
-all ``nexperiments`` datasets are drawn and padded to a common event
-count (pad rows have zero coordinates and the dataset tag ``PAD_TAG``,
-which no signal uses, so every read bin of theirs is a sentinel: -1
-where zero lies outside the domain, else -2; either adds exactly 0 to
-the NLL), and the chains of all experiments run as one batch of
-``nexp x nchains``.
+Port of ``sxmc_tpu/parallel/ensemble.py``.  It replaces the reference's
+serial experiment loop (sxmc.cpp:59-145): all ``nexperiments`` datasets
+are drawn and padded to a common event count (pad rows have zero
+coordinates and the dataset tag ``PAD_TAG``, which no signal uses, so
+every read bin of theirs is a sentinel: -1 where zero lies outside the
+domain, else -2; either adds exactly 0 to the NLL), and the chains of
+all experiments run as one batch of ``nexp x nchains``.
+
+Placement: without a mesh the batch runs on the one device it is given
+(the JAX package's 1 x 1 mesh).  With ``mesh=`` (``parallel.mesh``:
+``exp`` and ``chain`` axes) the batch is split into the mesh's ``{exp,
+chain}`` blocks when they divide it (the JAX package's
+``_fused_route_ok``), and each block runs its segments on its own device
+from the same streams; the histories are gathered to the mesh's first
+device.  A chain walks the same in any block (the experiment-grouped
+kernels and the plain versions compute each chain on its own, and the
+burn-in moments of its retunes are summed on the host in one order per
+chain), so a sharded run equals the one-device batch.
 
 Routes, as the JAX package chooses them (``_fused_route_ok``):
   * **grouped**: floating systematics, the unbinned likelihood, and (for
@@ -57,7 +65,7 @@ the JAX package does (:447-452).
 from __future__ import annotations
 
 import os
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +76,8 @@ from sxmc_tpu_torch.generator import make_fake_dataset
 from sxmc_tpu_torch.mcmc import metropolis
 from sxmc_tpu_torch.mcmc.metropolis import HAARIO, MCMC
 from sxmc_tpu_torch.observability import MetricsLogger, Stopwatch
+from sxmc_tpu_torch.parallel import mesh as mesh_lib
+from sxmc_tpu_torch.parallel.mesh import Mesh
 from sxmc_tpu_torch.stats.likelihood import LikelihoodSpace
 from sxmc_tpu_torch.utils import (as_f32, median, resolve_device,
                                   segment_seed)
@@ -150,35 +160,35 @@ def _fused_route_ok(mcmc: MCMC, rate_substeps: int) -> bool:
     return metropolis._fused_ok(mcmc)
 
 
-def other_cards_note(device: torch.device) -> Optional[str]:
-    """What to tell the user when more cards are visible than the one
-    the run uses, else None."""
-    if device.type != "cuda" or torch.cuda.device_count() <= 1:
-        return None
-    return (f"{torch.cuda.device_count()} cards visible; the sharded "
-            f"ensemble runs on {device} alone (across cards: ROADMAP queue "
-            "A, item 14)")
-
-
-def _ensemble_setup(fc: FitConfig, nsteps: int, device,
-                    dataset_fn: Optional[Callable[[int], np.ndarray]]):
-    """Model, read bins ``(nexp, nsignals, nevents)`` of the padded
-    datasets, and the padded datasets: a pure function of the
-    FitConfig, so a resumed run rebuilds them identically.  Experiment
-    i's dataset is the one ``run_ensemble`` draws for it (its first
-    attempt's data seed), or ``dataset_fn(i)``."""
-    mcmc = MCMC(fc.sources, fc.signals, fc.systematics, fc.observables,
-                device=device, binned=fc.binned)
+def draw_datasets(fc: FitConfig, stack, experiments: Sequence[int],
+                  dataset_fn: Optional[Callable[[int], np.ndarray]] = None,
+                  poisson: bool = True) -> List[np.ndarray]:
+    """The datasets of global experiments ``experiments``: experiment
+    i's is the one ``run_ensemble`` draws for it (its first attempt's
+    data seed; ``poisson=False`` takes every expected count exactly), or
+    ``dataset_fn(i)``."""
     datasets = []
-    for i in range(fc.nexperiments):
+    for i in experiments:
         if dataset_fn is not None:
             datasets.append(np.asarray(dataset_fn(i), np.float32))
             continue
         data_seed, _ = experiment_seeds(fc.seed, i, 0)
         datasets.append(make_fake_dataset(
             torch.Generator().manual_seed(data_seed), fc.signals,
-            fc.systematics, fc.observables, stack=mcmc.stack, poisson=True))
-    batch = pad_datasets(datasets)
+            fc.systematics, fc.observables, stack=stack, poisson=poisson))
+    return datasets
+
+
+def _ensemble_setup(fc: FitConfig, nsteps: int, device,
+                    dataset_fn: Optional[Callable[[int], np.ndarray]]):
+    """Model, read bins ``(nexp, nsignals, nevents)`` of the padded
+    datasets (:func:`draw_datasets`), and the padded datasets: a pure
+    function of the FitConfig, so a resumed run rebuilds them
+    identically."""
+    mcmc = MCMC(fc.sources, fc.signals, fc.systematics, fc.observables,
+                device=device, binned=fc.binned)
+    batch = pad_datasets(draw_datasets(fc, mcmc.stack,
+                                       range(fc.nexperiments), dataset_fn))
     rb = mcmc.stack.compute_read_bins(batch)
     return (mcmc, rb, batch, max(fc.nchains, 1),
             int(nsteps * fc.burnin_fraction))
@@ -232,10 +242,15 @@ def _segment(mcmc: MCMC, params, nll_pair, width, rb, noise, u,
         samples, nlls, _ = run(params, torch.stack(nll_pair, dim=-1), width,
                                rb, noise, torch.log(u), mcmc.nll_spec,
                                debug_mode)
-        samples = samples.movedim(0, 2)
-        hi, lo = nlls[..., 0].movedim(0, 2), nlls[..., 1].movedim(0, 2)
-        return (samples[:, :, -1], (hi[:, :, -1], lo[:, :, -1]), samples,
-                (hi, lo))
+        # Contiguous histories: torch's sum over the steps of a strided
+        # view takes an order that depends on the batch's size, and a
+        # chain's moments must not depend on the chains beside it.
+        samples = samples.movedim(0, 2).contiguous()
+        hi = nlls[..., 0].movedim(0, 2).contiguous()
+        lo = nlls[..., 1].movedim(0, 2).contiguous()
+        return (samples[:, :, -1].contiguous(),
+                (hi[:, :, -1].contiguous(), lo[:, :, -1].contiguous()),
+                samples, (hi, lo))
     proposal = "full_cov" if full_cov else "diagonal"
     outs = []
     for e in range(rb.shape[0]):
@@ -250,6 +265,115 @@ def _segment(mcmc: MCMC, params, nll_pair, width, rb, noise, u,
             torch.stack([o[2].movedim(0, 1) for o in outs]),
             (torch.stack([o[3][0].movedim(0, 1) for o in outs]),
              torch.stack([o[3][1].movedim(0, 1) for o in outs])))
+
+
+class _Shard(NamedTuple):
+    """One ``{exp, chain}`` block of the batch: the model on its device
+    and the experiments and chains it holds."""
+
+    mcmc: MCMC
+    exps: Tuple[int, int]
+    chains: Tuple[int, int]
+
+
+def _shards(fc: FitConfig, mcmc: MCMC, mesh: Optional[Mesh], nexp: int,
+            nchains: int) -> List[_Shard]:
+    """The batch's blocks: one on ``mcmc``'s device without a mesh, or
+    when the mesh's ``exp`` and ``chain`` sizes do not divide the batch
+    (the JAX package then leaves the batch unsplit too); else the
+    mesh's ``{exp, chain}`` blocks in order (exp-major), each with a
+    model on its shard's device (one per distinct device)."""
+    whole = [_Shard(mcmc, (0, nexp), (0, nchains))]
+    if mesh is None:
+        return whole
+    ne, nc = mesh.shape.get("exp", 1), mesh.shape.get("chain", 1)
+    if nexp % ne or nchains % nc:
+        return whole
+    models = {mcmc.device: mcmc}
+    out = []
+    for i, eb in enumerate(mesh_lib.blocks(nexp, ne)):
+        for j, cb in enumerate(mesh_lib.blocks(nchains, nc)):
+            idx = tuple({"exp": i, "chain": j}.get(a, 0)
+                        for a in mesh.axis_names)
+            dev = mesh.devices[idx]
+            if dev not in models:
+                models[dev] = MCMC(fc.sources, fc.signals, fc.systematics,
+                                   fc.observables, device=dev,
+                                   binned=fc.binned)
+            out.append(_Shard(models[dev], eb, cb))
+    return out
+
+
+def _gather(parts: Sequence, shards: Sequence[_Shard], device):
+    """Reassemble the shards' outputs (each a nest of tuples of tensors
+    with leading ``(exps, chains)`` axes) on ``device``: chain blocks
+    side by side, then experiment blocks."""
+    first = parts[0]
+    if isinstance(first, tuple):
+        return tuple(_gather([p[k] for p in parts], shards, device)
+                     for k in range(len(first)))
+    rows, row, cur = [], [], shards[0].exps
+    for p, sh in zip(parts, shards):
+        if sh.exps != cur:
+            rows.append(torch.cat(row, dim=1))
+            row, cur = [], sh.exps
+        row.append(p.to(device))
+    rows.append(torch.cat(row, dim=1))
+    return torch.cat(rows, dim=0)
+
+
+def _sharded_segment(shards: Sequence[_Shard], params, nll_pair, width, rb,
+                     noise, u, debug_mode: bool, m: int, full_cov: bool,
+                     grouped: bool):
+    """:func:`_segment` on every shard's block, on its device, the
+    results gathered on the device of ``params``.  The shards are issued
+    in turn from this thread; on distinct cards their launches overlap
+    until the gather."""
+    if len(shards) == 1:
+        return _segment(shards[0].mcmc, params, nll_pair, width, rb, noise,
+                        u, debug_mode, m, full_cov, grouped)
+    home = params.device
+    outs = []
+    for sh in shards:
+        (e0, e1), (c0, c1) = sh.exps, sh.chains
+        dev = sh.mcmc.device
+
+        def mine(t, trailing):
+            idx = (slice(None),) * (t.dim() - 2 - trailing) + (
+                slice(e0, e1), slice(c0, c1))
+            return t[idx].to(dev).contiguous()
+
+        tail = 2 if full_cov else 1
+        with mesh_lib.on(dev):
+            outs.append(_segment(
+                sh.mcmc, mine(params, 1), (mine(nll_pair[0], 0),
+                                           mine(nll_pair[1], 0)),
+                mine(width, tail), rb[e0:e1].to(dev).contiguous(),
+                mine(noise, 1), mine(u, 0), debug_mode, m, full_cov,
+                grouped))
+    return _gather(outs, shards, home)
+
+
+def _step_sums(x: torch.Tensor) -> torch.Tensor:
+    """Each chain's float32 sum of an ``(nexp, nchains, n, ...)`` history
+    over its n steps, on ``x``'s device.  Summed on the host, every
+    chain's steps in one fixed pairwise order (numpy, the steps
+    contiguous): a device reduction's order depends on how many chains it
+    sums at once (a card splits few outputs over more blocks), and a
+    chain's retunes must not depend on the chains beside it (a process's
+    block, a mesh shard)."""
+    a = np.ascontiguousarray(np.moveaxis(x.cpu().numpy(), 2, -1))
+    return torch.as_tensor(a.sum(axis=-1), device=x.device)
+
+
+def _step_cross(samples: torch.Tensor, cref: torch.Tensor) -> torch.Tensor:
+    """Each chain's float32 sum over the steps of ``(x - c)(x - c)^T``,
+    ``x`` the ``(nexp, nchains, n, npar)`` history and ``c`` the
+    phase-start point ``(nexp, nchains, npar)``: on the host, in the one
+    order of numpy's einsum loop (see :func:`_step_sums`)."""
+    xc = samples.cpu().numpy() - cref.cpu().numpy()[:, :, None, :]
+    return torch.as_tensor(np.einsum("ecsi,ecsj->ecij", xc, xc),
+                           device=samples.device)
 
 
 def _check_streams(noise, u, n, nexp, nchains, npar, m, phase, seg):
@@ -282,7 +406,7 @@ def _run_segmented(fc: FitConfig, mcmc: MCMC, rb, nchains: int,
                    burnin_steps: int, nsteps: int, m: int, full_cov: bool,
                    grouped: bool, streams: StreamFn,
                    checkpoint_path: Optional[str], checkpoint_steps: int,
-                   resume: bool):
+                   resume: bool, shards: Sequence[_Shard]):
     """The segmented batched walk (JAX ensemble.py:429-616): two burn-in
     phases, each followed by a retune of every chain from its running
     phase moments, then the sampling phase.  Without a checkpoint path
@@ -344,18 +468,17 @@ def _run_segmented(fc: FitConfig, mcmc: MCMC, rb, nchains: int,
             noise, u = streams(phase, seg_idx, seg_len)
             _check_streams(noise, u, seg_len, nexp, nchains, npar, m, phase,
                            seg_idx)
-            params, nll, samples, hist = _segment(
-                mcmc, params, nll, width, rb, noise, u, fc.debug_mode, m,
+            params, nll, samples, hist = _sharded_segment(
+                shards, params, nll, width, rb, noise, u, fc.debug_mode, m,
                 full_cov, grouped)
             if retune_after:
                 count = count + float(seg_len)
                 if full_cov:
-                    xc = samples - cref[:, :, None, :]
-                    psum = psum + xc.sum(dim=2)
-                    pcross = pcross + torch.einsum("ecsi,ecsj->ecij", xc, xc)
+                    psum = psum + _step_sums(samples - cref[:, :, None, :])
+                    pcross = pcross + _step_cross(samples, cref)
                 else:
-                    psum = psum + samples.sum(dim=2)
-                    psumsq = psumsq + (samples * samples).sum(dim=2)
+                    psum = psum + _step_sums(samples)
+                    psumsq = psumsq + _step_sums(samples * samples)
             elif checkpoint_path:
                 np.savez(_seg_file(checkpoint_path, phase, seg_idx),
                          samples=samples.cpu().numpy(),
@@ -403,12 +526,13 @@ def _run_segmented(fc: FitConfig, mcmc: MCMC, rb, nchains: int,
 
 def _run_per_experiment(fc: FitConfig, mcmc: MCMC, rb, batch, nchains: int,
                         burnin_steps: int, nsteps: int, m: int,
-                        streams: StreamFn):
+                        streams: StreamFn, shards: Sequence[_Shard]):
     """Experiment by experiment through ``metropolis.run_chain`` (its
     lock-step chains, per-chain retunes from each burn-in phase's
     samples; the burn-in phases kept in debug mode), each phase's
-    streams those of segment 0 of the grouped layout.  Returns ``samples
-    (nexp, nchains, nkeep, npar)`` and NLLs ``(nexp, nchains, nkeep)``."""
+    streams those of segment 0 of the grouped layout, each experiment on
+    the device of the shard that holds it.  Returns ``samples (nexp,
+    nchains, nkeep, npar)`` and NLLs ``(nexp, nchains, nkeep)``."""
     npar = mcmc.nparameters
     nexp = rb.shape[0]
     drawn = {}
@@ -422,19 +546,24 @@ def _run_per_experiment(fc: FitConfig, mcmc: MCMC, rb, batch, nchains: int,
 
     samples, nlls = [], []
     for e in range(nexp):
-        def presampler(k, n, e=e):
+        model = next(sh.mcmc for sh in shards
+                     if sh.exps[0] <= e < sh.exps[1])
+        dev = model.device
+
+        def presampler(k, n, e=e, dev=dev):
             noise, u = phase_streams(k, n)
             noise, u = noise[..., e, :, :], u[..., e, :]
             if nchains == 1:  # run_chain's single chain has no chain axis
                 noise, u = noise[..., 0, :], u[..., 0]
-            return noise.contiguous(), u.contiguous()
+            return noise.to(dev).contiguous(), u.to(dev).contiguous()
 
-        if mcmc.stack._kde_exact:
+        if model.stack._kde_exact:
             # This experiment's padded events for the kde_exact rows.
-            mcmc.stack.set_kde_points(batch[e])
-        s, (hi, lo), _ = metropolis.run_chain(
-            mcmc, rb[e], nsteps, burnin_steps, fc.debug_mode, presampler,
-            nchains, m, fc.proposal)
+            model.stack.set_kde_points(batch[e])
+        with mesh_lib.on(dev):
+            s, (hi, lo), _ = metropolis.run_chain(
+                model, rb[e].to(dev), nsteps, burnin_steps, fc.debug_mode,
+                presampler, nchains, m, fc.proposal)
         samples.append(s.reshape(nchains, -1, npar).cpu().numpy())
         nlls.append(metropolis.nll_history_to_f64((hi, lo)).reshape(
             nchains, -1))
@@ -442,14 +571,17 @@ def _run_per_experiment(fc: FitConfig, mcmc: MCMC, rb, batch, nchains: int,
 
 
 def _collect_results(fc: FitConfig, mcmc: MCMC, samples, nll_vals,
-                     verbose: bool):
+                     verbose: bool, experiments: Optional[Sequence[int]] = None):
     """(nexp, nchains, nkeep, ...) histories -> likelihood spaces and the
-    upper limits on ``fc.signal_name`` (JAX ensemble.py:343-360)."""
+    upper limits on ``fc.signal_name`` (JAX ensemble.py:343-360), row k
+    being global experiment ``experiments[k]`` (default k)."""
     lspaces, limits = [], []
-    for i in range(fc.nexperiments):
+    if experiments is None:
+        experiments = range(samples.shape[0])
+    for k, i in enumerate(experiments):
         ls = LikelihoodSpace.from_arrays(
-            samples[i].reshape(-1, mcmc.nparameters),
-            nll_vals[i].reshape(-1), mcmc.parameter_names,
+            samples[k].reshape(-1, mcmc.nparameters),
+            nll_vals[k].reshape(-1), mcmc.parameter_names,
             cl=fc.confidence, error_type=fc.error_type)
         lspaces.append(ls)
         if fc.signal_name and fc.signal_name in mcmc.parameter_names:
@@ -459,6 +591,44 @@ def _collect_results(fc: FitConfig, mcmc: MCMC, samples, nll_vals,
                 print(f"experiment {i}: {fc.signal_name}: "
                       f"{bf[fc.signal_name]}")
     return lspaces, limits
+
+
+def fit_batch(fc: FitConfig, mcmc: MCMC, rb: torch.Tensor, batch,
+              nsteps: int, streams: StreamFn,
+              checkpoint_path: Optional[str] = None,
+              checkpoint_steps: int = 0, resume: bool = False,
+              mesh: Optional[Mesh] = None):
+    """Fit the ``(nexp, nsignals, nevents)`` read bins ``rb`` (of the
+    padded events ``batch``) as one batch of ``nexp x fc.nchains``
+    chains from ``streams``: the grouped kernels where the stack takes
+    them (segmented), else experiment by experiment; split over
+    ``mesh``'s ``{exp, chain}`` blocks when given.  Returns ``(samples
+    (nexp, nchains, nkeep, npar), NLLs (nexp, nchains, nkeep), route,
+    M)``, the histories as numpy."""
+    nchains = max(fc.nchains, 1)
+    burnin_steps = int(nsteps * fc.burnin_fraction)
+    full_cov = fc.proposal == "full_cov"
+    m = (fc.rate_substeps
+         if metropolis._blocked_enabled(mcmc, fc.rate_substeps) else 0)
+    grouped = _fused_route_ok(mcmc, fc.rate_substeps)
+    shards = _shards(fc, mcmc, mesh, rb.shape[0], nchains)
+    # Debug (accept-all) fits keep the per-experiment runner, whose
+    # history includes the burn-in phases; the segmented runner keeps
+    # only the sampling phase.
+    if checkpoint_steps > 0 or (grouped and not fc.debug_mode):
+        route = "grouped" if grouped else "per experiment, segmented"
+        samples, nlls = _run_segmented(
+            fc, mcmc, rb, nchains, burnin_steps, nsteps, m, full_cov,
+            grouped, streams, checkpoint_path, checkpoint_steps, resume,
+            shards)
+    else:
+        route = "per experiment"
+        samples, nlls = _run_per_experiment(fc, mcmc, rb, batch, nchains,
+                                            burnin_steps, nsteps, m, streams,
+                                            shards)
+    if len(shards) > 1:
+        route += f", {len(shards)} shards"
+    return samples, nlls, route, m
 
 
 def run_sharded_ensemble(
@@ -472,9 +642,12 @@ def run_sharded_ensemble(
     stream_fn: Optional[StreamFn] = None,
     dataset_fn: Optional[Callable[[int], np.ndarray]] = None,
     metrics: Optional[MetricsLogger] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Tuple[List[LikelihoodSpace], List[float]]:
     """Generate and fit every experiment as one batch on ``device`` (the
-    card unless the caller asks for the CPU).
+    card unless the caller asks for the CPU), or over ``mesh``'s
+    ``{exp, chain}`` blocks (then on its devices, the histories gathered
+    on its first).
 
     ``checkpoint_steps > 0`` (with a ``checkpoint_path`` prefix) runs the
     walk in persisted segments; ``resume=True`` continues a killed run
@@ -487,44 +660,32 @@ def run_sharded_ensemble(
     the likelihood spaces and the upper limits on ``fc.signal_name``.
     """
     nsteps = nsteps or fc.nsteps
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.flat()[0] if mesh is not None else device)
     if checkpoint_steps > 0 and not checkpoint_path:
         raise ValueError("checkpoint_steps > 0 requires checkpoint_path")
     metropolis.check_proposal(fc.proposal, fc.rate_substeps)
-    note = other_cards_note(dev)
-    if note and verbose:
-        print(f"sxmc_tpu_torch: {note}")
+    devices = {dev} | set(mesh.flat() if mesh is not None else ())
 
     def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     sw = Stopwatch()
-    mcmc, rb, batch, nchains, burnin_steps = _ensemble_setup(
-        fc, nsteps, dev, dataset_fn)
+    mcmc, rb, batch, nchains, _ = _ensemble_setup(fc, nsteps, dev,
+                                                  dataset_fn)
     sync()
     setup_s = sw.real_time()
     nexp = fc.nexperiments
-    full_cov = fc.proposal == "full_cov"
     m = (fc.rate_substeps
          if metropolis._blocked_enabled(mcmc, fc.rate_substeps) else 0)
-    grouped = _fused_route_ok(mcmc, fc.rate_substeps)
     streams = stream_fn or default_streams(fc.seed, nexp, nchains,
                                            mcmc.nparameters, m, dev)
 
     sw.start()
-    # Debug (accept-all) fits keep the per-experiment runner, whose
-    # history includes the burn-in phases; the segmented runner keeps
-    # only the sampling phase.
-    if checkpoint_steps > 0 or (grouped and not fc.debug_mode):
-        route = "grouped" if grouped else "per experiment, segmented"
-        samples, nlls = _run_segmented(
-            fc, mcmc, rb, nchains, burnin_steps, nsteps, m, full_cov,
-            grouped, streams, checkpoint_path, checkpoint_steps, resume)
-    else:
-        route = "per experiment"
-        samples, nlls = _run_per_experiment(fc, mcmc, rb, batch, nchains,
-                                            burnin_steps, nsteps, m, streams)
+    samples, nlls, route, m = fit_batch(
+        fc, mcmc, rb, batch, nsteps, streams, checkpoint_path,
+        checkpoint_steps, resume, mesh)
     sync()
     wall = sw.real_time()
     if metrics is not None:

@@ -18,7 +18,6 @@ import torch
 
 from sxmc_tpu_torch.generator import make_fake_dataset_batch
 from sxmc_tpu_torch.stats.bfgs import Objective
-from sxmc_tpu_torch.stats.feldman_cousins import _not_ported_mesh
 from sxmc_tpu_torch.stats.intervals import chi2_quantile_1dof
 from sxmc_tpu_torch.stats.mle import (_LOG_CLAMP, MLE, _scatter_spec,
                                       nll_function, solve_rates, toy_state)
@@ -86,10 +85,9 @@ def pull_study(mle: MLE, ntoys: int, gen: Optional[torch.Generator],
     """A pull/bias study around a gradient MLE: ``ntoys`` toys generated
     at ``rates`` (by parameter name; default the nominal means) from
     ``gen`` (a ``torch.Generator`` on the fit's device), or taken from
-    ``toys(gen_rates, ntoys)`` when given, and fitted as one batch.
-    Returns the PullStudy over the free rate parameters."""
-    if mesh is not None:
-        _not_ported_mesh()
+    ``toys(gen_rates, ntoys)`` when given, and fitted as one batch (or
+    split over ``mesh``'s shards, ``parallel.toys_sharded``, with the same
+    results).  Returns the PullStudy over the free rate parameters."""
     truth = np.asarray(mle.parameter_means, np.float64).copy()
     if rates:
         for name, value in rates.items():
@@ -104,7 +102,12 @@ def pull_study(mle: MLE, ntoys: int, gen: Optional[torch.Generator],
             mle.stack, poisson=True, rates=gen_rates,
             fluctuate_systematics=fluctuate_systematics)
     rb = mle.stack.compute_read_bins(batch)
-    rhat, err = toy_fit_batch(mle, rb, tuple(mle._free_rates))
+    if mesh is not None:
+        from sxmc_tpu_torch.parallel.toys_sharded import sharded_pull_batch
+
+        rhat, err = sharded_pull_batch(mesh, mle, rb, tuple(mle._free_rates))
+    else:
+        rhat, err = toy_fit_batch(mle, rb, tuple(mle._free_rates))
     free = list(mle._free_rates)
     return PullStudy(names=[mle.parameter_names[i] for i in free],
                      true_rates=truth[np.asarray(free, int)],

@@ -40,12 +40,6 @@ class Belt:
     dnll_toys: np.ndarray     # (G, ntoys) the full toy dNLL distributions
 
 
-def _not_ported_mesh():
-    raise NotImplementedError(
-        "mesh= (toy fits sharded across cards) is not ported to "
-        "sxmc_tpu_torch yet (ROADMAP queue A, item 14: across cards)")
-
-
 def pad_toys(batches: Sequence[torch.Tensor]) -> torch.Tensor:
     """Toy batches ``(ntoys_i, nev_i, ncols)`` stacked along the toys,
     padded to the longest with tag -1 rows (observables 0)."""
@@ -81,9 +75,10 @@ class FeldmanCousins:
         the ``(ntoys, nev, ncols)`` batch of one grid point (rates keyed
         by signal name), which is how the tests feed both packages the
         same toys.  ``fluctuate_systematics`` draws each toy's
-        constrained coefficients from their priors at generation."""
-        if mesh is not None:
-            _not_ported_mesh()
+        constrained coefficients from their priors at generation.
+        ``mesh`` (``parallel.mesh.Mesh``) splits the (grid x toys) fit
+        batch over its shards, each on its device, with the same results
+        (``parallel.toys_sharded``)."""
         mle = self.mle
         r_grid = np.asarray(r_grid, np.float32)
         per_point = []
@@ -101,8 +96,14 @@ class FeldmanCousins:
             per_point.append(batch)
         rb = mle.stack.compute_read_bins(pad_toys(per_point))
         r_values = np.repeat(r_grid, ntoys)
-        dnll, _ = toy_dnll_batch(mle, r_values, rb, self.k,
-                                 tuple(mle._free_rates))
+        if mesh is not None:
+            from sxmc_tpu_torch.parallel.toys_sharded import sharded_toy_dnll
+
+            dnll, _ = sharded_toy_dnll(mesh, mle, r_values, rb, self.k,
+                                       tuple(mle._free_rates))
+        else:
+            dnll, _ = toy_dnll_batch(mle, r_values, rb, self.k,
+                                     tuple(mle._free_rates))
         dnll = dnll.reshape(len(r_grid), ntoys)
         crit = np.quantile(dnll, cl, axis=1)
         if verbose:
@@ -133,9 +134,11 @@ class FeldmanCousins:
 
     def run(self, gen: torch.Generator, data, r_grid: Sequence[float],
             ntoys: int = 200, cl: float = 0.9, verbose: bool = False,
-            toys=None) -> Interval:
-        """Belt + observed interval in one call."""
-        belt = self.build_belt(gen, r_grid, ntoys, cl, verbose, toys=toys)
+            toys=None, mesh=None) -> Interval:
+        """Belt + observed interval in one call (``mesh`` as in
+        :meth:`build_belt`)."""
+        belt = self.build_belt(gen, r_grid, ntoys, cl, verbose, mesh=mesh,
+                               toys=toys)
         self.last_belt = belt
         return self.interval(data, belt)
 

@@ -116,9 +116,12 @@ def test_counts_from_read_bins_batched():
 
 
 def test_unported_options_still_raise(tmp_path):
+    """Combinations the CLI refuses: --num-processes 2 without the
+    --coordinator a process group needs, and --sharded with a sampler or
+    a tier option that the sharded runner does not take."""
     from sxmc_tpu_torch.cli import main
 
-    for flags, err in ((["--num-processes", "2"], NotImplementedError),
+    for flags, err in ((["--num-processes", "2"], ValueError),
                        (["--sharded", "--sampler", "nuts"], ValueError),
                        (["--sharded", "--sampler", "mle"], ValueError),
                        (["--sharded", "--hypotest", "8"], ValueError)):

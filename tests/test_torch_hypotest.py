@@ -108,5 +108,15 @@ def test_feldman_cousins_with_injected_toys(fitted):
 
 
 def test_mesh_raises(fitted):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        FeldmanCousins(fitted[0], "a").build_belt(None, [0.3], mesh=object())
+    """``mesh=`` no longer raises: the belt through a 2-shard CPU mesh
+    (``parallel.toys_sharded``) equals the unsharded belt on the same
+    toys."""
+    from sxmc_tpu_torch.parallel.mesh import make_mesh
+
+    fc = FeldmanCousins(fitted[0], "a")
+    mesh = make_mesh(exp=2, devices=[torch.device("cpu")] * 2)
+    belts = [fc.build_belt(None, GEN.FC_GRID[:2], ntoys=GEN.NTOYS, cl=0.9,
+                           toys=stored_toys("fc_toys_"), mesh=m)
+             for m in (None, mesh)]
+    np.testing.assert_array_equal(belts[1].dnll_toys, belts[0].dnll_toys)
+    np.testing.assert_array_equal(belts[1].crit, belts[0].crit)

@@ -73,14 +73,16 @@ def test_imports_with_jax_blocked_and_cuda_is_explicit(tmp_path):
                                   ["--checkpoint-steps", "100"],
                                   ["--rate-substeps", "2"], ["--binned"],
                                   ["--sampler", "hmc"],
-                                  ["--num-processes", "2"]])
+                                  ["--sharded", "--sampler", "tempered"]])
 def test_out_of_slice_cli_flags_raise(tmp_path, flag):
-    """Flags off the port raise naming their ROADMAP item; --binned,
-    --rate-substeps and --sharded, ported since, run a binned, a blocked
+    """--binned, --rate-substeps and --sharded run a binned, a blocked
     or a sharded fit of the golden configuration, --hypotest, --gof
     and --bias-study the frequentist tier beside its Metropolis fit,
     --checkpoint-steps a checkpointed fit (its file removed at the end)
-    and --sampler hmc an HMC fit (12 steps: 17 evaluations a step)."""
+    and --sampler hmc an HMC fit (12 steps: 17 evaluations a step);
+    --sharded with --sampler tempered, which the sharded runner does not
+    take, raises ValueError instead of quietly running a Metropolis
+    fit."""
     from sxmc_tpu_torch.cli import main
 
     if flag in (["--binned"], ["--rate-substeps", "2"], ["--sharded"],
@@ -115,19 +117,23 @@ def test_out_of_slice_cli_flags_raise(tmp_path, flag):
             assert fit[0]["sampler"] == "hmc"
             assert fit[0]["evaluations"] == 1 + 12 * 17
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="tempered"):
         main(["config.json", str(tmp_path), "--device", "cpu"] + flag)
 
 
 @pytest.mark.parametrize("entry", ["MCMC", "PdfStack", "EvalHist",
                                    "TemperedMCMC", "run_sharded_ensemble",
-                                   "MLE", "HMC", "NUTS", "StretchSampler"])
+                                   "MLE", "HMC", "NUTS", "StretchSampler",
+                                   "run_multihost_ensemble",
+                                   "run_sharded_chain", "make_mesh",
+                                   "event_sharded_nll"])
 def test_entry_points_default_to_the_card(entry, monkeypatch):
     """MCMC, TemperedMCMC, HMC, NUTS, StretchSampler, MLE, PdfStack,
-    EvalHist and the sharded ensemble (``run_sharded_ensemble``) take the
-    card unless the caller asks for the CPU: without CUDA, calling one
-    with no device raises (naming --device cpu) instead of quietly running
-    on the CPU."""
+    EvalHist, the sharded ensemble (``run_sharded_ensemble``), the
+    multi-process ensemble, the event-sharded chain and NLL and the mesh
+    take the card unless the caller asks for the CPU: without CUDA,
+    calling one with no device raises (naming --device cpu) instead of
+    quietly running on the CPU."""
     import torch
 
     from sxmc_tpu_torch.fitconfig import FitConfig
@@ -137,6 +143,10 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
     from sxmc_tpu_torch.mcmc.stretch import StretchSampler
     from sxmc_tpu_torch.mcmc.tempered import TemperedMCMC
     from sxmc_tpu_torch.parallel import ensemble
+    from sxmc_tpu_torch.parallel import mesh as mesh_lib
+    from sxmc_tpu_torch.parallel.chain_sharded import run_sharded_chain
+    from sxmc_tpu_torch.parallel.multihost import run_multihost_ensemble
+    from sxmc_tpu_torch.parallel.nll_sharded import event_sharded_nll
     from sxmc_tpu_torch.pdf.evalhist import EvalHist
     from sxmc_tpu_torch.pdf.stack import PdfStack
     from sxmc_tpu_torch.stats.mle import MLE
@@ -169,10 +179,23 @@ def test_entry_points_default_to_the_card(entry, monkeypatch):
              "PdfStack": lambda: PdfStack(sigs, obs, systs),
              "EvalHist": lambda: EvalHist(
                  np.zeros((4, 1), np.float32), 1, 1, [0.0], [1.0], [2]),
-             "run_sharded_ensemble": lambda: sharded()}
+             "run_sharded_ensemble": lambda: sharded(),
+             "run_multihost_ensemble": lambda: run_multihost_ensemble(
+                 FitConfig(sources=srcs, signals=sigs, systematics=systs,
+                           observables=obs, nexperiments=2, nsteps=10)),
+             "run_sharded_chain": lambda: run_sharded_chain(
+                 MCMC(srcs, sigs, systs, obs, device="cpu"),
+                 np.zeros((4, 2), np.float32), 10),
+             "make_mesh": lambda: mesh_lib.make_mesh(),
+             "event_sharded_nll": lambda: event_sharded_nll(
+                 None, MCMC(srcs, sigs, systs, obs, device="cpu").static)}
     if torch.cuda.is_available():
-        got = build[entry]()
-        assert getattr(got, "device", got).type == "cuda"
+        if entry in ("make_mesh", "MCMC", "PdfStack", "EvalHist",
+                     "TemperedMCMC", "MLE", "HMC", "NUTS", "StretchSampler",
+                     "run_sharded_ensemble"):
+            got = build[entry]()
+            got = got.flat()[0] if entry == "make_mesh" else got
+            assert getattr(got, "device", got).type == "cuda"
         return
     with pytest.raises(RuntimeError, match="--device cpu"):
         build[entry]()

@@ -130,23 +130,19 @@ def test_plotting_failure_does_not_kill_the_fit(example_run, tmp_path,
 
 @pytest.mark.parametrize("flag, item", [
     (["--profile", "logdir"], "item 7"),
-    (["--process-id", "1"], "item 14"),
+    (["--num-processes", "1", "--process-id", "0"], "item 14"),
     (["--hypotest-band"], "item 10"),
     (["--hypotest-asymptotic"], "item 10")])
 def test_jax_cli_options_raise_naming_their_item(tmp_path, flag, item):
-    """Options of sxmc_tpu.cli that the port does not run raise
-    NotImplementedError naming their ROADMAP item (not argparse's exit
-    2).  The ported ones run, here beside the gradient MLE on the golden
-    configuration: --hypotest-band alone adds nothing (the band needs
+    """Options of sxmc_tpu.cli run in the port (each once named by a
+    ROADMAP item), here on the golden configuration: --hypotest-band
+    alone beside the gradient MLE adds nothing (the band needs
     --hypotest's toys, as in the JAX package), --hypotest-asymptotic
     writes the Asimov limit (item 10, the statistics tier), --profile
     writes a torch.profiler trace of a short Metropolis fit into its
-    directory (item 7)."""
-    if item == "item 14":
-        with pytest.raises(NotImplementedError,
-                           match=f"{flag[0]} .*{item}\\)"):
-            main(["config.json", str(tmp_path), "--device", "cpu"] + flag)
-        return
+    directory (item 7), and --process-id with --num-processes 1 (item 14,
+    the multi-process ensemble) runs the ordinary fit, a group of one
+    process being no group, as in the JAX package."""
     golden = REPO / "tests" / "data" / "golden"
     cfg = json.loads((golden / "config.json").read_text())
     cfg["fit"].update(nexperiments=1, output_format="npz")
@@ -155,6 +151,12 @@ def test_jax_cli_options_raise_naming_their_item(tmp_path, flag, item):
     out = tmp_path / "out"
     argv = [str(path), str(out), "--device", "cpu", "--data-root",
             str(golden)]
+    if item == "item 14":
+        cfg["fit"]["nsteps"] = 100
+        path.write_text(json.dumps(cfg))
+        assert main(argv + flag) == 0
+        assert (out / "golden_0.npz").exists()
+        return
     if flag[0] == "--profile":
         cfg["fit"]["nsteps"] = 100
         path.write_text(json.dumps(cfg))

@@ -1,6 +1,7 @@
 """Speed of the port's main paths in two checkouts, in turns, on one card.
 
     python3 bench_turns.py OTHER_CHECKOUT [--json PATH] [--skip-turns]
+        [--binned ROUNDS] [--b2 ROUNDS]
 
 from the root of a checkout, on a machine with one Hopper card.  It runs
 four fresh processes in this order: OTHER, THIS, THIS, OTHER, each with
@@ -53,6 +54,14 @@ rounds of the four turns: its chain-steps/s, the host's time to issue
 one B1-batched call, and a torch.profiler trace of a 1,000-step fit (the
 step period on the card's clock, busy time and idle share, device
 operations a step; see ``_measure_binned``).
+``--b2 ROUNDS`` runs only B2's study, in ROUNDS rounds of the four
+turns: at each shape of ``chip_smoke.b2_cases`` (the example's LUT, 8
+chains x 2 signals on its 2 read-bin rows, 2 x 1M events x 1,000 bins,
+16 rows on 2 at that size, rows of 60,000 bins), ``chip_smoke.
+b2_measure``'s numbers: ms a call back to back (CUDA events; through the
+read bins' plan where the tree has plans, and through ``lut_eval``),
+card ms (torch.profiler), the plain version's ms, torch.gather's ms
+and card ms, and the bound.
 Compare two versions only within one such call: the card and its power
 limit are printed beside the numbers.
 """
@@ -315,6 +324,38 @@ def _measure_binned(tree: str) -> dict:
     return out
 
 
+def _measure_b2(tree: str) -> dict:
+    """B2's shapes in this process, with ``tree``'s package (see the
+    module docstring)."""
+    _import_tree(tree)
+    import torch
+    from sxmc_tpu_torch.ops import kernels
+    from sxmc_tpu_torch.signal import nominal_params
+
+    smoke = _smoke()
+    kernels.build()
+    dev = torch.device("cuda")
+    out = {"tree": tree}
+    with tempfile.TemporaryDirectory() as workdir:
+        cfg_path = smoke.write_example(workdir)
+        mcmc, _ = smoke.example_mcmc(torch, cfg_path, workdir)
+        st = mcmc.stack
+        theta = torch.as_tensor(nominal_params(mcmc.systematics),
+                                device=dev)
+        gen = torch.Generator(dev).manual_seed(5)
+        thetas = theta + 0.01 * torch.randn((NCHAINS, theta.shape[0]),
+                                            generator=gen, device=dev)
+        cases = smoke.b2_cases(torch, st, st.read_bins, theta, thetas)
+        for name, (cnt, nrm, rb, bv) in cases.items():
+            want = kernels.lut_eval_plain(cnt, nrm, rb, bv)
+            smoke.lut_equal(torch, kernels.lut_eval(cnt, nrm, rb, bv), want)
+            del want
+            big = rb.numel() * cnt.shape[0] // rb.shape[0] > 1e6
+            out[name] = smoke.b2_measure(torch, kernels, cnt, nrm, rb, bv,
+                                         50 if big else 200)
+    return out
+
+
 def _hist_at(torch, kernels, hs, x, th, nch: int, grid):
     """One B1 launch on ``grid`` = (blocks, slots) in place of the
     plan's (``kernels.launch_histogram_at``; a launch through the wrapper
@@ -491,7 +532,10 @@ def main() -> int:
     ap.add_argument("--binned", type=int, default=0, metavar="ROUNDS",
                     help="only the binned 8-chain path's study, in ROUNDS "
                          "rounds of turns")
+    ap.add_argument("--b2", type=int, default=0, metavar="ROUNDS",
+                    help="only B2's study, in ROUNDS rounds of turns")
     ap.add_argument("--measure", help=argparse.SUPPRESS)
+    ap.add_argument("--measure-b2", help=argparse.SUPPRESS)
     ap.add_argument("--measure-binned", help=argparse.SUPPRESS)
     ap.add_argument("--probe", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -500,6 +544,10 @@ def main() -> int:
         return 0
     if args.measure_binned:
         print("TURN " + json.dumps(_measure_binned(args.measure_binned)),
+              flush=True)
+        return 0
+    if args.measure_b2:
+        print("TURN " + json.dumps(_measure_b2(args.measure_b2)),
               flush=True)
         return 0
     if args.probe:
@@ -516,9 +564,10 @@ def main() -> int:
                          text=True).stdout.strip()
     other = str(pathlib.Path(args.other).resolve())
     turns = (other, str(HERE), str(HERE), other)
-    if args.binned:
-        jobs = [["--measure-binned", tree] for _ in range(args.binned)
-                for tree in turns]
+    if args.binned or args.b2:
+        flag, rounds = (("--measure-binned", args.binned) if args.binned
+                        else ("--measure-b2", args.b2))
+        jobs = [[flag, tree] for _ in range(rounds) for tree in turns]
     else:
         jobs = [["--probe"]]
         if not args.skip_turns:
@@ -540,7 +589,7 @@ def main() -> int:
         subprocess.run([sys.executable, "-c",
                         "from sxmc_tpu_torch.ops import kernels; "
                         "kernels.build()"], cwd=other, check=True)
-    if not args.binned:
+    if not args.binned and not args.b2:
         rep = dict(library_report(other), card=smi, run="library")
         runs.append(rep)
         print(json.dumps(rep), flush=True)

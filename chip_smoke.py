@@ -23,9 +23,17 @@ from the root of a checkout, on a machine with one Hopper card.  It
           torch.profiler, which must show exactly one device operation;
           each B1 form's times are printed, and on a line of their own
           those before its redesign (B1_BEFORE, copied from PERF.md);
-       B2 lut_eval: the reference example's LUT (2 signals x its
-          events, 10 bins) and 2 signals x 1M events x 1000 bins; values
-          equal; EvalHist.eval (B1 + B2) on signal1's 500k rows;
+       B2 lut_eval, through the read bins' plan (kernels.LutPlan), as
+          the paths call it: the reference example's LUT (2 signals x
+          its events, 10 bins), 8 chains x 2 signals on its 2 read-bin
+          rows, 2 signals x 1M events x 1000 bins, 16 rows on 2 read-
+          bin rows at that size, and rows of 60,000 bins (past the
+          shared-memory budget), each in its own form and in the L1
+          form, equal bit for bit to the plain version, NaN and 0
+          sentinels in place; each shape's times (back to back through
+          the plan and through lut_eval, on the card, plain), torch.
+          gather's and the bound; EvalHist.eval (B1 + B2) on signal1's
+          500k rows;
        B3 fused_nll / fused_nll_batched: the NLL at the nominal and a
           perturbed point, and at 8 chains, |dNLL| <= NLL_TOL;
        B4 fused_segment / fused_segment_batched: a 500-step segment,
@@ -365,6 +373,115 @@ def lut_equal(torch, got, want) -> float:
     err = float((a - b).abs().max()) if a.numel() else 0.0
     check(torch.equal(a, b), f"LUT values differ (max {err})")
     return err
+
+
+# B2's shapes (PERF.md's table): the example's LUT; the 8 chains x 2
+# signals rows of evaluate_batch (hmc 8 chains, stretch) sharing its 2
+# read-bin rows; 2 signals x 1M events x 1,000 bins; 16 rows sharing 2
+# read-bin rows at that size; and rows of 60,000 bins (a 3-D layout
+# past the shared-memory budget: the L1 form by shape).
+B2_BIG_EVENTS, B2_BIG_BINS, B2_WIDE_BINS = 1_000_000, 1000, 60_000
+
+
+def b2_cases(torch, st, rb, theta, thetas) -> dict:
+    """B2's shapes: name -> (counts, norms, read bins, bin volume)."""
+    dev = rb.device
+    hists, norms = st.histograms(theta)
+    hb, nb = st.histograms_batch(thetas)
+    cases = {
+        "a: 2 x 1,464 events x 10 bins": (hists, norms, rb, st.bin_volume),
+        "b: 16 rows on 2 read-bin rows, 1,464 x 10": (
+            hb.reshape(-1, hb.shape[-1]).contiguous(), nb.reshape(-1),
+            rb, st.bin_volume)}
+    gen = torch.Generator(dev).manual_seed(9)
+    rbb = torch.randint(-2, B2_BIG_BINS, (2, B2_BIG_EVENTS), generator=gen,
+                        device=dev, dtype=torch.int32)
+    for tag, nseg in (("c: 2 x 1M events x 1,000 bins", 2),
+                      ("d: 16 rows on 2 read-bin rows, 1M x 1,000", 16)):
+        cnt = torch.randint(0, 5000, (nseg, B2_BIG_BINS), generator=gen,
+                            device=dev).to(torch.float32)
+        cases[tag] = (cnt, cnt.sum(dim=1), rbb, 0.01)
+    cnt = torch.randint(0, 50, (16, B2_WIDE_BINS), generator=gen,
+                        device=dev).to(torch.float32)
+    rbw = torch.randint(-2, B2_WIDE_BINS, (2, rb.shape[1]), generator=gen,
+                        device=dev, dtype=torch.int32)
+    cases["e: 16 rows on 2, 1,464 x 60,000 bins"] = (cnt, cnt.sum(dim=1),
+                                                      rbw, 0.01)
+    return cases
+
+
+def b2_measure(torch, kernels, counts, norms, rb, bv, reps: int) -> dict:
+    """One B2 shape: the kernel's ms with calls back to back (CUDA events;
+    through the read bins' plan, as the paths call it, in turns with
+    torch.gather's: gather, plan, plan, gather; and through lut_eval,
+    which makes a plan a call; a tree without plans has only lut_eval),
+    its ms on the card (torch.profiler), the plain version's ms,
+    torch.gather's (the same gather without the division and the
+    sentinels) ms and card ms, and the bound (bytes: each read bin read
+    once, each table value and norm once, each output written once)."""
+    nseg, total = counts.shape
+    rows, nev = rb.shape
+    via_lut = lambda: kernels.lut_eval(counts, norms, rb, bv)  # noqa: E731
+    call = via_lut
+    if hasattr(kernels, "LutPlan"):
+        call = lambda p=kernels.LutPlan(rb, bv): p(counts, norms)  # noqa
+    flat = counts.reshape(-1)
+    idx = (torch.arange(nseg, device=rb.device)[:, None] * total
+           + rb.repeat(nseg // rows, 1).clamp(0, total - 1).to(torch.int64)
+           ).reshape(-1)
+    gather = lambda: torch.gather(flat, 0, idx)  # noqa: E731
+    ms, library_ms = in_turns(torch, gather, call, reps, reps)
+    out = {"ms": ms, "lut_eval_ms": cuda_ms(torch, via_lut, reps),
+           "card_ms": device_ms(torch, call, reps, ("sx_eval_lut_kernel",)),
+           "plain_ms": cuda_ms(torch, lambda: kernels.lut_eval_plain(
+               counts, norms, rb, bv), max(reps // 10, 5)),
+           "library_ms": library_ms,
+           "library_card_ms": device_ms(torch, gather, reps, ("gather",)),
+           **bound(4.0 * (nseg * total + nseg + rows * nev + nseg * nev),
+                   float(nseg * nev))}
+    del idx
+    return out
+
+
+def check_b2(torch, kernels, st, rb, theta, thetas) -> dict:
+    """B2 at every shape in both forms (staged and L1: the plan at a
+    budget of 0 takes the L1 form at any shape), each equal to
+    lut_eval_plain bit for bit (NaN and 0 sentinels in place); then the
+    times of each shape's own form (b2_measure).  Returns the kernels
+    line's entry: the example shape's numbers, and every shape's."""
+    shapes = {}
+    for name, (cnt, nrm, rbs, bv) in b2_cases(torch, st, rb, theta,
+                                               thetas).items():
+        want = kernels.lut_eval_plain(cnt, nrm, rbs, bv)
+        forms = {}
+        for tag, plan in (("own", kernels.LutPlan(rbs, bv)),
+                          ("l1", kernels.LutPlan(rbs, bv, budget=0))):
+            got = plan(cnt, nrm)
+            torch.cuda.synchronize()
+            err = lut_equal(torch, got, want)
+            forms[tag] = plan.form(*cnt.shape)
+        check(not forms["l1"]["staged"], f"B2 {name}: L1 form not taken")
+        big = rbs.numel() * cnt.shape[0] // rbs.shape[0] > 1e6
+        res = b2_measure(torch, kernels, cnt, nrm, rbs, bv, 50 if big
+                         else 200)
+        res.update(max_abs_err=err, form=forms["own"], l1_form=forms["l1"],
+                   l1_card_ms=device_ms(torch, lambda p=kernels.LutPlan(
+                       rbs, bv, budget=0): p(cnt, nrm), 50 if big else 200,
+                       ("sx_eval_lut_kernel",)))
+        print(f"B2 lut_eval, {name}: equal to plain in both forms ({forms}); "
+              f"kernel {res['ms']:.4f} ms back to back (lut_eval "
+              f"{res['lut_eval_ms']:.4f}), on the card {res['card_ms']} ms "
+              f"(L1 form {res['l1_card_ms']}), bound {res['bound_ms']:.5f} ms"
+              f" ({res['bound_by']}), plain {res['plain_ms']:.4f} ms, "
+              f"torch.gather {res['library_ms']:.4f} ms (on the card "
+              f"{res['library_card_ms']} ms)")
+        shapes[name] = res
+    a = shapes[next(iter(shapes))]
+    return {"max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
+            "ms": a["ms"], "plain_ms": a["plain_ms"],
+            "library_ms": a["library_ms"], "device_ms": a["card_ms"],
+            "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+            "shapes": shapes}
 
 
 def equal_but_ties(torch, got, want, what: str) -> int:
@@ -707,63 +824,8 @@ def check_kernels(torch, kernels, config_path: str, workdir: str):
     rb = st.read_bins
     nsig, nev = rb.shape
 
-    # B2 at the example shape (the fixed-systematics path's LUT).
-    hists, norms = st.histograms(theta)
-    got = kernels.lut_eval(hists, norms, rb, st.bin_volume)
-    want = kernels.lut_eval_plain(hists, norms, rb, st.bin_volume)
-    torch.cuda.synchronize()
-    err = lut_equal(torch, got, want)
-    ms, plain_ms = in_turns(
-        torch, lambda: kernels.lut_eval_plain(hists, norms, rb,
-                                              st.bin_volume),
-        lambda: kernels.lut_eval(hists, norms, rb, st.bin_volume), 20, 200)
-    flat = hists.reshape(-1)
-    idx = (torch.arange(nsig, device=dev)[:, None] * hs.total
-           + rb.clamp(0, hs.total - 1).to(torch.int64)).reshape(-1)
-    lib_ms = cuda_ms(torch, lambda: torch.gather(flat, 0, idx), 200)
-    lut_names = ("sx_eval_lut_kernel",)
-    dms = device_ms(torch, lambda: kernels.lut_eval(
-        hists, norms, rb, st.bin_volume), 50, lut_names)
-    b2 = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-          "library_ms": lib_ms, "device_ms": dms,
-          **bound(f4 * (nsig * hs.total + nsig + 2 * nsig * nev),
-                  2.0 * nsig * nev)}
-    print(f"B2 lut_eval, {nsig} x {nev} events, {hs.total} bins: values "
-          f"equal; kernel {ms:.4f} ms (on the card {dms} ms), plain "
-          f"{plain_ms:.4f} ms, torch.gather {lib_ms:.4f} ms")
-
-    # B2 at 2 signals x 1M events x 1000 bins.
-    big_n, big_total = 1_000_000, 1000
-    gen = torch.Generator(dev).manual_seed(9)
-    cnt = torch.randint(0, 5000, (2, big_total), generator=gen,
-                        device=dev).to(torch.float32)
-    nrm = cnt.sum(dim=1)
-    rbb = torch.randint(-2, big_total, (2, big_n), generator=gen,
-                        device=dev, dtype=torch.int32)
-    got = kernels.lut_eval(cnt, nrm, rbb, 0.01)
-    want = kernels.lut_eval_plain(cnt, nrm, rbb, 0.01)
-    torch.cuda.synchronize()
-    lut_equal(torch, got, want)
-    msb, plainb = in_turns(
-        torch, lambda: kernels.lut_eval_plain(cnt, nrm, rbb, 0.01),
-        lambda: kernels.lut_eval(cnt, nrm, rbb, 0.01), 5, 50)
-    flatb = cnt.reshape(-1)
-    idxb = (torch.arange(2, device=dev)[:, None] * big_total
-            + rbb.clamp(0, big_total - 1).to(torch.int64)).reshape(-1)
-    libb = cuda_ms(torch, lambda: torch.gather(flatb, 0, idxb), 50)
-    bb = bound(f4 * (2 * big_total + 2 + 4 * big_n), 4.0 * big_n)
-    dmsb = device_ms(torch, lambda: kernels.lut_eval(cnt, nrm, rbb, 0.01),
-                     20, lut_names)
-    dlibb = device_ms(torch, lambda: torch.gather(flatb, 0, idxb), 20,
-                      ("gather",))
-    b2.update(headline_ms=msb, headline_plain_ms=plainb,
-              headline_library_ms=libb, headline_bound_ms=bb["bound_ms"],
-              headline_device_ms=dmsb, headline_library_device_ms=dlibb)
-    print(f"B2 lut_eval, 2 x {big_n} events, {big_total} bins: values "
-          f"equal; kernel {msb:.4f} ms (on the card {dmsb} ms), plain "
-          f"{plainb:.4f} ms, torch.gather {libb:.4f} ms (on the card "
-          f"{dlibb} ms), bound {bb['bound_ms']:.4f} ms ({bb['bound_by']})")
-    del cnt, rbb, idxb
+    # B2 at its shapes, in both forms.
+    b2 = check_b2(torch, kernels, st, rb, theta, thetas)
 
     # EvalHist.eval (B1 with one segment, then B2) on signal1's rows.
     sig = fc.signals[0].histogram
@@ -2464,12 +2526,13 @@ def check_mle_cpu(torch, kernels, config_path: str, workdir: str) -> dict:
     rb = mle.stack.compute_read_bins(toys)
     r_values = np.linspace(0.5, 1.5, 64)
     got = toy_dnll_batch(mle, r_values, rb, 0, mle._free_rates)
-    kernel = kernels.lut_eval
-    kernels.lut_eval = kernels.lut_eval_plain
+    kernel = kernels.LutPlan.__call__
+    kernels.LutPlan.__call__ = lambda plan, c, n: kernels.lut_eval_plain(
+        c, n, plan.read_bins, plan.bin_volume)
     try:
         want = toy_dnll_batch(mle, r_values, rb, 0, mle._free_rates)
     finally:
-        kernels.lut_eval = kernel
+        kernels.LutPlan.__call__ = kernel
     d_err = float(np.abs(got[0] - want[0]).max())
     r_err = float((np.abs(got[1] - want[1]) / np.abs(want[1])).max())
     check(d_err <= 2e-3 and r_err <= 1e-3,
@@ -2890,9 +2953,10 @@ def kde_and_pooled(torch, kernels, config_path: str, workdir: str,
 
 def hmc_host_costs(torch, kernels, config_path: str, workdir: str) -> dict:
     """What paces an HMC step on the card: the host's time to enqueue one
-    B1 (one theta) and one B2 call back to back (no synchronisation: the
-    host clock over 200 calls each, after a warm-up), beside torch.gather
-    over the same LUT; then 20 sampling steps under torch.profiler (CUDA
+    B1 (one theta) and one B2 call (through the read bins' plan, as the
+    step calls it, and through lut_eval) back to back (no
+    synchronisation: the host clock over 200 calls each, after a
+    warm-up), beside torch.gather over the same LUT; then 20 sampling steps under torch.profiler (CUDA
     activity only): device operations a step, busy time a step, and the
     card's idle share of the window (1 - busy / the span from the first
     device operation to the last)."""
@@ -2919,7 +2983,10 @@ def hmc_host_costs(torch, kernels, config_path: str, workdir: str) -> dict:
 
     b1 = host_us(lambda: kernels.segmented_histogram(st.hist_spec,
                                                      st.samples, theta))
-    b2 = host_us(lambda: kernels.lut_eval(hists, norms, rb, st.bin_volume))
+    plan = st.lut_plan(rb)
+    b2 = host_us(lambda: plan(hists, norms))
+    b2_lut_eval = host_us(lambda: kernels.lut_eval(hists, norms, rb,
+                                                   st.bin_volume))
     gather = host_us(lambda: torch.gather(hists, 1, idx))
     fns = s._fns(rb)
     nsteps = 20
@@ -2946,12 +3013,14 @@ def hmc_host_costs(torch, kernels, config_path: str, workdir: str) -> dict:
           f" steps/s, 17 evaluations), {ops:.1f} device operations and "
           f"{busy_us / nsteps:.1f} us of device time a step, the card idle "
           f"{idle:.2%} of the profiled window; host us to enqueue one call "
-          f"back to back: B1 {b1:.2f}, B2 {b2:.2f}, torch.gather {gather:.2f}"
+          f"back to back: B1 {b1:.2f}, B2 {b2:.2f} (lut_eval "
+          f"{b2_lut_eval:.2f}), torch.gather {gather:.2f}"
           f" (the trace holds {b1_seen} of the window's "
           f"{GRAD_EVALS * nsteps} B1 launches)")
     return {"step_ms": step_ms, "device_ops_per_step": ops,
             "busy_us_per_step": busy_us / nsteps, "idle_share": idle,
-            "b1_host_us": b1, "b2_host_us": b2, "gather_host_us": gather}
+            "b1_host_us": b1, "b2_host_us": b2,
+            "b2_lut_eval_host_us": b2_lut_eval, "gather_host_us": gather}
 
 
 # ------------------- the autotuner, the multi-process ensemble, the mesh

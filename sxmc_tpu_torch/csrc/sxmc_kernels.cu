@@ -23,12 +23,23 @@
 //                      pallas_fused_segment_blocked, single-chain,
 //                      batched and experiment-grouped forms.
 //
-// B2 -- what bounds it.  One gather per output: read a read bin, read a
-// count (the table is small and stays in L1/L2), divide, write: memory-
-// bound on the read bins and the output, 8 bytes per value.  Design: a
-// 2-D grid (events x table rows), 4 events per thread with their read
-// bins loaded together, no padding.  The TPU's one-hot matmul exists
-// only because XLA's gather is slow on a TPU; it is not carried over.
+// B2 -- what bounds it.  out[s, i] = counts[s, rb[s % rows, i]] /
+// (norms[s] * bin_volume): the bytes, a read bin read once per read-bin
+// row and a float32 written once per table row (the chains x signals
+// rows of a batched evaluation share the signals' read-bin rows); the
+// table is small and the work a value a lookup.  Design: each block
+// stages its table row's quotients in shared memory once (the same IEEE
+// division as torch's, so the bits do not change), the first tile's read
+// bins already in flight, then sweeps tiles of read bins on a grid sized
+// from the SM count, 16-byte loads and 16-byte streaming stores: no
+// division a value.  One table row a block: the other rows' blocks read
+// the same read-bin row again, from L2.  Blocks that wrote every row
+// sharing a read-bin row from one load of it measured slower on an H100
+// at every shape (their prologue stages every row's table; PERF.md).  A
+// row's table too large for the shared-memory budget takes the L1 form
+// of the same kernel (the counts read through L1, a division a value).
+// The TPU's one-hot matmul exists only because XLA's gather is slow on a
+// TPU; it is not carried over.
 //
 // B3/B4 -- what bounds it.  One Metropolis step is: propose, rebuild
 // the dynamic histograms (the whole MC set, ~12 MB at 1M samples,
@@ -119,47 +130,132 @@ static cudaError_t sx_num_sms(int* nsm) {
 
 // ---------------------------------------------------------------- B2
 
-// out[s, i] = counts[s, rb] / (norms[s] * bin_volume) with rb the read
-// bin of output row s (rb row s % rb_rows): -1 -> NaN (out of domain),
-// -2 -> 0 (dataset mismatch).  A 2-D grid: x over the events, y over
-// the table rows, so no thread divides an index.  Each thread takes
-// kLutPer events a block apart and loads all their read bins before it
-// uses one: one 4-byte load in flight per thread leaves the memory
-// system half idle.  The float32 division is IEEE (nvcc's default
-// -prec-div=true), as torch's, so both give the same bits.
-static const int kLutPer = 4;
+// B2's plan (mirrored by _CLutPlan in sxmc_tpu_torch/ops/kernels.py),
+// made once per read-bins tensor and table shape: rb (rows, nev) int32
+// and nseg table rows of total bins, row s reading rb row s % rows; the
+// form (staged: the row's quotients in shared memory; else the L1 form)
+// and the int4s of read bins a thread loads a tile (vecs, 1 or 4); the
+// grid (gx, gy) and the dynamic shared memory (4 * total bytes, staged).
+struct SxLutPlan {
+  const int* rb;
+  long long nev;
+  int rows, nseg, total, staged, vecs, gx, gy, smem;
+  float bin_volume;
+};
 
-__global__ void sx_eval_lut_kernel(const float* __restrict__ counts,
-                                   const float* __restrict__ norms,
-                                   const int* __restrict__ rb, int nseg,
-                                   int rb_rows, int total, long long nev,
-                                   float bin_volume, float* __restrict__ out) {
-  const long long i0 =
-      (long long)blockIdx.x * blockDim.x * kLutPer + threadIdx.x;
-  for (int s = blockIdx.y; s < nseg; s += gridDim.y) {
-    const float denom = norms[s] * bin_volume;
-    const int* row = rb + (long long)(s % rb_rows) * nev;
-    const float* cnt = counts + (long long)s * total;
-    int b[kLutPer];
+static const int kLutThreads = 256;
+
+// One tile's read bins: int4 v = t * kLutThreads * V + u * kLutThreads +
+// tid of the row's aligned body; past its end, -2 (not written).
+template <int V>
+__device__ __forceinline__ void sx_lut_load(int4 (&b)[V],
+                                            const int4* __restrict__ vrow,
+                                            long long t, long long nvec) {
 #pragma unroll
-    for (int k = 0; k < kLutPer; ++k) {
-      const long long i = i0 + (long long)k * blockDim.x;
-      b[k] = i < nev ? row[i] : -2;
+  for (int u = 0; u < V; ++u) {
+    const long long v = (t * V + u) * kLutThreads + threadIdx.x;
+    b[u] = v < nvec ? vrow[v] : make_int4(-2, -2, -2, -2);
+  }
+}
+
+// The value of read bin `bin`: -1 -> the canonical quiet NaN (as
+// torch's), -2 -> 0, else the quotient of the bin clamped to the table
+// (as the plain version's gather): from the staged row q, or (L1 form)
+// the counts over the row's denominator.
+template <bool kStaged>
+__device__ __forceinline__ float sx_lut_value(const float* q,
+                                              const float* __restrict__ cnt,
+                                              float den, int total,
+                                              int bin) {
+  if (bin == -1) return __int_as_float(0x7fc00000);
+  if (bin == -2) return 0.0f;
+  const int j = min(max(bin, 0), total - 1);
+  return kStaged ? q[j] : cnt[j] / den;
+}
+
+// Four consecutive outputs, stored streaming (evict first: the LUT is
+// written once and read by the caller's next kernel, the read bins and
+// the table stay in cache): one 16-byte store where the address allows
+// it (always when nev % 4 == 0), else four.
+__device__ __forceinline__ void sx_lut_store(float* dst, float4 o) {
+  if (((uintptr_t)dst & 15) == 0) {
+    __stcs(reinterpret_cast<float4*>(dst), o);
+  } else {
+    __stcs(dst, o.x);
+    __stcs(dst + 1, o.y);
+    __stcs(dst + 2, o.z);
+    __stcs(dst + 3, o.w);
+  }
+}
+
+// out[s, i] = counts[s, rb[s % rows, i]] / (norms[s] * bin_volume), -1
+// -> NaN, -2 -> 0: block row y writes table row s = y (and s + gridDim.y,
+// ...).  The staged form first stages the row's quotients (the same IEEE
+// division as the plain version), the first tile's read bins already in
+// flight.  The read-bin row is cut into a head (up to its first 16-byte
+// boundary), a body of int4s and a tail; the body is swept in tiles of V
+// int4s a thread, tile t by block t % gridDim.x, the next tile's loads in
+// flight while this one is written.
+template <bool kStaged, int V>
+__global__ void __launch_bounds__(kLutThreads)
+    sx_eval_lut_kernel(const float* __restrict__ counts,
+                       const float* __restrict__ norms, const SxLutPlan p,
+                       float* __restrict__ out) {
+  extern __shared__ float q[];  // the staged row
+  for (int s = blockIdx.y; s < p.nseg; s += gridDim.y) {
+    const int* row = p.rb + (long long)(s % p.rows) * p.nev;
+    const long long head = min(
+        (long long)((4 - (int)(((uintptr_t)row >> 2) & 3)) & 3), p.nev);
+    const long long nvec = (p.nev - head) >> 2;
+    const long long tail0 = head + 4 * nvec;
+    const int4* vrow = reinterpret_cast<const int4*>(row + head);
+    const float* cnt = counts + (long long)s * p.total;
+    float* orow = out + (long long)s * p.nev;
+    int4 cur[V];
+    long long t = blockIdx.x;
+    sx_lut_load<V>(cur, vrow, t, nvec);
+    const float den = norms[s] * p.bin_volume;
+    if (kStaged) {
+      if (s != (int)blockIdx.y) __syncthreads();  // the last row's readers
+      for (int j = threadIdx.x; j < p.total; j += kLutThreads)
+        q[j] = cnt[j] / den;
+      __syncthreads();
     }
+    // Head and tail: at most three values each, block 0 of the row.
+    if (blockIdx.x == 0 && threadIdx.x < 8) {
+      const long long i = threadIdx.x < 4 ? (long long)threadIdx.x
+                                          : tail0 + threadIdx.x - 4;
+      if ((threadIdx.x < 4 && i < head) || (threadIdx.x >= 4 && i < p.nev))
+        orow[i] = sx_lut_value<kStaged>(q, cnt, den, p.total, row[i]);
+    }
+    for (; t * V * kLutThreads < nvec; t += gridDim.x) {
+      int4 nxt[V];
+      sx_lut_load<V>(nxt, vrow, t + gridDim.x, nvec);
 #pragma unroll
-    for (int k = 0; k < kLutPer; ++k) {
-      const long long i = i0 + (long long)k * blockDim.x;
-      float v;
-      if (b[k] == -1) {
-        v = __int_as_float(0x7fc00000);  // the canonical quiet NaN, as torch's
-      } else if (b[k] == -2) {
-        v = 0.0f;
-      } else {
-        v = cnt[min(max(b[k], 0), total - 1)] / denom;
+      for (int u = 0; u < V; ++u) {
+        const long long v = (t * V + u) * kLutThreads + threadIdx.x;
+        if (v < nvec) {
+          const int4 b = cur[u];
+          sx_lut_store(
+              orow + head + 4 * v,
+              make_float4(sx_lut_value<kStaged>(q, cnt, den, p.total, b.x),
+                          sx_lut_value<kStaged>(q, cnt, den, p.total, b.y),
+                          sx_lut_value<kStaged>(q, cnt, den, p.total, b.z),
+                          sx_lut_value<kStaged>(q, cnt, den, p.total, b.w)));
+        }
+        cur[u] = nxt[u];
       }
-      if (i < nev) out[(long long)s * nev + i] = v;
     }
   }
+}
+
+// The instantiation of a plan's form and loads.
+static const void* sx_lut_fn(int staged, int vecs) {
+  if (vecs == 4)
+    return staged ? (const void*)sx_eval_lut_kernel<true, 4>
+                  : (const void*)sx_eval_lut_kernel<false, 4>;
+  return staged ? (const void*)sx_eval_lut_kernel<true, 1>
+                : (const void*)sx_eval_lut_kernel<false, 1>;
 }
 
 // The instantiation of this layout: the kWide forms when a systematic
@@ -243,24 +339,57 @@ extern "C" {
 
 int sx_spec_size() { return (int)sizeof(SxSpec); }
 
+int sx_lut_plan_size() { return (int)sizeof(SxLutPlan); }
+
 const char* sx_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// B2: counts (nseg, total), norms (nseg,), rb (rb_rows, nev) with nseg
-// a multiple of rb_rows -> out (nseg, nev).
-int sx_eval_lut(const float* counts, const float* norms, const int* rb,
-                int nseg, int rb_rows, int total, long long nev,
-                float bin_volume, float* out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (rb_rows < 1 || nseg % rb_rows != 0 || total < 1)
-    return cudaErrorInvalidValue;
-  if (nseg == 0 || nev == 0) return cudaSuccess;
-  const long long blocks = (nev + 256 * kLutPer - 1) / (256 * kLutPer);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)blocks, nseg < 65535 ? nseg : 65535);
-  sx_eval_lut_kernel<<<grid, 256, 0, st>>>(counts, norms, rb, nseg, rb_rows,
-                                           total, nev, bin_volume, out);
+// B2's limits on device dev: its SMs and the shared memory a block may
+// opt in to (the plan's budget).
+int sx_lut_limits(int dev, int* nsm, int* smem_optin) {
+  cudaError_t err =
+      cudaDeviceGetAttribute(nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(smem_optin,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+// Blocks of B2's form and loads resident on one SM of the current device
+// with smem bytes of dynamic shared memory.  Above 48 KB the form is
+// opted in to the most dynamic shared memory the device allows (so that
+// a later plan with less still launches); a plan is made with its device
+// current, as it is launched.  A failed call's error is taken off the
+// runtime's last error, where the next launch's check would find it.
+int sx_lut_occupancy(int staged, int vecs, int smem, int* occ) {
+  const void* fn = sx_lut_fn(staged, vecs);
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    int dev = 0, most = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  }
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, fn, kLutThreads,
+                                                        smem);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+// B2 on plan p: counts (nseg, total), norms (nseg,) -> out (nseg, nev).
+int sx_eval_lut(const SxLutPlan* p, const float* counts, const float* norms,
+                float* out, void* stream) {
+  void* args[] = {(void*)&counts, (void*)&norms, (void*)p, (void*)&out};
+  cudaError_t err =
+      cudaLaunchKernel(sx_lut_fn(p->staged, p->vecs), dim3(p->gx, p->gy),
+                       dim3(kLutThreads), args, p->smem,
+                       (cudaStream_t)stream);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 

@@ -9,7 +9,10 @@ Five kernels carry the Metropolis fits (sources and notes in
      :func:`segmented_histogram_batched` is its ``(nchains, npar)``
      theta form (the binned likelihood with lock-step chains)
   B2 :func:`lut_eval`             <- sxmc_tpu/ops/pallas_hist.py::
-     pallas_eval_lut (PdfStack.evaluate / evaluate_batch, EvalHist.eval)
+     pallas_eval_lut (PdfStack.evaluate / evaluate_batch, EvalHist.eval);
+     :class:`LutPlan` is its plan for one read-bins tensor, made once
+     where the read bins are fixed, so that a call only checks the table
+     and launches
   B3 :func:`fused_nll`            <- sxmc_tpu/ops/pallas_step.py::
      pallas_fused_step (a chain's initial NLL); :func:`fused_nll_batched`
      for ``(nchains, npar)`` params
@@ -372,8 +375,12 @@ def _library() -> ctypes.CDLL:
     lib.sx_histogram.argtypes = [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P,
                                  _P]
     lib.sx_histogram.restype = _I
-    lib.sx_eval_lut.argtypes = [_P, _P, _P, _I, _I, _I, ctypes.c_longlong,
-                                ctypes.c_float, _P, _P]
+    lib.sx_lut_plan_size.argtypes, lib.sx_lut_plan_size.restype = [], _I
+    lib.sx_lut_limits.argtypes, lib.sx_lut_limits.restype = [_I, _P, _P], _I
+    lib.sx_lut_occupancy.argtypes = [_I, _I, _I, _P]
+    lib.sx_lut_occupancy.restype = _I
+    # sx_eval_lut: plan, counts, norms, out, stream.
+    lib.sx_eval_lut.argtypes = [_P, _P, _P, _P, _P]
     lib.sx_eval_lut.restype = _I
     lib.sx_fused_grid.argtypes = [_P, _I, _I, _P]
     lib.sx_fused_grid.restype = _I
@@ -391,10 +398,12 @@ def _library() -> ctypes.CDLL:
     lib.sx_blocked.argtypes = [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                                _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P]
     lib.sx_blocked.restype = _I
-    if lib.sx_spec_size() != ctypes.sizeof(_CSpec):
-        raise RuntimeError(
-            f"SxSpec is {lib.sx_spec_size()} bytes in C but "
-            f"{ctypes.sizeof(_CSpec)} in ops/kernels.py")
+    for c_name, size, py in (("SxSpec", lib.sx_spec_size(), _CSpec),
+                             ("SxLutPlan", lib.sx_lut_plan_size(),
+                              _CLutPlan)):
+        if size != ctypes.sizeof(py):
+            raise RuntimeError(f"{c_name} is {size} bytes in C but "
+                               f"{ctypes.sizeof(py)} in ops/kernels.py")
     return lib
 
 
@@ -409,8 +418,11 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def _raw_stream(index: int) -> int:
+    """The raw handle of the current stream on CUDA device ``index``
+    (the one a caller made current, as ``torch.cuda.stream`` or
+    ``parallel.mesh.on`` do), without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 # ------------------------------------------------------------- checks
@@ -814,7 +826,7 @@ def _launch_histogram(hs: HistSpec, samples: torch.Tensor,
         grid = hs._b1.get((nch, dev.index))
         if grid is None:
             grid = hs._b1[(nch, dev.index)] = b1_grid(hs, nch, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _raw_stream(dev.index)
     acc, ticket = _b1_accumulator(dev, stream, nh)
     out = torch.empty(nh + nch * hs.ndyn, dtype=torch.float32, device=dev)
     err = lib.sx_histogram(ctypes.byref(_b1_spec(hs)), nch, int(hs.weighted),
@@ -867,6 +879,205 @@ def segmented_histogram_batched(hs: HistSpec, samples: torch.Tensor,
     return out
 
 
+_F32, _Tensor = torch.float32, torch.Tensor
+
+# B2's grid: blocks a row of the grid sized for this many blocks per SM,
+# and the events a read-bin row from which a thread loads four int4s a
+# tile instead of one (kLutThreads = 256 threads a block;
+# csrc/sxmc_kernels.cu), as measured on an H100 (PERF.md).
+LUT_BLOCKS_PER_SM = 4
+LUT_WIDE_EVENTS = 65_536
+_LUT_THREADS = 256
+
+
+class _CLutPlan(ctypes.Structure):
+    """Field-by-field mirror of ``SxLutPlan`` (csrc/sxmc_kernels.cu)."""
+
+    _fields_ = [("rb", ctypes.c_void_p), ("nev", ctypes.c_longlong),
+                ("rows", ctypes.c_int), ("nseg", ctypes.c_int),
+                ("total", ctypes.c_int), ("staged", ctypes.c_int),
+                ("vecs", ctypes.c_int), ("gx", ctypes.c_int),
+                ("gy", ctypes.c_int), ("smem", ctypes.c_int),
+                ("bin_volume", ctypes.c_float)]
+
+
+def lut_form(total: int, nev: int, budget: int) -> Tuple[bool, int]:
+    """B2's form for table rows of ``total`` bins and read-bin rows of
+    ``nev`` events under a shared-memory ``budget`` in bytes: ``(staged,
+    vecs)``.  Staged (each block stages its table row's quotients in
+    shared memory) when a row's table fits the budget, else the L1 form
+    (the counts read through L1, a division a value); a thread loads
+    ``vecs`` int4s of read bins a tile: four from ``LUT_WIDE_EVENTS``
+    events, else one (more blocks for a short row).  The rows that share
+    a read-bin row do not change the form: each block writes one table
+    row, the other rows' reads of its read bins hit L2."""
+    return 4 * total <= budget, 4 if nev >= LUT_WIDE_EVENTS else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _lut_limits(index: int) -> Tuple[int, int]:
+    """(SMs, the shared memory a block may opt in to) of CUDA device
+    ``index``."""
+    lib = _library()
+    nsm, smem = ctypes.c_int(0), ctypes.c_int(0)
+    _check_cuda(lib, lib.sx_lut_limits(index, ctypes.byref(nsm),
+                                       ctypes.byref(smem)), "lut_eval")
+    return nsm.value, smem.value
+
+
+@functools.lru_cache(maxsize=None)
+def _lut_occupancy(index: int, staged: bool, vecs: int, smem: int) -> int:
+    """Blocks of B2's form resident on one SM of device ``index`` (which
+    is made current: the opt-in above 48 KB is set there)."""
+    lib = _library()
+    occ = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = lib.sx_lut_occupancy(int(staged), vecs, smem,
+                                   ctypes.byref(occ))
+    _check_cuda(lib, err, "lut_eval")
+    if occ.value < 1:
+        raise RuntimeError(f"lut_eval: no block of {smem} bytes of shared "
+                           "memory fits an SM")
+    return occ.value
+
+
+class _LutLaunch:
+    """A plan's launch for one table shape: the C plan and its address,
+    the output's and the norms' shapes, the C entry, the stream getter
+    and a template of the output (one element expanded to its shape: no
+    memory of its own, and ``torch.empty_like`` of it is a contiguous
+    tensor by torch's shortest allocation path).  No C plan and no entry
+    where nothing is launched (the CPU, an empty table)."""
+
+    __slots__ = ("c", "addr", "shape", "norms_shape", "fn", "stream", "like")
+
+    def __init__(self, c, shape, fn=None, stream=None, like=None):
+        self.c, self.shape, self.norms_shape = c, shape, shape[:1]
+        self.addr = None if c is None else ctypes.addressof(c)
+        self.fn, self.stream, self.like = fn, stream, like
+
+
+class LutPlan:
+    """B2's plan for one read-bins tensor: ``plan(counts, norms)`` is
+    :func:`lut_eval` ``(counts, norms, read_bins, bin_volume)``.
+
+    The read bins (int32 ``(rows, nev)``, contiguous) and ``bin_volume``
+    (used as float32) are checked once, here; the launch (form, grid and
+    the C plan with its arguments) is made at the first call for each
+    table shape ``(nseg, total)`` and kept.  A call checks ``counts`` and
+    ``norms`` on one fast path, and only where that fails goes through
+    :func:`lut_eval`'s checks, in its order, so that the same exceptions
+    are raised.  On the CPU the plan runs :func:`lut_eval_plain`; on a
+    card it launches the kernel (on the current stream of the read
+    bins' device), never the plain version.  The plan holds the read
+    bins.  ``blocks_per_sm`` sizes the grid and ``budget`` (bytes; the
+    default: what a block may opt in to) picks the form
+    (:func:`lut_form`): a probe or a check may set them (``budget=0``
+    takes the L1 form at any shape)."""
+
+    def __init__(self, read_bins: torch.Tensor, bin_volume: float,
+                 blocks_per_sm: int = LUT_BLOCKS_PER_SM,
+                 budget: Optional[int] = None):
+        if read_bins.dim() != 2:
+            raise ValueError("counts must be (nseg, total) and read_bins "
+                             "(r, nevents)")
+        self.read_bins = read_bins
+        self.rows, self.nev = read_bins.shape
+        self.device = read_bins.device
+        _expect(read_bins, "read_bins", (self.rows, self.nev), torch.int32,
+                self.device)
+        self.bin_volume = float(np.float32(bin_volume))
+        self.blocks_per_sm = int(blocks_per_sm)
+        self.budget = budget
+        # Tensor.get_device() of the read bins: -1 on the CPU.
+        self._index = read_bins.get_device()
+        self._launches = {}  # (nseg, total) -> _LutLaunch
+
+    def __call__(self, counts: torch.Tensor,
+                 norms: torch.Tensor) -> torch.Tensor:
+        launch = (self._launches.get(counts.shape)
+                  if type(counts) is _Tensor else None)
+        index = self._index
+        if (launch is None or type(norms) is not _Tensor
+                or counts.dtype is not _F32 or norms.dtype is not _F32
+                or counts.get_device() != index
+                or norms.get_device() != index
+                or norms.shape != launch.norms_shape
+                or not counts.is_contiguous()
+                or not norms.is_contiguous()):
+            launch = self._check(counts, norms)
+        if index < 0:
+            return lut_eval_plain(counts, norms, self.read_bins,
+                                  self.bin_volume)
+        if launch.fn is None:  # nothing to write
+            return torch.empty(launch.shape, dtype=_F32, device=self.device)
+        out = torch.empty_like(launch.like)
+        err = launch.fn(launch.addr, counts.data_ptr(), norms.data_ptr(),
+                        out.data_ptr(), launch.stream(index))
+        if err:
+            _check_cuda(_library(), err, "lut_eval")
+        _LAUNCHES["lut_eval"] += 1
+        return out
+
+    def _check(self, counts, norms) -> _LutLaunch:
+        """:func:`lut_eval`'s checks of the table, in its order; the
+        launch of its shape."""
+        if counts.dim() != 2:
+            raise ValueError("counts must be (nseg, total) and read_bins "
+                             "(r, nevents)")
+        nseg, total = counts.shape
+        _expect(counts, "counts", (nseg, total), torch.float32, self.device)
+        _expect(norms, "norms", (nseg,), torch.float32, self.device)
+        if self.rows < 1 or nseg % self.rows:
+            raise ValueError(f"{self.rows} read-bin rows do not divide "
+                             f"{nseg} table rows")
+        return self._launch(nseg, total)
+
+    def _launch(self, nseg: int, total: int) -> _LutLaunch:
+        """The launch of ``(nseg, total)`` tables, made at its first use:
+        the form and the grid (one table row a block row; along x, blocks
+        for the plan's blocks per SM, at most one a tile of the row, and
+        from 8 tiles at least two tiles a block, so that its staging and
+        first loads are paid once for both)."""
+        key = (nseg, total)
+        if key in self._launches:
+            return self._launches[key]
+        shape = (nseg, self.nev)
+        if self._index < 0 or nseg == 0 or self.nev == 0:
+            launch = _LutLaunch(None, shape)
+        else:
+            nsm, optin = _lut_limits(self._index)
+            budget = optin if self.budget is None else min(optin,
+                                                           self.budget)
+            staged, vecs = lut_form(total, self.nev, budget)
+            smem = 4 * total if staged else 0
+            occ = _lut_occupancy(self._index, staged, vecs, smem)
+            gy = min(nseg, 65535)
+            int4s = -(-self.nev // 4)
+            tiles = -(-int4s // (_LUT_THREADS * vecs))
+            gx = min(tiles, -(-nsm * min(occ, self.blocks_per_sm) // gy))
+            if tiles >= 8:
+                gx = min(gx, -(-tiles // 2))
+            c = _CLutPlan(self.read_bins.data_ptr(), self.nev, self.rows,
+                          nseg, total, int(staged), vecs, max(gx, 1), gy,
+                          smem, self.bin_volume)
+            launch = _LutLaunch(
+                c, shape, _library().sx_eval_lut,
+                torch._C._cuda_getCurrentRawStream,
+                torch.empty(1, dtype=_F32, device=self.device).expand(shape))
+        self._launches[key] = launch
+        return launch
+
+    def form(self, nseg: int, total: int) -> Optional[dict]:
+        """The launch of ``(nseg, total)`` tables: ``{"staged", "vecs",
+        "grid", "smem"}``; None where nothing is launched (the CPU, an
+        empty table)."""
+        c = self._launch(nseg, total).c
+        return None if c is None else {
+            "staged": bool(c.staged), "vecs": c.vecs, "grid": (c.gx, c.gy),
+            "smem": c.smem}
+
+
 def lut_eval(counts: torch.Tensor, norms: torch.Tensor,
              read_bins: torch.Tensor, bin_volume: float) -> torch.Tensor:
     """B2: the ``(nseg, nev)`` float32 LUT ``counts[s, rb] / (norms[s] *
@@ -877,32 +1088,13 @@ def lut_eval(counts: torch.Tensor, norms: torch.Tensor,
     ``read_bins`` int32 ``(r, nev)`` with ``nseg`` a multiple of r: row s
     reads read-bin row ``s % r`` (chains x signals rows share the
     signals' read bins without a copy).  ``bin_volume`` is used as
-    float32, on both routes.
+    float32, on both routes.  A caller that evaluates the same read bins
+    again makes their :class:`LutPlan` once and calls it.
     """
-    dev = counts.device
-    if counts.dim() != 2 or read_bins.dim() != 2:
+    if counts.dim() != 2:  # the table before the read bins, as ever
         raise ValueError("counts must be (nseg, total) and read_bins "
                          "(r, nevents)")
-    nseg, total = counts.shape
-    _expect(counts, "counts", (nseg, total), torch.float32, dev)
-    _expect(norms, "norms", (nseg,), torch.float32, dev)
-    rows, nev = read_bins.shape
-    if rows < 1 or nseg % rows:
-        raise ValueError(f"{rows} read-bin rows do not divide {nseg} "
-                         f"table rows")
-    _expect(read_bins, "read_bins", (rows, nev), torch.int32, dev)
-    bv = float(np.float32(bin_volume))
-    if dev.type == "cpu":
-        return lut_eval_plain(counts, norms, read_bins, bv)
-    out = torch.empty((nseg, nev), dtype=torch.float32, device=dev)
-    if out.numel() == 0:
-        return out
-    lib = _library()
-    err = lib.sx_eval_lut(_ptr(counts), _ptr(norms), _ptr(read_bins), nseg,
-                          rows, total, nev, bv, _ptr(out), _stream(dev))
-    _check_cuda(lib, err, "lut_eval")
-    _launched("lut_eval")
-    return out
+    return LutPlan(read_bins, bin_volume)(counts, norms)
 
 
 def _check_fused(hs, ns, samples, hist_init, rb, params, nch,
@@ -973,7 +1165,8 @@ def _launch_fused(hs, ns, samples, hist_init, rb, params0, nll0, width,
     scratch = torch.empty(2 * nch * (hs.ndyn * hs.total + hs.ndyn),
                           dtype=_acc_dtype(hs), device=dev)
     tail = (int(debug), _ptr(scratch), _ptr(partials), nblocks.value,
-            _ptr(samples_out), _ptr(nlls_out), _ptr(acc_out), _stream(dev))
+            _ptr(samples_out), _ptr(nlls_out), _ptr(acc_out),
+            _raw_stream(dev.index))
     nev = rb.shape[-1]
     if kind == "blocked":
         err = lib.sx_blocked(

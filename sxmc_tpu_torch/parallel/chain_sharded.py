@@ -83,6 +83,8 @@ class ShardedNLL:
         self.rbs = [read_bins[:, a:b].to(dev).contiguous()
                     for dev, (a, b) in zip(self.devices, mesh_lib.blocks(
                         read_bins.shape[-1], len(self.devices)))]
+        self.plans = [kernels.LutPlan(rb, stack.bin_volume)
+                      for rb in self.rbs]  # B2's, one a shard
         self.luts = None
         if not self.rebuild:
             theta0 = torch.as_tensor(mcmc.parameter_means[self.ns:],
@@ -108,13 +110,12 @@ class ShardedNLL:
         return hists, norms
 
     def _luts(self, hists, norms):
-        bv = self.mcmc.stack.bin_volume
         out = []
-        for rb in self.rbs:
-            with mesh_lib.on(rb.device):
-                nd = norms.to(rb.device)
-                out.append((kernels.lut_eval(hists.to(rb.device), nd, rb, bv),
-                            nd))
+        for plan in self.plans:
+            dev = plan.device
+            with mesh_lib.on(dev):
+                nd = norms.to(dev)
+                out.append((plan(hists.to(dev), nd), nd))
         return out
 
     def __call__(self, params: torch.Tensor):

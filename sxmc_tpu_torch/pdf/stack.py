@@ -12,8 +12,9 @@ its offset (the TPU padded every segment to a chunk multiple instead).
 
 Entry points: :meth:`histograms` (kernel B1) and
 :meth:`histograms_batch` (B1's batched form); :meth:`evaluate` and
-:meth:`evaluate_batch` (B1, then the LUT gather B2), the split path of
-fits whose systematics are fixed or absent; :meth:`fused_nll_pair`
+:meth:`evaluate_batch` (B1, then the LUT gather B2 through the plan of
+the read bins, :meth:`lut_plan`), the split path of fits whose
+systematics are fixed or absent; :meth:`fused_nll_pair`
 (B3) and :meth:`fused_segment` (B4), with :meth:`fused_nll_pair_batch`
 and :meth:`fused_segment_batch` for lock-step chains, and
 :meth:`fused_segment_tril` / :meth:`fused_segment_tril_batch` for
@@ -206,6 +207,7 @@ class PdfStack:
             self.samples = torch.as_tensor(np.ascontiguousarray(rows),
                                            device=self.device)
         self._read_bins = None
+        self._lut_plans = []  # B2's plans, the last read bins asked first
 
     # ------------------------------------------------------------------
 
@@ -225,6 +227,8 @@ class PdfStack:
         rows of the systematics-free ones computed here, once (JAX
         stack.py:686-717)."""
         self._read_bins = self.compute_read_bins(data)
+        if self._read_bins.dim() == 2:
+            self.lut_plan(self._read_bins)
         if self._kde_exact:
             self.set_kde_points(data)
 
@@ -244,6 +248,23 @@ class PdfStack:
             pts, torch.stack(rows) if rows else pts.new_zeros(
                 (0, pts.shape[0])),
             torch.stack(norms) if norms else pts.new_zeros(0))
+
+    def lut_plan(self, read_bins: torch.Tensor) -> kernels.LutPlan:
+        """B2's plan (``kernels.LutPlan``) for ``read_bins``: made once
+        for :meth:`set_data`'s, and for any other the first time it is
+        asked for; the plans of the last two read-bins tensors asked for
+        are kept (a side fit's and the fit's, as the hypothesis test
+        alternates them)."""
+        plans = self._lut_plans
+        for i, plan in enumerate(plans):
+            if plan.read_bins is read_bins:
+                if i:
+                    plans.insert(0, plans.pop(i))
+                return plan
+        plan = kernels.LutPlan(read_bins, self.bin_volume)
+        plans.insert(0, plan)
+        del plans[2:]
+        return plan
 
     @property
     def read_bins(self) -> torch.Tensor:
@@ -392,7 +413,7 @@ class PdfStack:
         late = self._late_kde(theta, use_exact_kde)
         hists, norms = self._histograms(
             theta, [k for k in self._kde if k not in late])
-        lut = kernels.lut_eval(hists, norms, rb, self.bin_volume)
+        lut = self.lut_plan(rb)(hists, norms)
         for i, row, nrm in self._late_rows(theta, rb, late, use_exact_kde):
             lut[i], norms[i] = row, nrm
         return lut, norms
@@ -411,9 +432,9 @@ class PdfStack:
         hists, norms = self._histograms_batch(
             thetas, [k for k in self._kde if k not in late])
         nch = hists.shape[0]
-        lut = kernels.lut_eval(
+        lut = self.lut_plan(rb)(
             hists.reshape(nch * self.nsignals, self.total_nbins),
-            norms.reshape(-1), rb, self.bin_volume)
+            norms.reshape(-1))
         lut = lut.reshape(nch, self.nsignals, rb.shape[1])
         for c in range(nch):
             for i, row, nrm in self._late_rows(thetas[c], rb, late,

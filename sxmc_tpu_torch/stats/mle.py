@@ -498,7 +498,7 @@ def toy_lut(stack, hists: torch.Tensor, norms: torch.Tensor,
     ``(nsignals, ntoys * nev)``."""
     ntoys, nsig, nev = read_bins_batch.shape
     flat = read_bins_batch.transpose(0, 1).reshape(nsig, ntoys * nev)
-    lut = kernels.lut_eval(hists, norms, flat.contiguous(), stack.bin_volume)
+    lut = kernels.LutPlan(flat.contiguous(), stack.bin_volume)(hists, norms)
     return lut.reshape(nsig, ntoys, nev).transpose(0, 1)
 
 

@@ -7,7 +7,7 @@ experiments; their gathered limits equal one process's bit for bit (the
 datasets and streams are keyed by the global experiment, every block is
 padded to the ensemble's longest dataset).  The sharded ensemble split
 over a CPU mesh's ``{exp, chain}`` blocks equals the one-device batch bit
-for bit.  Every subprocess has a timeout.
+for bit.  The children of a test share one deadline.
 """
 
 import json
@@ -16,6 +16,7 @@ import pathlib
 import socket
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -32,7 +33,9 @@ torch.set_num_threads(1)
 HERE = pathlib.Path(__file__).resolve().parent
 REPO = HERE.parent
 WORKER = HERE / "torch_multihost_worker.py"
-TIMEOUT = 300
+# Seconds both children of one test may take together, several times
+# their ~8 s in a loaded Tier-1 run.
+TIMEOUT = 120
 
 
 def _env():
@@ -45,15 +48,17 @@ def _run_all(cmds, cwd):
     procs = [subprocess.Popen(c, env=_env(), cwd=cwd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
+    deadline = time.monotonic() + TIMEOUT
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=TIMEOUT)[0])
+            outs.append(p.communicate(
+                timeout=max(deadline - time.monotonic(), 0))[0])
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.wait()
+                p.wait(timeout=10)  # a killed child is reaped at once
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out[-3000:]
     return outs

@@ -120,7 +120,8 @@ def test_converter(tmp_path, table):
     loaders.write_float_table(a, table[:600], FIELDS)
     loaders.write_float_table(b, table[600:], FIELDS)
     run = subprocess.run([sys.executable, "-m", "sxmc_tpu_torch.io.convert",
-                          a, b, out], capture_output=True, text=True)
+                          a, b, out], capture_output=True, text=True,
+                         timeout=60)
     assert run.returncode == 0, run.stderr
     assert "1000 rows" in run.stdout
     got, fields = loaders.read_float_table(out)

@@ -131,4 +131,4 @@ def test_new_modules_import_no_jax():
             "m.startswith(('jax.', 'sxmc_tpu.'))]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True,
-                   cwd=str(REF_DIR.parents[2]))
+                   cwd=str(REF_DIR.parents[2]), timeout=60)

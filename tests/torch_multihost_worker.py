@@ -56,6 +56,12 @@ def main():
                    "local": [i for i, ls in enumerate(lspaces)
                              if ls is not None],
                    "limits": limits.tolist()}, f)
+    if nproc > 1:
+        # Leave the group in order.  Left to interpreter exit, gloo's
+        # threads may be torn down under a live group, and the process
+        # aborts ("terminate called without an active exception").
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":
